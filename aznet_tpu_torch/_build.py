@@ -1,15 +1,16 @@
 """Build and load the port's CUDA kernels (``aznet_tpu_torch/csrc/*.cu``).
 
-The sources have a plain C interface and are compiled by ``nvcc`` into one
-shared library, loaded with ``ctypes``; no PyTorch headers are involved, so a
-build takes seconds. The library goes to ``build/aznet_tpu_torch/<hash>/``
+The sources have a plain C interface; ``nvcc`` compiles each into an object
+file, all at once in parallel, and links them into one shared library, loaded
+with ``ctypes``; no PyTorch headers are involved, so a build takes seconds. The library goes to ``build/aznet_tpu_torch/<hash>/``
 under the repository root, keyed by a hash of the sources and flags, and is
 built at first use in a process. There is no fallback: a missing ``nvcc`` or
 a failed build raises.
 
 Flags: ``sm_90a`` (Hopper), no ``--use_fast_math`` (it flushes subnormals and
 approximates division) and ``--fmad=false`` (no multiply-add contraction), so
-the NMS kernel's IoU rounds exactly as the reference's separate operations.
+the NMS kernel's IoU and the int8 conv's epilogue round exactly as the
+reference's separate operations.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "aznet_tpu_torch
 LIB_NAME = "libaznet_tpu_torch_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "--fmad=false", "-Xptxas", "-v",
 )
 
@@ -56,12 +57,27 @@ def build() -> Path:
     if lib_path.exists():
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = find_nvcc()
+    objs = [out_dir / f"{src.stem}.{os.getpid()}.o" for src in sources]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(sources, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    logs = [proc.communicate()[0] for proc in procs]
     tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "nvcc.log").write_text(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}{res.stderr}")
+    link = [nvcc, "-shared", NVCC_FLAGS[0], NVCC_FLAGS[1], "-o", str(tmp), *map(str, objs)]
+    failed = [(" ".join(c), log) for c, p, log in zip(cmds, procs, logs) if p.returncode]
+    if not failed:
+        res = subprocess.run(link, capture_output=True, text=True)
+        logs.append(res.stdout + res.stderr)
+        if res.returncode:
+            failed.append((" ".join(link), logs[-1]))
+    (out_dir / "nvcc.log").write_text("\n".join(
+        " ".join(c) + "\n" + log for c, log in zip(cmds + [link], logs)))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(f"{c}\n{log}" for c, log in failed))
     os.replace(tmp, lib_path)  # atomic: a concurrent build never sees a partial file
     return lib_path
 

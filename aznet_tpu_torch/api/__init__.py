@@ -8,6 +8,12 @@
   runs per image.
 
 Everything runs eagerly on ``Net.device``; there is no compile cache.
+
+Int8 (``COMPUTE_DTYPE='int8'``, scales from ``ops/quant.py``): the trunk
+keeps float32 parameters and quantizes its int8 layers once at build time;
+the heads are cast to bf16 and, with ``INT8_HEAD_SCALES``, quantized once
+from those bf16-rounded weights; ``INT8_ROI`` quantizes the trunk's output
+once per image so that ROI align and fc6 run on int8.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import torch
 
 from aznet_tpu.config import Config
 from aznet_tpu_torch.models.aznet import AZNet, init_params
+from aznet_tpu_torch.ops.conv_int8 import quantize_acts
 from aznet_tpu_torch.ops.nms import nms_topk
 from aznet_tpu_torch.ops.preprocess import compute_scale, preprocess_image
 from aznet_tpu_torch.search.propose import az_search
@@ -26,23 +33,28 @@ from aznet_tpu_torch.search.propose import az_search
 
 @dataclasses.dataclass
 class Net:
-    """Model (weights included) + config + device."""
+    """Model (weights included) + config + device. ``params`` is the float32
+    state dict the net was built from, on the host, as the reference's
+    ``Net.params`` is its float32 tree: the model's own weights may be cast
+    or quantized, and a net rebuilt from ``params`` starts from float32."""
 
     model: AZNet
     cfg: Config
     device: torch.device
-
-    @property
-    def params(self) -> dict:
-        return self.model.state_dict()
+    params: dict
 
 
 def _cast_inference_params(model: AZNet, cfg: Config) -> AZNet:
-    """bf16 mode: cast every float parameter to bf16 ONCE (the reference
-    casts per call; the port keeps the cast weights). The fused head dot
-    then runs in f32 on the bf16-rounded weights, as the reference's."""
+    """Cast ONCE (the reference casts per call; the port keeps the cast
+    weights). bf16 mode: every float parameter to bf16. int8 mode: everything
+    but the trunk, whose int8 layers quantize float32 weights. The fused head
+    dot then runs in f32 on the bf16-rounded weights, as the reference's."""
     if cfg.MODEL.COMPUTE_DTYPE == "bfloat16":
         model.to(torch.bfloat16)
+    elif cfg.MODEL.COMPUTE_DTYPE == "int8":
+        for name, child in model.named_children():
+            if name != "trunk":
+                child.to(torch.bfloat16)
     return model
 
 
@@ -63,7 +75,11 @@ def build_az_net(cfg: Config, state_dict: dict | None = None, device="cpu",
     else:
         model.load_state_dict(state_dict)
     model.eval()
-    return Net(_cast_inference_params(model, cfg), cfg, device)
+    params = {k: v.detach().to("cpu", torch.float32, copy=True)
+              for k, v in model.state_dict().items()}
+    model = _cast_inference_params(model, cfg)
+    model.prepare_int8()
+    return Net(model, cfg, device, params)
 
 
 def _canvas_for(h: int, w: int, cfg: Config, bucket: int = 64):
@@ -76,7 +92,19 @@ def _canvas_for(h: int, w: int, cfg: Config, bucket: int = 64):
 
 
 def _blob_dtype(cfg: Config):
+    """float32 in float32 mode, else bf16 (int8 mode's prefix runs in bf16)."""
     return torch.float32 if cfg.MODEL.COMPUTE_DTYPE == "float32" else torch.bfloat16
+
+
+def _maybe_quantize_feat(cfg: Config, feat: torch.Tensor) -> torch.Tensor:
+    """``MODEL.INT8_ROI``: quantize the trunk output once, at conv5_3's
+    calibrated scale (``INT8_HEAD_SCALES[0]``), so that ROI align and fc6 run
+    on int8 at every level of the search."""
+    mc = cfg.MODEL
+    if (mc.INT8_ROI and mc.INT8_HEAD_SCALES and mc.POOLING_MODE == "align"
+            and mc.COMPUTE_DTYPE != "float32"):
+        return quantize_acts(feat, mc.INT8_HEAD_SCALES[0])
+    return feat
 
 
 def _propose_images(model: AZNet, cfg: Config, images, canvas_hw, src_hw=None, scales=None):
@@ -88,7 +116,7 @@ def _propose_images(model: AZNet, cfg: Config, images, canvas_hw, src_hw=None, s
         canvas_hw[0], canvas_hw[1], dtype=_blob_dtype(cfg),
         src_hw=None if src_hw is None else src_hw[i],
         scale=None if scales is None else scales[i]) for i in range(images.shape[0])]
-    feats = model.features(torch.stack([p[0] for p in preps]))
+    feats = _maybe_quantize_feat(cfg, model.features(torch.stack([p[0] for p in preps])))
     outs = []
     for feat, (_, im_scale, valid_hw) in zip(feats, preps):
         boxes, scores, valid = az_search(

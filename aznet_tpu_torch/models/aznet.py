@@ -17,19 +17,18 @@ from aznet_tpu_torch.models.backbones import get_backbone
 from aznet_tpu_torch.models.heads import AZHead
 from aznet_tpu_torch.ops.roi_pool import roi_pool
 
-_INT8_FIELDS = ("INT8_SCALES", "INT8_HEAD_SCALES", "INT8_BACKEND",
-                "INT8_CHAIN_FROM", "INT8_ROI")
-
 
 def check_supported(mc: ModelConfig) -> None:
     """Raise on MODEL settings this port does not implement; warn once for
-    ``CONV1_S2D``, whose rewrite is term-identical to the plain conv1_1."""
-    default = ModelConfig()
-    if mc.COMPUTE_DTYPE not in ("float32", "bfloat16"):
+    ``CONV1_S2D``, whose rewrite is term-identical to the plain conv1_1.
+
+    Int8 is ported for vgg16 only; the trunk checks its own int8 settings
+    (``models/vgg.py``)."""
+    if mc.COMPUTE_DTYPE not in ("float32", "bfloat16", "int8"):
         raise NotImplementedError(f"COMPUTE_DTYPE={mc.COMPUTE_DTYPE!r} is not ported")
-    changed = [f for f in _INT8_FIELDS if getattr(mc, f) != getattr(default, f)]
-    if changed:
-        raise NotImplementedError(f"int8 settings are not ported: {changed}")
+    if mc.COMPUTE_DTYPE == "int8" and mc.BACKBONE != "vgg16":
+        raise NotImplementedError(
+            f"COMPUTE_DTYPE='int8' is ported for vgg16 only, not {mc.BACKBONE!r}")
     if mc.FUSE_CONV1:
         raise NotImplementedError("FUSE_CONV1=True is not ported")
     if mc.POOLING_MODE != "align":
@@ -52,11 +51,24 @@ class AZNet(nn.Module):
         self.model_cfg = model_cfg
         self.trunk = get_backbone(model_cfg)
         p = model_cfg.POOL_SIZE
+        # The heads quantize independently of the trunk (the reference's rule):
+        # INT8_HEAD_SCALES alone selects the int8 fc stack, except in float32.
+        head_scales = (tuple(model_cfg.INT8_HEAD_SCALES)
+                       if model_cfg.COMPUTE_DTYPE != "float32" else ())
         self.head = AZHead(p * p * self.trunk.out_channels, model_cfg.NUM_TEMPLATES,
-                           model_cfg.FC_DIM, model_cfg.FC7_DIM)
+                           model_cfg.FC_DIM, model_cfg.FC7_DIM, int8_scales=head_scales)
 
     def features(self, images: torch.Tensor) -> torch.Tensor:
         return self.trunk(images)
+
+    def prepare_int8(self) -> None:
+        """Quantize the int8 layers' weights once, from the parameters as they
+        are now: call after loading weights and casting (the int8 trunk reads
+        float32 weights, the int8 fc stack the bf16-rounded ones)."""
+        if getattr(self.trunk, "int8_mode", False):
+            self.trunk.prepare_int8()
+        if self.head.fc.int8_scales:
+            self.head.fc.prepare_int8()
 
     def roi_pool_only(self, feat: torch.Tensor, rois: torch.Tensor) -> torch.Tensor:
         mc = self.model_cfg

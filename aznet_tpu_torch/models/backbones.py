@@ -10,9 +10,14 @@ BACKBONES = ("vgg16", "smallnet")
 
 
 def get_backbone(model_cfg: ModelConfig):
-    """The trunk module for a MODEL config."""
+    """The trunk module for a MODEL config; the int8 fields reach the VGG-16
+    trunk when ``COMPUTE_DTYPE='int8'``."""
     if model_cfg.BACKBONE == "vgg16":
-        return VGG16Trunk(width=model_cfg.WIDTH)
+        return VGG16Trunk(width=model_cfg.WIDTH,
+                          int8_mode=model_cfg.COMPUTE_DTYPE == "int8",
+                          int8_scales=tuple(model_cfg.INT8_SCALES),
+                          int8_backend=model_cfg.INT8_BACKEND,
+                          int8_chain_from=model_cfg.INT8_CHAIN_FROM)
     if model_cfg.BACKBONE == "smallnet":
         return SmallTrunk()
     raise ValueError(f"backbone {model_cfg.BACKBONE!r} is not ported; options: {BACKBONES}")

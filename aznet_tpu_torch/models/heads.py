@@ -1,5 +1,5 @@
 """AZ head: fc6/fc7 + zoom/adjacency outputs (inference path of
-``aznet_tpu/models/heads.py``: ``_FCStack`` float path and ``AZHead``).
+``aznet_tpu/models/heads.py``: ``_FCStack``, its int8 stack, and ``AZHead``).
 
 Layer names match the reference's parameter tree (``fc.fc6``, ``fc.fc7``,
 ``zoom_score``, ``adj_score``, ``adj_bbox``) so converted weights load 1:1.
@@ -12,18 +12,68 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from aznet_tpu_torch.ops.conv_int8 import quantize_acts, quantize_columns, scalar_f32
+
+# torch._int_mm on CUDA takes more than 16 rows; the search's first level has 8.
+INT_MM_MIN_ROWS = 32
+
+
+def int8_matmul(x8: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
+    """``x8 [M, K] @ w8[N, K].T`` in exact int32. ``torch._int_mm`` (the
+    card's int8 GEMM; also exact on the CPU); rows are zero-padded to at
+    least :data:`INT_MM_MIN_ROWS` on the card."""
+    m = x8.shape[0]
+    if x8.is_cuda and m < INT_MM_MIN_ROWS:
+        x8 = F.pad(x8, (0, 0, 0, INT_MM_MIN_ROWS - m))
+    return torch._int_mm(x8, w8.t())[:m]
+
 
 class FCStack(nn.Module):
-    """fc6 -> ReLU -> fc7 -> ReLU on flattened NHWC pooled features."""
+    """fc6 -> ReLU -> fc7 -> ReLU on flattened NHWC pooled features.
 
-    def __init__(self, in_dim: int, fc_dim: int = 4096, fc7_dim: int = 0):
+    ``int8_scales = (s_in, s_mid)`` selects the reference's int8 stack: the
+    pooled features quantize at ``s_in`` (or arrive as int8 at ``s_in`` from
+    the int8 ROI align), fc6's output at ``s_mid``; each GEMM accumulates in
+    int32 and dequantizes as ``acc * (s_x * s_w) + bias``; fc7 exits in bf16.
+    The weights are quantized per output column ONCE, by :meth:`prepare_int8`,
+    from the parameters as they are then (bf16-rounded in int8 mode, as the
+    reference quantizes the already-cast tree)."""
+
+    def __init__(self, in_dim: int, fc_dim: int = 4096, fc7_dim: int = 0,
+                 int8_scales: tuple = ()):
         super().__init__()
         self.fc6 = nn.Linear(in_dim, fc_dim)
         self.fc7 = nn.Linear(fc_dim, fc7_dim or fc_dim)
+        self.int8_scales = tuple(int8_scales)
+        self._int8 = None
+
+    def prepare_int8(self) -> None:
+        self._int8 = {name: (*quantize_columns(fc.weight.detach()), fc.bias.detach().float())
+                      for name, fc in (("fc6", self.fc6), ("fc7", self.fc7))}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.reshape(x.shape[0], -1).to(self.fc6.weight.dtype)
+        x = x.reshape(x.shape[0], -1)
+        if self.int8_scales:
+            return self._int8_stack(x)
+        if x.dtype == torch.int8:
+            raise ValueError("int8 pooled features reached a non-int8 head "
+                             "(missing INT8_HEAD_SCALES)")
+        x = x.to(self.fc6.weight.dtype)
         return F.relu(self.fc7(F.relu(self.fc6(x))))
+
+    def _int8_stack(self, x: torch.Tensor) -> torch.Tensor:
+        if self._int8 is None:
+            raise RuntimeError("int8 fc weights are not quantized: call prepare_int8()")
+        s_in, s_mid = self.int8_scales
+
+        def dense(x8, s_x, name):
+            wq, s_w, bias = self._int8[name]
+            acc = int8_matmul(x8, wq)
+            return torch.relu(acc.float() * (scalar_f32(s_x, x8.device) * s_w) + bias)
+
+        x8 = x if x.dtype == torch.int8 else quantize_acts(x, s_in)
+        h8 = quantize_acts(dense(x8, s_in, "fc6"), s_mid)
+        return dense(h8, s_mid, "fc7").to(torch.bfloat16)
 
 
 class AZHead(nn.Module):
@@ -33,10 +83,10 @@ class AZHead(nn.Module):
     SCORE_STD = {"zoom_score": 0.01, "adj_score": 0.01, "adj_bbox": 0.001}
 
     def __init__(self, in_dim: int, num_templates: int = 11, fc_dim: int = 4096,
-                 fc7_dim: int = 0):
+                 fc7_dim: int = 0, int8_scales: tuple = ()):
         super().__init__()
         self.num_templates = num_templates
-        self.fc = FCStack(in_dim, fc_dim, fc7_dim)
+        self.fc = FCStack(in_dim, fc_dim, fc7_dim, int8_scales)
         d = fc7_dim or fc_dim
         self.zoom_score = nn.Linear(d, 1)
         self.adj_score = nn.Linear(d, num_templates)

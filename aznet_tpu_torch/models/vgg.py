@@ -1,11 +1,22 @@
-"""VGG-16 trunk, conv1_1 .. conv5_3 at stride 16 (float path of
-``aznet_tpu/models/vgg.py::VGG16Trunk``).
+"""VGG-16 trunk, conv1_1 .. conv5_3 at stride 16
+(``aznet_tpu/models/vgg.py::VGG16Trunk``): the float path and the int8 path.
 
-NHWC in and out, like the reference. Inside, the NHWC tensor is viewed as
-NCHW in channels-last memory, which is what cuDNN's bf16 convolutions run
+NHWC in and out, like the reference. Float path: the NHWC tensor is viewed
+as NCHW in channels-last memory, which is what cuDNN's bf16 convolutions run
 fastest on, and the output is viewed back without a copy. The 3x3/s1 SAME
 padding is symmetric, so ``padding=1`` matches JAX exactly. The compute
 dtype is the parameters' dtype (the API casts them once).
+
+Int8 path (``VGG16Trunk._int8_forward`` of the reference, inference only):
+conv1_1, conv1_2 and conv2_1 stay bf16 (f32 accumulation and f32 bias);
+conv2_1's f32 result is quantized with its calibrated scale, and every later
+conv runs on int8 activations (``ops/conv_int8.py``: the CUDA kernel on the
+card). A pool after a conv is fused into it when the check of the
+reference's chain holds (every int8 layer's width a multiple of 128,
+``INT8_BACKEND='pallas'``) and the map's h and w are even; otherwise it runs
+as a separate int8 max-pool (the odd-size fallback, and the whole
+``'pallas_strip'`` walk). conv5_3 exits in bf16. Weights are quantized once,
+from the float32 parameters, by :meth:`VGG16Trunk.prepare_int8`.
 """
 
 from __future__ import annotations
@@ -13,6 +24,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from aznet_tpu_torch.ops.conv_int8 import (Int8Conv, conv3x3_int8, max_pool_2x2,
+                                           quantize_acts)
 
 # (name, channels) per conv; None entries are 2x2/2 max pools.
 VGG16_LAYOUT = (
@@ -23,13 +37,23 @@ VGG16_LAYOUT = (
     ("conv5_1", 512), ("conv5_2", 512), ("conv5_3", 512),
 )
 
+INT8_BACKENDS = ("pallas", "pallas_strip")
+
 
 class VGG16Trunk(nn.Module):
-    """``[B, H, W, 3]`` -> ``[B, H/16, W/16, max(int(512*width), 8)]``."""
+    """``[B, H, W, 3]`` -> ``[B, H/16, W/16, max(int(512*width), 8)]``.
+
+    ``int8_mode`` selects the int8 path with ``int8_scales`` (conv1_1 ..
+    conv5_2, or all 13) and ``int8_backend`` ``'pallas'`` (fused pools) or
+    ``'pallas_strip'`` (separate pools)."""
 
     feat_stride = 16
+    # Layers kept in bf16 in int8 mode; the last one's output is quantized.
+    _INT8_BF16_PREFIX = ("conv1_1", "conv1_2", "conv2_1")
 
-    def __init__(self, width: float = 1.0):
+    def __init__(self, width: float = 1.0, int8_mode: bool = False,
+                 int8_scales: tuple = (), int8_backend: str = "pallas",
+                 int8_chain_from: str = "conv2_2"):
         super().__init__()
         c_in = 3
         for name, ch in VGG16_LAYOUT:
@@ -39,8 +63,26 @@ class VGG16Trunk(nn.Module):
             self.add_module(name, nn.Conv2d(c_in, ch, 3, padding=1))
             c_in = ch
         self.out_channels = c_in
+        self.width = width
+        self.int8_mode = int8_mode
+        if int8_mode:
+            if int8_chain_from == "conv1_2":
+                raise NotImplementedError(
+                    "int8 with INT8_CHAIN_FROM='conv1_2' (int8 conv1_2/conv2_1) is not ported")
+            if int8_chain_from != "conv2_2":
+                raise ValueError(f"MODEL.INT8_CHAIN_FROM must be 'conv2_2' or 'conv1_2', "
+                                 f"got {int8_chain_from!r}")
+            if int8_backend not in INT8_BACKENDS:
+                raise NotImplementedError(
+                    f"COMPUTE_DTYPE='int8' with INT8_BACKEND={int8_backend!r} is not ported "
+                    f"(only {INT8_BACKENDS}; 'xla' requantizes by division)")
+        self.int8_scales = tuple(int8_scales)
+        self.int8_backend = int8_backend
+        self._int8_layers = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.int8_mode:
+            return self.int8_body(self.int8_prefix(x))
         x = x.to(self.conv1_1.weight.dtype).permute(0, 3, 1, 2)
         for name, ch in VGG16_LAYOUT:
             if ch is None:
@@ -48,3 +90,80 @@ class VGG16Trunk(nn.Module):
             else:
                 x = F.relu(getattr(self, name)(x))
         return x.permute(0, 2, 3, 1)
+
+    # -- int8 path ---------------------------------------------------------
+
+    def _int8_walk(self):
+        """(conv names, {name: scale}, layout split after the bf16 prefix)."""
+        conv_names = [n for n, ch in VGG16_LAYOUT if ch is not None]
+        if len(self.int8_scales) < len(conv_names) - 1:
+            raise ValueError(
+                "int8 trunk needs MODEL.INT8_SCALES for conv1_1..conv5_2 "
+                "(run aznet_tpu_torch.ops.quant.calibrate_trunk_int8 first); got "
+                f"{len(self.int8_scales)} scales")
+        split = [n for n, _ in VGG16_LAYOUT].index(self._INT8_BF16_PREFIX[-1]) + 1
+        return conv_names, dict(zip(conv_names, self.int8_scales)), split
+
+    def prepare_int8(self) -> None:
+        """Quantize the int8 layers' weights once, from their float32 values
+        (call after loading weights; the trunk's parameters stay float32)."""
+        self._int8_layers = {
+            name: Int8Conv.from_float(getattr(self, name).weight.detach(),
+                                      getattr(self, name).bias.detach())
+            for name, ch in VGG16_LAYOUT
+            if ch is not None and name not in self._INT8_BF16_PREFIX}
+
+    def int8_prefix(self, x: torch.Tensor) -> torch.Tensor:
+        """Images ``[B, H, W, 3]`` -> int8 codes of the last bf16 prefix
+        conv's output at its scale. Each conv multiplies bf16-rounded operands
+        with f32 accumulation and adds the f32 bias before any rounding (TF32
+        is exact on bf16 values, so it is allowed here)."""
+        _, scales, split = self._int8_walk()
+        x = x.to(torch.bfloat16)
+        prev_tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            for name, ch in VGG16_LAYOUT[:split]:
+                if ch is None:
+                    x = max_pool_2x2(x)
+                    continue
+                conv = getattr(self, name)
+                y = F.conv2d(x.float().permute(0, 3, 1, 2),
+                             conv.weight.detach().to(torch.bfloat16).float(), padding=1)
+                y = torch.relu(y.permute(0, 2, 3, 1) + conv.bias.float())
+                x = (quantize_acts(y, scales[name]) if name == self._INT8_BF16_PREFIX[-1]
+                     else y.to(torch.bfloat16))
+        finally:
+            torch.backends.cudnn.allow_tf32 = prev_tf32
+        return x
+
+    def int8_body(self, x: torch.Tensor) -> torch.Tensor:
+        """int8 codes from :meth:`int8_prefix` -> the trunk's bf16 output."""
+        conv_names, scales, split = self._int8_walk()
+        if self._int8_layers is None:
+            raise RuntimeError("int8 weights are not quantized: call prepare_int8() "
+                               "after loading the trunk's weights")
+        chain = self.int8_backend == "pallas" and all(
+            max(int(ch * self.width), 8) % 128 == 0
+            for n, ch in VGG16_LAYOUT
+            if ch is not None and n not in self._INT8_BF16_PREFIX[:-1])
+        s_x = scales[self._INT8_BF16_PREFIX[-1]]
+        entries = VGG16_LAYOUT[split:]
+        i = 0
+        while i < len(entries):
+            name, ch = entries[i]
+            i += 1
+            if ch is None:  # a pool not fused into the conv before it
+                x = max_pool_2x2(x)
+                continue
+            layer = self._int8_layers[name]
+            if name == conv_names[-1]:  # the trunk's output: bf16, never requantized
+                x = conv3x3_int8(x, s_x, layer, None, out_dtype=torch.bfloat16)
+                continue
+            s_out = scales[name]
+            fuse = (chain and i < len(entries) and entries[i][1] is None
+                    and x.shape[1] % 2 == 0 and x.shape[2] % 2 == 0)
+            x = conv3x3_int8(x, s_x, layer, s_out, pool=fuse)
+            i += fuse
+            s_x = s_out
+        return x

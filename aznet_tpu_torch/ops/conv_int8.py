@@ -1,0 +1,148 @@
+"""Int8 3x3 convolution: quantization, weight packing, the plain PyTorch
+version and the dispatch to the CUDA kernel (counterpart of
+``aznet_tpu/ops/conv_int8.py`` plus the host side of
+``aznet_tpu/ops/pallas/conv_int8_chain.py`` and ``conv_int8_kernel.py``).
+
+Scheme (as the reference): symmetric, zero-point 0; weights per output
+channel, ``s_w = max(max|w| / 127, 1e-12)``; activations one static scale per
+layer from calibration (``ops/quant.py``). A layer computes
+
+    acc = sum over the 9 taps of x_int8 . w_int8          (int32, exact)
+    y   = relu(float(acc) * (f32(s_x) * s_w) + bias)      (f32, mul then add)
+    [2x2/2 max-pool of y]                                  (exact: requant is monotone)
+    out = clip(round(y * f32(1 / s_out)), -127, 127)       (int8, half to even)
+          or y rounded to bf16 at the trunk's exit.
+
+Activations are compact NHWC int8 between layers; the reference's haloed
+layout and row strips are TPU alignment devices and have no counterpart.
+
+:func:`conv3x3_int8` dispatches on the device only: a CUDA tensor launches
+the kernel (``ops/cuda/conv_int8_kernel.py``) and a CPU tensor takes
+:func:`conv3x3_int8_reference`. Nothing falls back.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+
+from aznet_tpu_torch.ops.cuda import conv_int8_kernel
+
+INT8_MAX = 127.0
+
+
+def scalar_f32(value: float, device) -> torch.Tensor:
+    """A 0-dim float32 tensor ON ``device``: ``x / python_float`` on a CUDA
+    tensor is computed as ``x * (1 / s)``, which is not the reference's
+    division; a device tensor keeps it a true division."""
+    return torch.tensor(value, dtype=torch.float32, device=device)
+
+
+def quantize_acts(x: torch.Tensor, scale: float) -> torch.Tensor:
+    """float -> int8 at a static scale: ``clip(round(x / scale), +-127)``,
+    round half to even, a true float32 division."""
+    q = torch.round(x.float() / scalar_f32(scale, x.device))
+    return q.clamp_(-INT8_MAX, INT8_MAX).to(torch.int8)
+
+
+def pack_weights_9(w: torch.Tensor):
+    """OIHW float ``[Co, C, 3, 3]`` -> (int8 ``[9, C, Co]`` in (dy*3 + dx)
+    order, scales ``[Co]`` f32), quantized per output channel from the
+    float32 values (``conv_int8_kernel.pack_weights_9``)."""
+    w = w.float().permute(2, 3, 1, 0)  # [3, 3, C, Co], the reference's HWIO
+    s = torch.clamp(w.abs().amax(dim=(0, 1, 2)) / scalar_f32(INT8_MAX, w.device), min=1e-12)
+    q = torch.round(w / s).clamp_(-INT8_MAX, INT8_MAX).to(torch.int8)
+    return q.reshape(9, w.shape[2], w.shape[3]), s
+
+
+def quantize_columns(w: torch.Tensor):
+    """Linear weight ``[out, in]`` -> (int8 ``[out, in]``, scales ``[out]``):
+    one scale per output column of the reference's ``[in, out]`` kernel
+    (``_FCStack._int8_stack``), from the float32 values of ``w``."""
+    w = w.float()
+    s = torch.clamp(w.abs().amax(dim=1) / scalar_f32(INT8_MAX, w.device), min=1e-12)
+    return torch.round(w / s[:, None]).clamp_(-INT8_MAX, INT8_MAX).to(torch.int8), s
+
+
+@dataclasses.dataclass
+class Int8Conv:
+    """One quantized 3x3 layer: ``w_k [9, Co, Cp]`` int8 in the kernel's
+    layout (k-contiguous per output channel, C zero-padded to ``Cp``, a
+    multiple of 32; see :func:`kernel_layout`), ``s_w`` and ``bias`` ``[Co]``
+    float32."""
+
+    w_k: torch.Tensor
+    s_w: torch.Tensor
+    bias: torch.Tensor
+
+    @classmethod
+    def from_float(cls, weight: torch.Tensor, bias: torch.Tensor) -> "Int8Conv":
+        """Quantize an OIHW float weight (float32 values) and its bias."""
+        w_q9, s_w = pack_weights_9(weight)
+        return cls(kernel_layout(w_q9), s_w, bias.float().contiguous())
+
+
+def kernel_layout(w_q9: torch.Tensor) -> torch.Tensor:
+    """``[9, C, Co]`` (:func:`pack_weights_9`) -> ``[9, Co, Cp]`` int8, Cp = C
+    rounded up to 32, zero-padded."""
+    c = w_q9.shape[1]
+    cp = -(-c // conv_int8_kernel.K_CHUNK) * conv_int8_kernel.K_CHUNK
+    return F.pad(w_q9.transpose(1, 2), (0, cp - c)).contiguous()
+
+
+def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
+    """2x2/2 max-pool of NHWC ``x`` with floor semantics (``nn.max_pool``
+    VALID: a trailing odd row/column is dropped); any dtype."""
+    b, h, w, c = x.shape
+    x = x[:, : h // 2 * 2, : w // 2 * 2]
+    return x.reshape(b, h // 2, 2, w // 2, 2, c).amax(dim=(2, 4))
+
+
+def conv3x3_int8_reference(x: torch.Tensor, s_x: float, layer: Int8Conv,
+                           s_out: float | None = None, pool: bool = False,
+                           out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Plain PyTorch version of the kernel. ``x [B, H, W, C]`` int8 at scale
+    ``s_x`` -> int8 ``[B, H', W', Co]`` at ``s_out`` (H', W' halved when
+    ``pool``), or ``out_dtype`` when ``s_out`` is None.
+
+    The int32 sum is exact: each tap is a float32 product of int8 values
+    whose partial sums stay below ``127**2 * C < 2**24`` for C <= 1040
+    (int8 values are exact in TF32 too), converted to int32, and the taps
+    are summed in int32."""
+    b, h, w, c = x.shape
+    if c > 1040:
+        raise ValueError(f"the float32 tap products are exact for C <= 1040, got {c}")
+    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))
+    wf = layer.w_k[:, :, :c].transpose(1, 2).float()  # [9, C, Co]
+    acc = None
+    for tap in range(9):
+        dy, dx = divmod(tap, 3)
+        d = (xp[:, dy:dy + h, dx:dx + w] @ wf[tap]).to(torch.int32)
+        acc = d if acc is None else acc + d
+    y = acc.float() * (scalar_f32(s_x, x.device) * layer.s_w) + layer.bias
+    y = torch.relu(y)
+    if pool:
+        y = max_pool_2x2(y)
+    if s_out is None:
+        return y.to(out_dtype)
+    q = torch.round(y * scalar_f32(1.0 / s_out, x.device))
+    return q.clamp_(-INT8_MAX, INT8_MAX).to(torch.int8)
+
+
+def conv3x3_int8(x: torch.Tensor, s_x: float, layer: Int8Conv,
+                 s_out: float | None = None, pool: bool = False,
+                 out_dtype=torch.bfloat16) -> torch.Tensor:
+    """3x3/SAME conv + ReLU (+ fused 2x2 max-pool) on int8 NHWC activations:
+    the CUDA kernel for a CUDA tensor (the chain entry when ``pool``, else
+    the strip entry), the plain version for a CPU tensor."""
+    if x.is_cuda:
+        if pool:
+            return conv_int8_kernel.conv3x3_int8_chain(
+                x, s_x, layer.w_k, layer.s_w, layer.bias, s_out)
+        return conv_int8_kernel.conv3x3_int8_strip(
+            x, s_x, layer.w_k, layer.s_w, layer.bias, s_out, out_dtype)
+    if x.device.type != "cpu":
+        raise ValueError(f"no int8 conv for device {x.device}")
+    return conv3x3_int8_reference(x, s_x, layer, s_out, pool, out_dtype)

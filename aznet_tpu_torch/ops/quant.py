@@ -1,0 +1,101 @@
+"""Post-training int8 calibration of the VGG-16 trunk and the fc stack
+(``aznet_tpu/ops/quant.py``: ``calibrate_trunk_int8``,
+``calibrate_head_int8``, ``with_int8_scales``).
+
+The float (bf16/f32) net runs on calibration images; forward hooks read each
+trunk conv's pre-ReLU output and fc6's, and each scale is the post-ReLU
+absolute maximum over 127 (or a percentile of it). The scales are model
+configuration, not weights:
+
+    scales = calibrate_trunk_int8(net, images)
+    head_scales = calibrate_head_int8(net, images, scales)
+    net8 = build_az_net(with_int8_scales(net.cfg, scales, head_scales),
+                        state_dict=net.params, device=net.device)
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from aznet_tpu.config import Config
+from aznet_tpu_torch.models.vgg import VGG16_LAYOUT
+from aznet_tpu_torch.search.templates import division_tree_regions
+
+CONV_NAMES = tuple(n for n, ch in VGG16_LAYOUT if ch is not None)
+
+
+def _capture(modules: dict, reduce):
+    """Forward hooks that store ``reduce(output)`` per name; returns
+    (results dict, hook handles)."""
+    seen, handles = {}, []
+    for name, mod in modules.items():
+        def hook(_mod, _inp, out, name=name):
+            seen.setdefault(name, []).append(reduce(out))
+        handles.append(mod.register_forward_hook(hook))
+    return seen, handles
+
+
+def _relu_max(out: torch.Tensor) -> float:
+    return float(torch.relu(out.float()).max())
+
+
+@torch.inference_mode()
+def calibrate_trunk_int8(net, images, percentile: float = 100.0,
+                         batch_size: int = 4) -> tuple:
+    """Per-layer activation scales of a bf16/f32 vgg16 ``Net`` from
+    ``images [N, H, W, 3]`` (preprocessed BGR, mean-subtracted): a tuple of
+    13 floats, conv1_1 .. conv5_3 (conv5_3's is kept for the head's
+    ``s_in``; the trunk never requantizes its output)."""
+    if net.cfg.MODEL.COMPUTE_DTYPE == "int8":
+        raise ValueError("calibrate with a bfloat16/float32 net, not int8")
+    trunk = net.model.trunk
+    reduce = (_relu_max if percentile >= 100.0 else
+              lambda out: float(np.percentile(torch.relu(out.float()).cpu().numpy(), percentile)))
+    seen, handles = _capture({n: getattr(trunk, n) for n in CONV_NAMES}, reduce)
+    try:
+        images = np.asarray(images, np.float32)
+        for start in range(0, images.shape[0], batch_size):
+            net.model.features(torch.from_numpy(images[start:start + batch_size]).to(net.device))
+    finally:
+        for h in handles:
+            h.remove()
+    return tuple(max(max(seen[n]), 1e-6) / 127.0 for n in CONV_NAMES)
+
+
+@torch.inference_mode()
+def calibrate_head_int8(net, images, trunk_scales, batch_size: int = 2):
+    """``(s_in, s_mid)`` for the int8 fc6/fc7 stack: ``s_in`` is the trunk
+    output's scale (ROI align is a convex combination, so pooled features
+    share its range); ``s_mid`` is fc6's post-ReLU absolute maximum over 127,
+    over the level-0..2 division-tree regions of each calibration image."""
+    images = np.asarray(images, np.float32)
+    h, w = images.shape[1:3]
+    rois = torch.from_numpy(division_tree_regions((h, w), 2, offset=net.cfg.BOX_OFFSET))
+    rois = rois.to(net.device)
+    if net.model.head.fc.int8_scales:
+        raise ValueError("calibrate the head with a net whose fc stack is float")
+    seen, handles = _capture({"fc6": net.model.head.fc.fc6}, _relu_max)
+    try:
+        for start in range(0, images.shape[0], batch_size):
+            feats = net.model.features(
+                torch.from_numpy(images[start:start + batch_size]).to(net.device))
+            for feat in feats:
+                net.model.roi_forward(feat, rois)
+    finally:
+        for hd in handles:
+            hd.remove()
+    return (float(trunk_scales[-1]), max(max(seen["fc6"]), 1e-6) / 127.0)
+
+
+def with_int8_scales(cfg: Config, scales: Sequence[float],
+                     head_scales: Sequence[float] = ()) -> Config:
+    """``cfg`` with ``COMPUTE_DTYPE='int8'`` and the given trunk (+head) scales."""
+    model = dataclasses.replace(
+        cfg.MODEL, COMPUTE_DTYPE="int8",
+        INT8_SCALES=tuple(float(s) for s in scales),
+        INT8_HEAD_SCALES=tuple(float(s) for s in head_scales))
+    return dataclasses.replace(cfg, MODEL=model)

@@ -1,5 +1,5 @@
 """ROI align as separable triangle-weight contractions (``'align'`` mode of
-``aznet_tpu/ops/roi_pool.py``).
+``aznet_tpu/ops/roi_pool.py``: ``roi_align`` and ``roi_align_int8``).
 
 Pooled features are NHWC ``[R, P, P, C]``, as in the reference, so fc6
 consumes them in the reference's flatten order with no permutation.
@@ -60,11 +60,56 @@ def roi_align(feat, rois, spatial_scale: float, pool_size: int = 7,
                       for i in range(0, rois.shape[0], ROI_CHUNK)])
 
 
+def roi_align_int8(feat8, rois, spatial_scale: float, pool_size: int = 7,
+                   sampling: int = 2, w_first=None):
+    """ROI align over int8 features ``[H, W, C]`` -> int8 ``[R, P, P, C]`` at
+    the same scale (each weight row sums to 1, so the pooled values stay in
+    range). The first contraction takes int8 weights ``round(w * 127)`` and
+    the int8 features to an exact integer sum, computed in float32 (exact for
+    an extent <= 1040), scaled by ``float32(1/127)`` and rounded to bf16; the
+    second is bf16 x bf16 with float32 accumulation, computed in float32 on
+    bf16-valued operands so that it rounds once; then round and clip."""
+    h, w, c = feat8.shape
+    if feat8.dtype != torch.int8:
+        raise TypeError(f"roi_align_int8 wants int8 features, got {feat8.dtype}")
+    if max(h, w) > 1040:
+        raise ValueError(f"the float32 integer sums are exact for extents <= 1040, got {h}x{w}")
+    p = pool_size
+    wf = _contract_w_first(h, w, c, 1, w_first)
+    inv127 = torch.tensor(1.0 / 127.0, dtype=torch.float32, device=feat8.device)
+    featf = feat8.float()
+
+    def bf16_valued(t):
+        return t.to(torch.bfloat16).float()
+
+    def one_chunk(r):
+        x1, y1, x2, y2 = (r * spatial_scale).unbind(-1)
+        wy = _bilinear_pool_weights(y1, (y2 - y1).clamp(min=1.0), h, p, sampling)
+        wx = _bilinear_pool_weights(x1, (x2 - x1).clamp(min=1.0), w, p, sampling)
+        if wf:
+            wx8 = torch.round(wx * 127.0)
+            cols = bf16_valued(torch.einsum("rqw,hwc->rqhc", wx8, featf) * inv127)
+            pooled = torch.einsum("rph,rqhc->rpqc", bf16_valued(wy), cols)
+        else:
+            wy8 = torch.round(wy * 127.0)
+            rows = bf16_valued(torch.einsum("rph,hwc->rpwc", wy8, featf) * inv127)
+            pooled = torch.einsum("rqw,rpwc->rpqc", bf16_valued(wx), rows)
+        return torch.round(pooled).clamp_(-127.0, 127.0).to(torch.int8)
+
+    if rois.shape[0] <= ROI_CHUNK:
+        return one_chunk(rois)
+    return torch.cat([one_chunk(rois[i:i + ROI_CHUNK])
+                      for i in range(0, rois.shape[0], ROI_CHUNK)])
+
+
 def roi_pool(feat, rois, spatial_scale: float, pool_size: int = 7,
              mode: str = "align"):
-    """Dispatch on ``cfg.MODEL.POOLING_MODE``; only ``'align'`` is ported."""
+    """Dispatch on ``cfg.MODEL.POOLING_MODE``; only ``'align'`` is ported.
+    int8 features take :func:`roi_align_int8` and pool to int8."""
     if mode != "align":
         raise ValueError(f"POOLING_MODE {mode!r} is not ported (only 'align')")
+    if feat.dtype == torch.int8:
+        return roi_align_int8(feat, rois, spatial_scale, pool_size)
     if not feat.is_floating_point():
-        raise ValueError(f"roi_align needs float features, got {feat.dtype}")
+        raise ValueError(f"roi_align needs float or int8 features, got {feat.dtype}")
     return roi_align(feat, rois, spatial_scale, pool_size)

@@ -89,3 +89,20 @@ def divide_regions(regions, div_overlap: float = 0.0, offset: float = 1.0):
     """Zoom subdivision: ``[..., 4] -> [..., 5, 4]`` children."""
     table = torch.as_tensor(division_table(div_overlap), device=regions.device)
     return _apply_normalized(regions, table, offset)
+
+
+def division_tree_regions(im_hw, levels: int, offset: float = 1.0,
+                          div_overlap: float = 0.0) -> np.ndarray:
+    """All regions of the full division tree down to ``levels``, as float32
+    NumPy ``[1 + 5 + ... + 5**levels, 4]``: the whole image, then each
+    level's 5-way division of the previous one (the JAX-free counterpart of
+    ``aznet_tpu/train/labels.py::division_tree_regions`` without its
+    ``min_size`` gate, which head calibration does not use)."""
+    table = torch.as_tensor(division_table(div_overlap))
+    h, w = float(im_hw[0]), float(im_hw[1])
+    current = torch.tensor([[0.0, 0.0, w - offset, h - offset]], dtype=torch.float32)
+    out = [current]
+    for _ in range(levels):
+        current = _apply_normalized(current, table, offset).reshape(-1, 4)
+        out.append(current)
+    return torch.cat(out).numpy()

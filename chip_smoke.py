@@ -17,6 +17,22 @@
    kernel against the plain version on the NMS inputs that run produced,
    and holds the port on the card against the port on the CPU on a small
    f32 smallnet config. Prints img/s from CUDA events after two warmups.
+4. Phase 3: the int8 conv kernel alone (``aznet_tpu_torch/csrc/conv_int8.cu``)
+   at the 10 int8 layer shapes of the main path (b=2, 608x800 canvas:
+   conv2_2 .. conv5_3), non-power-of-two scales: the chain entry (fused pool)
+   where a pool follows, the strip entry elsewhere; plus the strip entry at
+   conv2_2's shape without the pool and at a C=64 input. Kernel equals plain
+   bit for bit (int8 codes, bf16 exit); both timed with CUDA events.
+5. Phase 4: the int8 VGG-16 propose path at full width: the bf16 net of
+   phase 2 is calibrated on two random canvases (``RandomState(7)`` minus
+   the pixel means) and rebuilt int8 (int8 trunk from conv2_2, int8 fc6/fc7,
+   int8 ROI align) from its float32 parameters; the launch counts of both
+   conv entries and of NMS are reset just before ``make_propose_batch`` (b=2)
+   and one ``im_propose``, and read just after. Same proposal checks as
+   phase 2; the conv kernel's inputs of that run are held against the plain
+   version; int8 vs bf16 trunk features cosine > 0.98; int8 img/s beside the
+   bf16 img/s of phase 2. Then the int8 port on the card against the port on
+   the CPU (VGG-16 at WIDTH 0.125, strip entry, fixed scales).
 
 Prints the card's name and power limit, one JSON line of kernel records,
 and, as the last line, ``{"ok": true, "device": {...}}``. Exits non-zero at
@@ -25,6 +41,7 @@ the first failure and when no CUDA device is present. Imports no JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -34,6 +51,9 @@ import numpy as np
 
 NMS_SOURCE = "aznet_tpu_torch/csrc/nms.cu"
 NMS_REPLACES = "aznet_tpu/ops/pallas/nms_kernel.py:336"
+CONV_SOURCE = "aznet_tpu_torch/csrc/conv_int8.cu"
+CHAIN_REPLACES = "aznet_tpu/ops/pallas/conv_int8_chain.py:217"
+STRIP_REPLACES = "aznet_tpu/ops/pallas/conv_int8_kernel.py:87"
 BATCH = 2
 RAW_HW = (375, 500)
 CANVAS = (608, 800)
@@ -119,20 +139,33 @@ def phase1_nms(dev):
     return err, times
 
 
-def phase2_propose(dev, cfg, raw_hw=RAW_HW, canvas=CANVAS):
-    """The propose path of ``cfg``. Returns (launches, img/s, nms_err)."""
+def build_net(tag, cfg, dev, state_dict=None):
+    import torch
+
+    from aznet_tpu_torch import api
+
+    t0 = time.perf_counter()
+    net = api.build_az_net(cfg, state_dict=state_dict, device=dev)
+    torch.cuda.synchronize()
+    print(f"{tag} build_az_net: {time.perf_counter() - t0:.2f} s, "
+          f"{sum(p.numel() for p in net.model.parameters())} params "
+          f"({next(net.model.parameters()).dtype})", flush=True)
+    return net
+
+
+def phase2_propose(dev, net, tag="phase2", recorders=(), counters=()):
+    """The propose path of ``net``. ``recorders`` are context managers that
+    wrap other kernels of the path while it runs; ``counters`` are
+    ``(name, reset, read)`` launch counters, reset just before the path
+    and read just after. Returns (NMS launches, img/s, nms_err, {name: count},
+    the preprocessed blobs of the two images)."""
     import torch
 
     from aznet_tpu_torch import api
     from aznet_tpu_torch.ops import nms as tnms
     from aznet_tpu_torch.ops.cuda import nms_kernel
 
-    t0 = time.perf_counter()
-    net = api.build_az_net(cfg, device=dev)
-    torch.cuda.synchronize()
-    print(f"phase2 build_az_net: {time.perf_counter() - t0:.2f} s, "
-          f"{sum(p.numel() for p in net.model.parameters())} params "
-          f"({next(net.model.parameters()).dtype})", flush=True)
+    cfg, raw_hw, canvas = net.cfg, RAW_HW, CANVAS
     rng = np.random.RandomState(0)
     ims_np = rng.randint(0, 256, (BATCH,) + raw_hw + (3,)).astype(np.uint8)
     images = torch.from_numpy(ims_np).to(dev)
@@ -149,14 +182,21 @@ def phase2_propose(dev, cfg, raw_hw=RAW_HW, canvas=CANVAS):
 
     nms_kernel.nms_cuda_batched = recording
     try:
-        nms_kernel.LAUNCHES = 0
-        boxes, scores, valid = fn(images)
-        dets = api.im_propose(net, ims_np[0])
-        torch.cuda.synchronize()
-        launches = nms_kernel.LAUNCHES
+        with contextlib.ExitStack() as stack:
+            for rec in recorders:
+                stack.enter_context(rec)
+            for _, reset, _ in counters:
+                reset()
+            nms_kernel.LAUNCHES = 0
+            boxes, scores, valid = fn(images)
+            dets = api.im_propose(net, ims_np[0])
+            torch.cuda.synchronize()
+            launches = nms_kernel.LAUNCHES
+            counts = {name: read() for name, _, read in counters}
     finally:
         nms_kernel.nms_cuda_batched = launch
-    print(f"phase2 main path: nms launches {launches}", flush=True)
+    print(f"{tag} main path: nms launches {launches}"
+          + "".join(f", {k} launches {v}" for k, v in counts.items()), flush=True)
     check(launches >= BATCH + 1, f"NMS kernel launched {launches} times, expected >= {BATCH + 1}")
 
     h, w = raw_hw
@@ -165,7 +205,7 @@ def phase2_propose(dev, cfg, raw_hw=RAW_HW, canvas=CANVAS):
         n = int(valid[i].sum())
         check(1 <= n <= cfg.SEAR.NUM_PROPOSALS, f"image {i}: {n} proposals")
         b, s = boxes[i, :n].float(), scores[i, :n].float()
-        print(f"phase2 image {i}: {n} proposals, top score {s[0].item():.6f}", flush=True)
+        print(f"{tag} image {i}: {n} proposals, top score {s[0].item():.6f}", flush=True)
         check(bool(torch.isfinite(b).all() and torch.isfinite(s).all()), f"image {i}: non-finite")
         check(bool((b >= 0).all() and (b[:, 0::2] <= w).all() and (b[:, 1::2] <= h).all()),
               f"image {i}: boxes outside the {h}x{w} image")
@@ -174,28 +214,61 @@ def phase2_propose(dev, cfg, raw_hw=RAW_HW, canvas=CANVAS):
     check(dets.ndim == 2 and dets.shape[1] == 5
           and 1 <= dets.shape[0] <= cfg.SEAR.NUM_PROPOSALS
           and np.isfinite(dets).all(), f"im_propose gave {dets.shape}")
-    print(f"phase2 im_propose: {dets.shape[0]} proposals", flush=True)
+    print(f"{tag} im_propose: {dets.shape[0]} proposals", flush=True)
 
     nms_err = 0.0
     for rb, rs, th, rv, off in recorded:
         got = tnms.nms_mask_batched(rb, rs, th, rv, off)
         want = tnms.nms_mask_reference(rb, rs, th, rv, off)
         nms_err = max(nms_err, (got.float() - want.float()).abs().max().item())
-    print(f"phase2 NMS on the path's {len(recorded)} inputs ({tuple(recorded[0][1].shape)}): "
+    print(f"{tag} NMS on the path's {len(recorded)} inputs ({tuple(recorded[0][1].shape)}): "
           f"kernel vs plain max_abs_err {nms_err}", flush=True)
     check(nms_err == 0.0, "NMS kernel disagrees with the plain version on the path's inputs")
 
     ms = cuda_ms(lambda: fn(images), 5, 2)
-    blobs = torch.zeros((BATCH,) + canvas + (3,), dtype=api._blob_dtype(cfg), device=dev)
-    with torch.inference_mode():
-        trunk_ms = cuda_ms(lambda: net.model.features(blobs), 5, 2)
+    blobs = torch.stack([api.preprocess_image(
+        images[i], cfg.PIXEL_MEANS, cfg.TEST.SCALES[0], cfg.TEST.MAX_SIZE, canvas[0],
+        canvas[1], dtype=api._blob_dtype(cfg))[0] for i in range(BATCH)])
+    breakdown(tag, net, blobs)
     torch.cuda.reset_peak_memory_stats()
     fn(images)
     peak = torch.cuda.max_memory_allocated() / 2**30
     ips = BATCH / (ms / 1e3)
-    print(f"phase2 make_propose_batch b={BATCH}: {ms:.3f} ms/call, {ips:.2f} img/s; "
-          f"trunk alone {trunk_ms:.3f} ms; peak {peak:.2f} GiB", flush=True)
-    return launches, ips, nms_err
+    print(f"{tag} make_propose_batch b={BATCH}: {ms:.3f} ms/call, {ips:.2f} img/s; "
+          f"peak {peak:.2f} GiB", flush=True)
+    return launches, ips, nms_err, counts, blobs
+
+
+def breakdown(tag, net, blobs):
+    """CUDA-event times of the path's parts at b=2: the trunk on the batch,
+    one image's search, and one ``roi_forward`` at R=64."""
+    import torch
+
+    from aznet_tpu_torch import api
+    from aznet_tpu_torch.search.propose import az_search
+
+    cfg = net.cfg
+    with torch.inference_mode():
+        trunk_ms = cuda_ms(lambda: net.model.features(blobs), 5, 2)
+        feat = api._maybe_quantize_feat(cfg, net.model.features(blobs))[0]
+        valid_hw = (float(blobs.shape[1]), float(blobs.shape[2]))
+        search_ms = cuda_ms(lambda: az_search(
+            net.model.roi_forward, feat, valid_hw, cfg.SEAR,
+            num_templates=cfg.MODEL.NUM_TEMPLATES, offset=cfg.BOX_OFFSET), 3, 1)
+        rng = np.random.RandomState(3)
+        xy = rng.uniform(0, 600, (64, 2)).astype(np.float32)
+        rois = torch.from_numpy(np.concatenate(
+            [xy, xy + rng.uniform(16, 200, (64, 2)).astype(np.float32)], 1)).to(feat.device)
+        head_ms = cuda_ms(lambda: net.model.roi_forward(feat, rois), 10, 2)
+        split = ""
+        trunk = net.model.trunk
+        if getattr(trunk, "int8_mode", False):
+            codes = trunk.int8_prefix(blobs)
+            split = (f" (bf16 prefix + quantize {cuda_ms(lambda: trunk.int8_prefix(blobs), 5, 2):.4f}"
+                     f" ms, int8 layers {cuda_ms(lambda: trunk.int8_body(codes), 5, 2):.4f} ms)")
+    print(f"{tag} breakdown: trunk {trunk_ms:.4f} ms per batch of {blobs.shape[0]}{split}, "
+          f"az_search {search_ms:.4f} ms per image, roi_forward(R=64) {head_ms:.4f} ms "
+          f"(feat {tuple(feat.shape)} {feat.dtype})", flush=True)
 
 
 def phase2_reference(dev):
@@ -225,6 +298,214 @@ def phase2_reference(dev):
     check(d_s <= 1e-4 and d_b <= 1e-2, "card and CPU proposals disagree")
 
 
+def main_path_int8_layers():
+    """The int8 layers of the main path: (name, H, W, C, Co, pool, exit)
+    from conv2_2 (input at stride 2) to conv5_3."""
+    from aznet_tpu_torch.models.vgg import VGG16_LAYOUT
+
+    names = [n for n, _ in VGG16_LAYOUT]
+    h, w, c = CANVAS[0] // 2, CANVAS[1] // 2, 128
+    out = []
+    for i in range(names.index("conv2_2"), len(VGG16_LAYOUT)):
+        name, co = VGG16_LAYOUT[i]
+        if co is None:
+            continue
+        pool = i + 1 < len(VGG16_LAYOUT) and VGG16_LAYOUT[i + 1][1] is None
+        out.append((name, h, w, c, co, pool, i == len(VGG16_LAYOUT) - 1))
+        c = co
+        if pool:
+            h, w = h // 2, w // 2
+    return out
+
+
+def conv_case(seed, h, w, c, co, dev):
+    """Post-ReLU-like int8 activations and a quantized random-normal layer."""
+    import torch
+
+    from aznet_tpu_torch.ops.conv_int8 import Int8Conv
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    x = torch.randint(0, 100, (BATCH, h, w, c), generator=g, device=dev, dtype=torch.int8)
+    weight = torch.randn((co, c, 3, 3), generator=g, device=dev) * 0.02
+    bias = torch.rand((co,), generator=g, device=dev) - 0.5
+    return x, Int8Conv.from_float(weight, bias)
+
+
+def phase3_conv(dev):
+    """The int8 conv kernel alone at the main path's shapes. Returns
+    {"err": {entry: max_abs_err}, "ms"/"plain_ms": {entry: summed over the
+    main-path layers that entry runs}}."""
+    import torch
+
+    from aznet_tpu_torch.ops import conv_int8 as tconv
+
+    s_x = 0.0419
+    err = {"chain": 0.0, "strip": 0.0}
+    ms = {"chain": 0.0, "strip": 0.0}
+    plain_ms = {"chain": 0.0, "strip": 0.0}
+    cases = [(*layer, True) for layer in main_path_int8_layers()]
+    h0, w0 = cases[0][1:3]  # conv2_2's map: the strip entry there, and at C=64
+    cases += [("conv2_2_nopool", h0, w0, 128, 128, False, False, False),
+              ("c64_input", h0, w0, 64, 128, False, False, False)]
+    for k, (name, h, w, c, co, pool, last, timed) in enumerate(cases):
+        x, layer = conv_case(100 + k, h, w, c, co, dev)
+        s_out = None if last else 0.3717 + 0.01 * k
+        entry = "chain" if pool else "strip"
+        run = lambda: tconv.conv3x3_int8(x, s_x, layer, s_out, pool=pool)
+        plain = lambda: tconv.conv3x3_int8_reference(x, s_x, layer, s_out, pool=pool)
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        check(got.dtype == want.dtype and got.shape == want.shape,
+              f"{name}: kernel {got.dtype}{tuple(got.shape)} vs plain {want.dtype}{tuple(want.shape)}")
+        diff = (got.float() - want.float()).abs().max().item()
+        err[entry] = max(err[entry], diff)
+        nz = (want != 0).float().mean().item()
+        line = (f"phase3 {name} {entry} {BATCH}x{h}x{w}x{c}->{co}"
+                f"{' pool' if pool else ''}{' bf16 exit' if last else ''}: "
+                f"max_abs_err {diff}, nonzero {nz:.3f}, max |out| {want.float().abs().max().item()}")
+        check(diff == 0.0, f"int8 conv kernel disagrees with the plain version at {name}")
+        check(0.01 < nz, f"{name}: degenerate output")
+        if timed:
+            k_ms, p_ms = cuda_ms(run, 20, 3), cuda_ms(plain, 3, 1)
+            ms[entry] += k_ms
+            plain_ms[entry] += p_ms
+            ops = 2.0 * BATCH * h * w * 9 * c * co
+            line += (f"; kernel {k_ms:.4f} ms ({ops / k_ms / 1e9:.1f} TOP/s), "
+                     f"plain {p_ms:.4f} ms")
+        print(line, flush=True)
+    print(f"phase3 per trunk call (b={BATCH}): chain {ms['chain']:.4f} ms vs plain "
+          f"{plain_ms['chain']:.4f} ms; strip {ms['strip']:.4f} ms vs plain "
+          f"{plain_ms['strip']:.4f} ms", flush=True)
+    return {"err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+@contextlib.contextmanager
+def recording_conv(recorded):
+    """Copies the arguments and the result of every conv kernel launch while
+    active (the count is kept by the wrapper itself)."""
+    from aznet_tpu_torch.ops.cuda import conv_int8_kernel as ck
+
+    real = {"chain": ck.conv3x3_int8_chain, "strip": ck.conv3x3_int8_strip}
+
+    def wrap(entry):
+        def call(x, s_x, w_k, s_w, bias, s_out, *rest):
+            out = real[entry](x, s_x, w_k, s_w, bias, s_out, *rest)
+            recorded.append((entry, x.clone(), s_x, w_k, s_w, bias, s_out, out.clone()))
+            return out
+        return call
+
+    ck.conv3x3_int8_chain, ck.conv3x3_int8_strip = wrap("chain"), wrap("strip")
+    try:
+        yield
+    finally:
+        ck.conv3x3_int8_chain, ck.conv3x3_int8_strip = real["chain"], real["strip"]
+
+
+def phase4_int8(dev, net, blobs, bf16_ips):
+    """Calibrate the bf16 ``net``, rebuild it int8 from its float32
+    parameters, drive the int8 propose path. Returns launches per entry,
+    the conv and NMS errors on the path's inputs, and img/s."""
+    import dataclasses
+
+    import torch
+
+    from aznet_tpu_torch.ops import conv_int8 as tconv
+    from aznet_tpu_torch.ops.cuda import conv_int8_kernel as ck
+    from aznet_tpu_torch.ops.quant import (calibrate_head_int8, calibrate_trunk_int8,
+                                           with_int8_scales)
+
+    cfg = net.cfg
+    t0 = time.perf_counter()
+    calib = np.random.RandomState(7).randint(0, 256, (2,) + CANVAS + (3,)).astype(np.float32)
+    calib -= np.asarray(cfg.PIXEL_MEANS, np.float32)
+    scales = calibrate_trunk_int8(net, calib, batch_size=2)
+    head_scales = calibrate_head_int8(net, calib, scales)
+    torch.cuda.synchronize()
+    print(f"phase4 calibration: {time.perf_counter() - t0:.2f} s; trunk scales "
+          f"{[round(s, 6) for s in scales]}, head scales {[round(s, 6) for s in head_scales]}",
+          flush=True)
+    cfg8 = with_int8_scales(cfg, scales, head_scales)
+    cfg8 = dataclasses.replace(cfg8, MODEL=dataclasses.replace(cfg8.MODEL, INT8_ROI=True))
+    net8 = build_net("phase4", cfg8, dev, state_dict=net.params)
+
+    def reset():
+        ck.LAUNCHES["chain"] = ck.LAUNCHES["strip"] = 0
+
+    recorded = []
+    counters = [(e, reset, lambda e=e: ck.LAUNCHES[e]) for e in ("chain", "strip")]
+    nms_launches, ips, nms_err, counts, _ = phase2_propose(
+        dev, net8, "phase4", recorders=[recording_conv(recorded)], counters=counters)
+    trunk_calls = 2  # make_propose_batch on the batch, then im_propose
+    check(counts["chain"] + counts["strip"] >= 10 * trunk_calls,
+          f"int8 conv kernel launched {counts} times in {trunk_calls} trunk calls")
+    check(counts["chain"] > 0 and counts["strip"] > 0, f"an int8 conv entry never ran: {counts}")
+    check(nms_launches >= BATCH + 1, f"NMS launched {nms_launches} times")
+
+    conv_err = {"chain": 0.0, "strip": 0.0}
+    for entry, x, s_x, w_k, s_w, bias, s_out, out in recorded:
+        want = tconv.conv3x3_int8_reference(x, s_x, tconv.Int8Conv(w_k, s_w, bias), s_out,
+                                            pool=entry == "chain")
+        conv_err[entry] = max(conv_err[entry], (out.float() - want.float()).abs().max().item())
+    shapes = sorted({(e, tuple(x.shape)) for e, x, *_ in recorded})
+    print(f"phase4 conv on the path's {len(recorded)} inputs {shapes}: kernel vs plain "
+          f"max_abs_err {conv_err}", flush=True)
+    check(max(conv_err.values()) == 0.0,
+          "int8 conv kernel disagrees with the plain version on the path's inputs")
+
+    with torch.inference_mode():
+        f16 = net.model.features(blobs).float()
+        f8 = net8.model.features(blobs).float()
+    cos = (f16 * f8).sum().item() / max(f16.norm().item() * f8.norm().item(), 1e-9)
+    print(f"phase4 int8 vs bf16 trunk features: cosine {cos:.6f}", flush=True)
+    check(cos > 0.98, f"int8 trunk features drift from the bf16 trunk: cosine {cos}")
+    print(f"phase4 img/s at b={BATCH}: int8 {ips:.2f} vs bf16 {bf16_ips:.2f} (same call)",
+          flush=True)
+    return {"launches": counts, "conv_err": conv_err, "nms_err": nms_err, "ips": ips}
+
+
+def phase4_reference(dev):
+    """The int8 port on the card against the port on the CPU: VGG-16 at WIDTH
+    0.125 (the strip entry), fixed scales, seeded weights. The int8 codes
+    that enter conv2_2 may differ where the two devices' float convs of the
+    bf16 prefix round a value at a quantization boundary (<= 1 code on
+    <= 0.1%); from the same codes the int8 layers agree bit for bit."""
+    import torch
+
+    from aznet_tpu.config import Config, cfg_from_dict
+    from aznet_tpu_torch import api
+    from aznet_tpu_torch.ops.cuda import conv_int8_kernel as ck
+    from aznet_tpu_torch.ops.quant import with_int8_scales
+
+    cfg = cfg_from_dict(Config(), {"MODEL": {"WIDTH": 0.125, "FC_DIM": 64}})
+    cfg = with_int8_scales(cfg, [2.0, 1.5, 1.2, 0.8, 0.6, 0.4, 0.3, 0.2, 0.15, 0.1,
+                                 0.08, 0.06, 0.05])
+    cpu_net = api.build_az_net(cfg, device="cpu")
+    gpu_net = api.build_az_net(cfg, state_dict=cpu_net.params, device=dev)
+    rng = np.random.RandomState(2)
+    x = torch.from_numpy(rng.uniform(-120, 120, (2, 96, 128, 3)).astype(np.float32))
+    with torch.inference_mode():
+        codes_cpu = cpu_net.model.trunk.int8_prefix(x)
+        codes_gpu = gpu_net.model.trunk.int8_prefix(x.to(dev))
+        before = dict(ck.LAUNCHES)
+        got = gpu_net.model.trunk.int8_body(codes_gpu).cpu()
+        launched = {e: ck.LAUNCHES[e] - before[e] for e in before}
+        want = cpu_net.model.trunk.int8_body(codes_gpu.cpu())
+        full_gpu = gpu_net.model.features(x.to(dev)).float().cpu()
+        full_cpu = cpu_net.model.features(x).float()
+    d = (codes_gpu.cpu().int() - codes_cpu.int()).abs()
+    frac = (d > 0).float().mean().item()
+    body_err = (got.float() - want.float()).abs().max().item()
+    rel = ((full_gpu - full_cpu).abs().max() / full_cpu.abs().max()).item()
+    print(f"phase4 reference (int8 VGG-16 WIDTH 0.125, card vs CPU): prefix codes differ "
+          f"on {frac:.2e} (max {d.max().item()}), trunk body from the same codes max_abs_err "
+          f"{body_err} ({launched}), whole trunk max rel err {rel:.3g}", flush=True)
+    check(d.max().item() <= 1 and frac <= 1e-3, "card and CPU int8 prefix codes disagree")
+    check(body_err == 0.0 and launched["strip"] == 10 and launched["chain"] == 0,
+          "card and CPU int8 trunk bodies disagree (or the strip entry did not run)")
+    check(rel <= 2e-2, "card and CPU int8 trunks disagree")
+
+
 def main() -> int:
     import torch
 
@@ -252,14 +533,26 @@ def main() -> int:
 
     err1, times = phase1_nms(dev)
     # VGG-16 at full width, bf16 (Config()'s default), default search.
-    launches, ips, err2 = phase2_propose(dev, Config())
+    net = build_net("phase2", Config(), dev)
+    launches, ips, err2, _, blobs = phase2_propose(dev, net)
     phase2_reference(dev)
 
+    conv = phase3_conv(dev)
+    int8 = phase4_int8(dev, net, blobs, ips)
+    phase4_reference(dev)
+
     k_ms, p_ms = times["path_1x2048"]
-    print(json.dumps({"kernels": [{
+    records = [{
         "name": "nms_exact_greedy", "route": "cuda", "source": NMS_SOURCE,
-        "replaces": NMS_REPLACES, "launches": launches, "max_abs_err": max(err1, err2),
-        "ms": k_ms, "plain_ms": p_ms}]}))
+        "replaces": NMS_REPLACES, "launches": launches,
+        "max_abs_err": max(err1, err2, int8["nms_err"]), "ms": k_ms, "plain_ms": p_ms}]
+    for entry, replaces in (("chain", CHAIN_REPLACES), ("strip", STRIP_REPLACES)):
+        records.append({
+            "name": f"conv3x3_int8_{entry}", "route": "cuda", "source": CONV_SOURCE,
+            "replaces": replaces, "launches": int8["launches"][entry],
+            "max_abs_err": max(conv["err"][entry], int8["conv_err"][entry]),
+            "ms": conv["ms"][entry], "plain_ms": conv["plain_ms"][entry]})
+    print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -114,8 +114,8 @@ def test_aznet_roi_forward_matches():
 
 
 @pytest.mark.parametrize("override,match", [
-    (dict(COMPUTE_DTYPE="int8"), "COMPUTE_DTYPE"),
-    (dict(INT8_HEAD_SCALES=(1.0, 2.0)), "int8"),
+    (dict(COMPUTE_DTYPE="int8", INT8_BACKEND="xla"), "COMPUTE_DTYPE"),
+    (dict(COMPUTE_DTYPE="int8", INT8_CHAIN_FROM="conv1_2"), "int8"),
     (dict(FUSE_CONV1=True), "FUSE_CONV1"),
     (dict(POOLING_MODE="caffe_max"), "POOLING_MODE"),
     (dict(BACKBONE="resnet50"), "not ported"),
