@@ -1,13 +1,27 @@
-"""Propose-side public API (counterpart of ``aznet_tpu/api/__init__.py``).
+"""Public inference API (counterpart of ``aznet_tpu/api/__init__.py``).
 
-- :func:`build_az_net` -> :class:`Net` (model, config, device);
+Propose side:
+
+- :func:`build_az_net` -> :class:`Net` (model, config, device, params);
 - :func:`im_propose` (one raw BGR image -> float32 ``(N, 5)`` proposals in
   original coordinates, as the reference);
 - :func:`make_propose_batch` / :func:`make_propose_batch_padded`, the
   batched path: the trunk runs once on the whole batch, then the search
   runs per image.
 
-Everything runs eagerly on ``Net.device``; there is no compile cache.
+Detect side:
+
+- :func:`build_frcnn_net`; :func:`im_detect` (one raw image and its boxes ->
+  ``(scores (R, K), pred_boxes (R, 4K))``, the image pyramid when
+  ``TEST.SCALES`` has several entries); :func:`make_detect_batch` /
+  :func:`make_detect_batch_padded`;
+- :func:`share_trunk` / :func:`trunks_shared` and
+  :func:`make_fused_detect_batch_padded`: one trunk call, the AZ search, and
+  the Fast R-CNN head on the search's boxes.
+
+Nets are built on the card (``device="cuda"``) unless ``device="cpu"`` is
+passed; without a card that default raises. Everything runs eagerly on
+``Net.device``; there is no compile cache.
 
 Int8 (``COMPUTE_DTYPE='int8'``, scales from ``ops/quant.py``): the trunk
 keeps float32 parameters and quantizes its int8 layers once at build time;
@@ -23,8 +37,10 @@ import dataclasses
 import numpy as np
 import torch
 
-from aznet_tpu.config import Config
-from aznet_tpu_torch.models.aznet import AZNet, init_params
+from aznet_tpu_torch.config import Config
+from aznet_tpu_torch.models.aznet import AZNet, RoiNet, init_params
+from aznet_tpu_torch.models.frcnn import FRCNN
+from aznet_tpu_torch.ops.boxes import bbox_transform_inv, box_wh, clip_boxes
 from aznet_tpu_torch.ops.conv_int8 import quantize_acts
 from aznet_tpu_torch.ops.nms import nms_topk
 from aznet_tpu_torch.ops.preprocess import compute_scale, preprocess_image
@@ -38,13 +54,13 @@ class Net:
     ``Net.params`` is its float32 tree: the model's own weights may be cast
     or quantized, and a net rebuilt from ``params`` starts from float32."""
 
-    model: AZNet
+    model: RoiNet
     cfg: Config
     device: torch.device
     params: dict
 
 
-def _cast_inference_params(model: AZNet, cfg: Config) -> AZNet:
+def _cast_inference_params(model: RoiNet, cfg: Config) -> RoiNet:
     """Cast ONCE (the reference casts per call; the port keeps the cast
     weights). bf16 mode: every float parameter to bf16. int8 mode: everything
     but the trunk, whose int8 layers quantize float32 weights. The fused head
@@ -58,15 +74,18 @@ def _cast_inference_params(model: AZNet, cfg: Config) -> AZNet:
     return model
 
 
-def build_az_net(cfg: Config, state_dict: dict | None = None, device="cpu",
-                 seed: int | None = None) -> Net:
-    """An AZ-Net on ``device``: weights from ``state_dict`` (e.g.
-    :func:`aznet_tpu_torch.utils.convert.params_from_flax`), else a seeded
-    init (``seed``, default ``cfg.RNG_SEED``). Weights are not the JAX
-    package's init for the same seed: torch and JAX draw differently."""
+def _device(device) -> torch.device:
     device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port runs on the card by default; "
+                           "pass device='cpu' to run on the CPU")
+    return device
+
+
+def _build_net(model_cls, cfg: Config, state_dict, device, seed) -> Net:
+    device = _device(device)
     with torch.device("meta"):
-        model = AZNet(cfg.MODEL)
+        model = model_cls(cfg.MODEL)
     model = model.to_empty(device=device)
     if state_dict is None:
         gen = torch.Generator(device=device)
@@ -80,6 +99,21 @@ def build_az_net(cfg: Config, state_dict: dict | None = None, device="cpu",
     model = _cast_inference_params(model, cfg)
     model.prepare_int8()
     return Net(model, cfg, device, params)
+
+
+def build_az_net(cfg: Config, state_dict: dict | None = None, device="cuda",
+                 seed: int | None = None) -> Net:
+    """An AZ-Net on ``device``: weights from ``state_dict`` (e.g.
+    :func:`aznet_tpu_torch.utils.convert.params_from_flax`), else a seeded
+    init (``seed``, default ``cfg.RNG_SEED``). Weights are not the JAX
+    package's init for the same seed: torch and JAX draw differently."""
+    return _build_net(AZNet, cfg, state_dict, device, seed)
+
+
+def build_frcnn_net(cfg: Config, state_dict: dict | None = None, device="cuda",
+                    seed: int | None = None) -> Net:
+    """A Fast R-CNN detector on ``device``, as :func:`build_az_net`."""
+    return _build_net(FRCNN, cfg, state_dict, device, seed)
 
 
 def _canvas_for(h: int, w: int, cfg: Config, bucket: int = 64):
@@ -107,15 +141,21 @@ def _maybe_quantize_feat(cfg: Config, feat: torch.Tensor) -> torch.Tensor:
     return feat
 
 
-def _propose_images(model: AZNet, cfg: Config, images, canvas_hw, src_hw=None, scales=None):
-    """Raw ``images [B, H, W, 3]`` -> ``(boxes [B, N, 4], scores, valid)`` in
-    original coordinates: preprocess each image, ONE trunk call on the batch,
-    then the search per image."""
-    preps = [preprocess_image(
+def _preprocess(cfg: Config, images, canvas_hw, src_hw=None, scales=None):
+    """Each raw image of ``images [B, H, W, 3]`` onto the canvas: a list of
+    ``(blob, im_scale, valid_hw)``."""
+    return [preprocess_image(
         images[i], cfg.PIXEL_MEANS, cfg.TEST.SCALES[0], cfg.TEST.MAX_SIZE,
         canvas_hw[0], canvas_hw[1], dtype=_blob_dtype(cfg),
         src_hw=None if src_hw is None else src_hw[i],
         scale=None if scales is None else scales[i]) for i in range(images.shape[0])]
+
+
+def _propose_images(model: AZNet, cfg: Config, images, canvas_hw, src_hw=None, scales=None):
+    """Raw ``images [B, H, W, 3]`` -> ``(boxes [B, N, 4], scores, valid)`` in
+    original coordinates: preprocess each image, ONE trunk call on the batch,
+    then the search per image."""
+    preps = _preprocess(cfg, images, canvas_hw, src_hw, scales)
     feats = _maybe_quantize_feat(cfg, model.features(torch.stack([p[0] for p in preps])))
     outs = []
     for feat, (_, im_scale, valid_hw) in zip(feats, preps):
@@ -184,5 +224,173 @@ def make_propose_batch_padded(model: AZNet, cfg: Config, canvas_hw):
     @torch.inference_mode()
     def fn(images, src_hw, scales):
         return _propose_images(model, cfg, images, canvas_hw, src_hw, scales)
+
+    return fn
+
+
+def share_trunk(dst_net: Net, src_net: Net) -> Net:
+    """Make ``dst_net`` hold ``src_net``'s trunk, in place: the same module
+    (so the same parameter tensors) and the same ``Net.params`` trunk
+    entries. The paper's shared-trunk evaluation: AZ-Net and Fast R-CNN on
+    one feature map. The trunks must have the same parameter names and
+    shapes; ``dst_net`` then runs ``src_net``'s trunk as it is (its dtype,
+    int8 weights and ``FUSE_CONV1``). Returns ``dst_net``."""
+    src, dst = src_net.model.trunk.state_dict(), dst_net.model.trunk.state_dict()
+    if {k: v.shape for k, v in src.items()} != {k: v.shape for k, v in dst.items()}:
+        raise ValueError("share_trunk needs trunks with the same parameter names and shapes")
+    dst_net.model.trunk = src_net.model.trunk
+    dst_net.params = {**dst_net.params, **{k: v for k, v in src_net.params.items()
+                                           if k.startswith("trunk.")}}
+    return dst_net
+
+
+def trunks_shared(az_net: Net, frcnn_net: Net) -> bool:
+    """True iff the two nets hold the same trunk (:func:`share_trunk`): the
+    same parameter objects in the models and in ``Net.params``. Only then is
+    the fused program of :func:`make_fused_detect_batch_padded` the same
+    function as proposing and detecting with the two nets apart."""
+    ta, tb = list(az_net.model.trunk.parameters()), list(frcnn_net.model.trunk.parameters())
+    pa = [v for k, v in sorted(az_net.params.items()) if k.startswith("trunk.")]
+    pb = [v for k, v in sorted(frcnn_net.params.items()) if k.startswith("trunk.")]
+    return (len(ta) == len(tb) and all(a is b for a, b in zip(ta, tb))
+            and len(pa) == len(pb) and all(a is b for a, b in zip(pa, pb)))
+
+
+def select_class_boxes(scores: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
+    """Each roi's decoded box of its best FOREGROUND class: ``scores [R, K]``,
+    ``pred [R, 4K]`` -> ``[R, 4]``. Class 0 (background) is excluded; ties go
+    to the lower class index."""
+    cls = scores[:, 1:].argmax(dim=1) + 1
+    return pred.reshape(pred.shape[0], -1, 4)[torch.arange(pred.shape[0], device=pred.device), cls]
+
+
+def _detect_rois(model: FRCNN, cfg: Config, feat, boxes, rois, im_scale, raw_hw):
+    """The detection head over one image's features. ``boxes [R, 4]`` in
+    original coordinates, ``rois`` the same boxes on the scaled image.
+    ``TEST.BBOX_ITER`` passes: each decodes against the original-coordinate
+    boxes and clips to the raw image ``raw_hw``; a further pass re-pools
+    every roi at its best foreground class's box. Returns ``(softmax scores
+    [R, K], pred_boxes [R, 4K])``."""
+    off = cfg.BOX_OFFSET
+    n_iter = max(int(cfg.TEST.BBOX_ITER), 1)
+    for it in range(n_iter):
+        out = model.roi_forward(feat, rois)
+        scores = torch.softmax(out["cls_score"], dim=-1)
+        pred = clip_boxes(bbox_transform_inv(boxes, out["bbox_pred"], off), raw_hw, off)
+        if it + 1 < n_iter:
+            boxes = select_class_boxes(scores, pred)
+            rois = boxes * im_scale
+    return scores, pred
+
+
+def _detect_images(model: FRCNN, cfg: Config, images, boxes, canvas_hw, src_hw=None,
+                   scales=None):
+    """Raw ``images [B, H, W, 3]`` and ``boxes [B, R, 4]`` (original
+    coordinates) -> ``(scores [B, R, K], pred_boxes [B, R, 4K])``: ONE trunk
+    call on the batch, then the head per image."""
+    preps = _preprocess(cfg, images, canvas_hw, src_hw, scales)
+    feats = _maybe_quantize_feat(cfg, model.features(torch.stack([p[0] for p in preps])))
+    outs = []
+    for i, (feat, (_, im_scale, _)) in enumerate(zip(feats, preps)):
+        raw_hw = (float(images.shape[1]), float(images.shape[2])) if src_hw is None else src_hw[i]
+        outs.append(_detect_rois(model, cfg, feat, boxes[i], boxes[i] * im_scale, im_scale,
+                                 raw_hw))
+    return tuple(torch.stack(t) for t in zip(*outs))
+
+
+def _detect_core_pyramid(model: FRCNN, cfg: Config, image, boxes, canvases):
+    """Image-pyramid detection (several ``TEST.SCALES``): the trunk per scale,
+    each roi pooled from every scale and assigned to the scale whose scaled
+    area is closest to 224**2 (``argmin |area * s**2 - 224**2|``, ties to the
+    first scale), then the head ONCE on the selected pooled features."""
+    off = cfg.BOX_OFFSET
+    w, h = box_wh(boxes, off)
+    areas = w * h
+    pooled_s, errs = [], []
+    for target, canvas in zip(cfg.TEST.SCALES, canvases):
+        blob, im_scale, _ = preprocess_image(
+            image, cfg.PIXEL_MEANS, target, cfg.TEST.MAX_SIZE, canvas[0], canvas[1],
+            dtype=_blob_dtype(cfg))
+        feat = _maybe_quantize_feat(cfg, model.features(blob[None]))[0]
+        pooled_s.append(model.roi_pool_only(feat, boxes * im_scale))
+        errs.append((areas * im_scale ** 2 - 224.0 ** 2).abs())
+    assign = torch.stack(errs).argmin(dim=0)
+    pooled = torch.stack(pooled_s)[assign, torch.arange(boxes.shape[0], device=boxes.device)]
+    out = model.head_forward(pooled)
+    scores = torch.softmax(out["cls_score"], dim=-1)
+    pred = bbox_transform_inv(boxes, out["bbox_pred"], off)
+    return scores, clip_boxes(pred, (float(image.shape[0]), float(image.shape[1])), off)
+
+
+@torch.inference_mode()
+def im_detect(net: Net, im: np.ndarray, boxes: np.ndarray):
+    """Detection head forward for one raw BGR image and its boxes (``[R, 4]``
+    or ``[R, 5]``, original coordinates): ``(scores (R, K), pred_boxes (R,
+    4K))`` float32 NumPy. Several ``TEST.SCALES`` run the image pyramid.
+    Rows are independent, so no padding of R is needed."""
+    cfg = net.cfg
+    image = torch.from_numpy(np.ascontiguousarray(im)).to(net.device)
+    rois = torch.from_numpy(np.ascontiguousarray(boxes[:, :4], dtype=np.float32)).to(net.device)
+    if len(cfg.TEST.SCALES) > 1:
+        canvases = tuple(_canvas_for(im.shape[0], im.shape[1], _scale_cfg(cfg, t))
+                         for t in cfg.TEST.SCALES)
+        scores, pred = _detect_core_pyramid(net.model, cfg, image, rois, canvases)
+    else:
+        canvas = _canvas_for(im.shape[0], im.shape[1], cfg)
+        scores, pred = (t[0] for t in _detect_images(net.model, cfg, image[None], rois[None],
+                                                     canvas))
+    return scores.float().cpu().numpy(), pred.float().cpu().numpy()
+
+
+def make_detect_batch(model: FRCNN, cfg: Config, canvas_hw):
+    """``fn(images [B, H, W, 3] raw BGR, boxes [B, R, 4]) -> (scores [B, R,
+    K], pred_boxes [B, R, 4K])`` over a fixed canvas."""
+
+    @torch.inference_mode()
+    def fn(images, boxes):
+        return _detect_images(model, cfg, images, boxes, canvas_hw)
+
+    return fn
+
+
+def make_detect_batch_padded(model: FRCNN, cfg: Config, canvas_hw):
+    """Batched detect over zero-padded raw images: ``fn(images [B, Hp, Wp,
+    3], src_hw [B, 2] float32, scales [B] float32, boxes [B, R, 4]) ->
+    (scores, pred_boxes)``; boxes clip to each image's true extent."""
+
+    @torch.inference_mode()
+    def fn(images, src_hw, scales, boxes):
+        return _detect_images(model, cfg, images, boxes, canvas_hw, src_hw, scales)
+
+    return fn
+
+
+def make_fused_detect_batch_padded(az_model: AZNet, frcnn_model: FRCNN, cfg_az: Config,
+                                   cfg_fr: Config, canvas_hw):
+    """The shared-trunk pipeline: the trunk ONCE on the batch, the AZ search
+    per image, then the Fast R-CNN head on the search's boxes (its rois are
+    the search's scaled-image boxes as they are). ``fn(images [B, Hp, Wp,
+    3], src_hw [B, 2], scales [B]) -> (prop_boxes [B, N, 4] original
+    coordinates, prop_scores [B, N], prop_valid [B, N], det_scores [B, N, K],
+    det_boxes [B, N, 4K])``. The trunk is ``az_model``'s; the result is the
+    two nets' apart only when :func:`trunks_shared` holds."""
+
+    @torch.inference_mode()
+    def fn(images, src_hw, scales):
+        preps = _preprocess(cfg_az, images, canvas_hw, src_hw, scales)
+        feats = az_model.features(torch.stack([p[0] for p in preps]))
+        # Each net quantizes at its own calibrated scale (INT8_ROI).
+        feats_az = _maybe_quantize_feat(cfg_az, feats)
+        feats_fr = _maybe_quantize_feat(cfg_fr, feats)
+        outs = []
+        for i, (_, im_scale, valid_hw) in enumerate(preps):
+            boxes, p_scores, valid = az_search(
+                az_model.roi_forward, feats_az[i], valid_hw, cfg_az.SEAR,
+                num_templates=cfg_az.MODEL.NUM_TEMPLATES, offset=cfg_az.BOX_OFFSET)
+            orig = boxes / im_scale
+            det_scores, det_boxes = _detect_rois(frcnn_model, cfg_fr, feats_fr[i], orig, boxes,
+                                                 im_scale, src_hw[i])
+            outs.append((orig, p_scores, valid, det_scores, det_boxes))
+        return tuple(torch.stack(t) for t in zip(*outs))
 
     return fn

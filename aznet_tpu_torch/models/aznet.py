@@ -1,4 +1,5 @@
-"""AZ-Net: trunk + ROI align + AZ head (``aznet_tpu/models/aznet.py``).
+"""AZ-Net: trunk + ROI pooling + AZ head (``aznet_tpu/models/aznet.py``),
+and the base it shares with the Fast R-CNN detector (``models/frcnn.py``).
 
 The trunk runs once per batch; ``roi_forward(feat, rois)`` is a plain
 function of one image's features, called by the search at every level.
@@ -12,10 +13,10 @@ import warnings
 import torch
 from torch import nn
 
-from aznet_tpu.config import ModelConfig
+from aznet_tpu_torch.config import ModelConfig
 from aznet_tpu_torch.models.backbones import get_backbone
 from aznet_tpu_torch.models.heads import AZHead
-from aznet_tpu_torch.ops.roi_pool import roi_pool
+from aznet_tpu_torch.ops.roi_pool import POOLING_MODES, roi_pool
 
 
 def check_supported(mc: ModelConfig) -> None:
@@ -29,34 +30,30 @@ def check_supported(mc: ModelConfig) -> None:
     if mc.COMPUTE_DTYPE == "int8" and mc.BACKBONE != "vgg16":
         raise NotImplementedError(
             f"COMPUTE_DTYPE='int8' is ported for vgg16 only, not {mc.BACKBONE!r}")
-    if mc.FUSE_CONV1:
-        raise NotImplementedError("FUSE_CONV1=True is not ported")
-    if mc.POOLING_MODE != "align":
-        raise NotImplementedError(f"POOLING_MODE={mc.POOLING_MODE!r} is not ported")
+    if mc.POOLING_MODE not in POOLING_MODES:
+        raise ValueError(f"unknown POOLING_MODE {mc.POOLING_MODE!r}; options: {POOLING_MODES}")
     if mc.CONV1_S2D:
         warnings.warn("MODEL.CONV1_S2D is ignored: the plain conv1_1 computes "
                       "the same function", stacklevel=3)
 
 
-class AZNet(nn.Module):
-    """Zoom/adjacency proposal network.
+class RoiNet(nn.Module):
+    """Trunk + ROI pooling + a head (what ``AZNet`` and ``FRCNN`` share).
 
     - ``features(images [B, H, W, 3])`` -> ``[B, H/16, W/16, C]``
-    - ``roi_forward(feat [h, w, C], rois [R, 4])`` -> head outputs dict
+    - ``roi_forward(feat [h, w, C], rois [R, 4])`` -> the head's outputs dict
     """
 
-    def __init__(self, model_cfg: ModelConfig = ModelConfig()):
+    def __init__(self, model_cfg: ModelConfig):
         super().__init__()
         check_supported(model_cfg)
         self.model_cfg = model_cfg
         self.trunk = get_backbone(model_cfg)
-        p = model_cfg.POOL_SIZE
         # The heads quantize independently of the trunk (the reference's rule):
         # INT8_HEAD_SCALES alone selects the int8 fc stack, except in float32.
-        head_scales = (tuple(model_cfg.INT8_HEAD_SCALES)
-                       if model_cfg.COMPUTE_DTYPE != "float32" else ())
-        self.head = AZHead(p * p * self.trunk.out_channels, model_cfg.NUM_TEMPLATES,
-                           model_cfg.FC_DIM, model_cfg.FC7_DIM, int8_scales=head_scales)
+        self.head_scales = (tuple(model_cfg.INT8_HEAD_SCALES)
+                            if model_cfg.COMPUTE_DTYPE != "float32" else ())
+        self.pooled_dim = model_cfg.POOL_SIZE ** 2 * self.trunk.out_channels
 
     def features(self, images: torch.Tensor) -> torch.Tensor:
         return self.trunk(images)
@@ -81,14 +78,25 @@ class AZNet(nn.Module):
         return self.head(self.roi_pool_only(feat, rois))
 
 
+class AZNet(RoiNet):
+    """Zoom/adjacency proposal network: ``roi_forward`` returns ``zoom [R]``,
+    ``adj_score [R, K]`` and ``adj_delta [R, K, 4]``."""
+
+    def __init__(self, model_cfg: ModelConfig = ModelConfig()):
+        super().__init__(model_cfg)
+        self.head = AZHead(self.pooled_dim, model_cfg.NUM_TEMPLATES, model_cfg.FC_DIM,
+                           model_cfg.FC7_DIM, int8_scales=self.head_scales)
+
+
 def init_params(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded initialisation with the Flax initialisers of the same layers:
     lecun-normal kernels (truncated at 2 sigma, fan-in), zero biases, and
-    normal(0.01) / normal(0.001) for the AZ head's score / box layers."""
+    normal(0.01) / normal(0.001) for the heads' score / box layers (each
+    head's ``SCORE_STD``)."""
     std_of = {}
     for mod in model.modules():
-        if isinstance(mod, AZHead):
-            std_of.update({getattr(mod, n): s for n, s in AZHead.SCORE_STD.items()})
+        for name, std in getattr(mod, "SCORE_STD", {}).items():
+            std_of[getattr(mod, name)] = std
     with torch.no_grad():
         for mod in model.modules():
             if not isinstance(mod, (nn.Conv2d, nn.Linear)):

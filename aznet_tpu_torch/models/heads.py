@@ -1,9 +1,11 @@
-"""AZ head: fc6/fc7 + zoom/adjacency outputs (inference path of
-``aznet_tpu/models/heads.py``: ``_FCStack``, its int8 stack, and ``AZHead``).
+"""ROI heads: fc6/fc7 plus the AZ outputs or the Fast R-CNN outputs
+(inference path of ``aznet_tpu/models/heads.py``: ``_FCStack``, its int8
+stack, ``_fused_heads``, ``AZHead`` and ``FRCNNHead``).
 
 Layer names match the reference's parameter tree (``fc.fc6``, ``fc.fc7``,
-``zoom_score``, ``adj_score``, ``adj_bbox``) so converted weights load 1:1.
-Dropout is identity at inference and is not part of this port.
+``zoom_score``, ``adj_score``, ``adj_bbox``; ``cls_score``, ``bbox_pred``) so
+converted weights load 1:1. Dropout is identity at inference and is not part
+of this port.
 """
 
 from __future__ import annotations
@@ -76,6 +78,15 @@ class FCStack(nn.Module):
         return dense(h8, s_mid, "fc7").to(torch.bfloat16)
 
 
+def fused_heads(x: torch.Tensor, layers) -> torch.Tensor:
+    """ONE f32 dot of fc7's output against the concatenated output layers,
+    on the weights as stored (bf16-rounded in bf16 mode): the reference's
+    ``_fused_heads``."""
+    w = torch.cat([m.weight for m in layers]).float()
+    b = torch.cat([m.bias for m in layers]).float()
+    return x.float() @ w.t() + b
+
+
 class AZHead(nn.Module):
     """``[R, P, P, C]`` pooled features -> ``zoom [R]``, ``adj_score [R, K]``
     (logits) and ``adj_delta [R, K, 4]``, all float32."""
@@ -94,15 +105,29 @@ class AZHead(nn.Module):
 
     def forward(self, pooled: torch.Tensor) -> dict:
         k = self.num_templates
-        x = self.fc(pooled)
-        # ONE f32 dot against the three output layers, on the weights as
-        # stored (bf16-rounded in bf16 mode): the reference's _fused_heads.
-        layers = (self.zoom_score, self.adj_score, self.adj_bbox)
-        w = torch.cat([m.weight for m in layers]).float()
-        b = torch.cat([m.bias for m in layers]).float()
-        y = x.float() @ w.t() + b
+        y = fused_heads(self.fc(pooled), (self.zoom_score, self.adj_score, self.adj_bbox))
         return {
             "zoom": y[:, 0],
             "adj_score": y[:, 1:1 + k],
             "adj_delta": y[:, 1 + k:].reshape(-1, k, 4),
         }
+
+
+class FRCNNHead(nn.Module):
+    """``[R, P, P, C]`` pooled features -> ``cls_score [R, K]`` (logits) and
+    ``bbox_pred [R, 4K]``, float32, for K classes."""
+
+    SCORE_STD = {"cls_score": 0.01, "bbox_pred": 0.001}
+
+    def __init__(self, in_dim: int, num_classes: int = 21, fc_dim: int = 4096,
+                 fc7_dim: int = 0, int8_scales: tuple = ()):
+        super().__init__()
+        self.num_classes = num_classes
+        self.fc = FCStack(in_dim, fc_dim, fc7_dim, int8_scales)
+        d = fc7_dim or fc_dim
+        self.cls_score = nn.Linear(d, num_classes)
+        self.bbox_pred = nn.Linear(d, 4 * num_classes)
+
+    def forward(self, pooled: torch.Tensor) -> dict:
+        y = fused_heads(self.fc(pooled), (self.cls_score, self.bbox_pred))
+        return {"cls_score": y[:, :self.num_classes], "bbox_pred": y[:, self.num_classes:]}

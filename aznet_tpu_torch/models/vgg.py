@@ -7,6 +7,12 @@ fastest on, and the output is viewed back without a copy. The 3x3/s1 SAME
 padding is symmetric, so ``padding=1`` matches JAX exactly. The compute
 dtype is the parameters' dtype (the API casts them once).
 
+``fuse_conv1`` (``MODEL.FUSE_CONV1``, float path only): conv1_1, conv1_2 and
+pool1 run through ``ops/conv1_fused.py`` (the CUDA kernel on the card, its
+plain version on the CPU) when H % 32 == 0 and W % 2 == 0, the reference's
+shape gate; other shapes run the plain layers. The int8 path ignores it, as
+the reference's does.
+
 Int8 path (``VGG16Trunk._int8_forward`` of the reference, inference only):
 conv1_1, conv1_2 and conv2_1 stay bf16 (f32 accumulation and f32 bias);
 conv2_1's f32 result is quantized with its calibrated scale, and every later
@@ -25,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from aznet_tpu_torch.ops.conv1_fused import fused_conv1_pool
 from aznet_tpu_torch.ops.conv_int8 import (Int8Conv, conv3x3_int8, max_pool_2x2,
                                            quantize_acts)
 
@@ -53,7 +60,7 @@ class VGG16Trunk(nn.Module):
 
     def __init__(self, width: float = 1.0, int8_mode: bool = False,
                  int8_scales: tuple = (), int8_backend: str = "pallas",
-                 int8_chain_from: str = "conv2_2"):
+                 int8_chain_from: str = "conv2_2", fuse_conv1: bool = False):
         super().__init__()
         c_in = 3
         for name, ch in VGG16_LAYOUT:
@@ -65,6 +72,7 @@ class VGG16Trunk(nn.Module):
         self.out_channels = c_in
         self.width = width
         self.int8_mode = int8_mode
+        self.fuse_conv1 = fuse_conv1
         if int8_mode:
             if int8_chain_from == "conv1_2":
                 raise NotImplementedError(
@@ -83,8 +91,14 @@ class VGG16Trunk(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.int8_mode:
             return self.int8_body(self.int8_prefix(x))
-        x = x.to(self.conv1_1.weight.dtype).permute(0, 3, 1, 2)
-        for name, ch in VGG16_LAYOUT:
+        x = x.to(self.conv1_1.weight.dtype)
+        layout = VGG16_LAYOUT
+        if self.fuse_conv1 and x.shape[1] % 32 == 0 and x.shape[2] % 2 == 0:
+            x = fused_conv1_pool(x, self.conv1_1.weight, self.conv1_1.bias,
+                                 self.conv1_2.weight, self.conv1_2.bias)
+            layout = VGG16_LAYOUT[3:]  # conv1_1, conv1_2 and pool1 are done
+        x = x.permute(0, 3, 1, 2)
+        for name, ch in layout:
             if ch is None:
                 x = F.max_pool2d(x, 2, 2)
             else:

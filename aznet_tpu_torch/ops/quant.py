@@ -21,7 +21,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from aznet_tpu.config import Config
+from aznet_tpu_torch.config import Config
 from aznet_tpu_torch.models.vgg import VGG16_LAYOUT
 from aznet_tpu_torch.search.templates import division_tree_regions
 

@@ -1,5 +1,10 @@
-"""ROI align as separable triangle-weight contractions (``'align'`` mode of
-``aznet_tpu/ops/roi_pool.py``: ``roi_align`` and ``roi_align_int8``).
+"""ROI pooling, the three modes of ``aznet_tpu/ops/roi_pool.py``:
+
+- ``'align'``: separable triangle-weight contractions (``roi_align``, and
+  ``roi_align_int8`` on int8 features);
+- ``'align_pallas'``: the fused ROI align (``roi_align_fused``), the CUDA
+  kernel on the card and its plain version on the CPU;
+- ``'caffe_max'``: Caffe's ROI max pooling (``roi_pool_caffe``).
 
 Pooled features are NHWC ``[R, P, P, C]``, as in the reference, so fc6
 consumes them in the reference's flatten order with no permutation.
@@ -8,6 +13,8 @@ consumes them in the reference's flatten order with no permutation.
 from __future__ import annotations
 
 import torch
+
+from aznet_tpu_torch.ops.cuda import roi_align_kernel
 
 ROI_CHUNK = 256  # rois per contraction, to bound the intermediate's memory
 
@@ -102,14 +109,172 @@ def roi_align_int8(feat8, rois, spatial_scale: float, pool_size: int = 7,
                       for i in range(0, rois.shape[0], ROI_CHUNK)])
 
 
+FUSED_TILE_R = 16  # the reference kernel's roi tile, a term of its order rule
+FUSED_CHUNK = 64  # rois per step of the plain fused version (bounds its memory)
+CAFFE_CHUNK = 32  # rois per gather of roi_pool_caffe (bounds its memory)
+
+
+def fused_w_first(h: int, w: int, c: int, itemsize: int, pool_size: int = 7) -> bool:
+    """Contraction order of the fused ROI align: ``roi_align_pallas``'s
+    footprint rule (feat + one roi tile's rows + its output over 12 MB picks
+    the W-first kernel). The rule was set by the TPU's memory, but it selects
+    the numerics (which intermediate is rounded), so the port keeps it as an
+    order selector and none of the TPU's tiles."""
+    footprint = (h * w * c + FUSED_TILE_R * pool_size * w * c
+                 + FUSED_TILE_R * pool_size * pool_size * c) * itemsize
+    return footprint > 12 * 1024 * 1024
+
+
+def fused_taps(lo, size, extent: int, pool: int):
+    """Per roi and bin, the cells of one axis where the bin's weight can be
+    nonzero and their weights: ``(cells [R, P, 4] int64, weights [R, P, 4]
+    f32)``. The bin's two samples sit at ``lo + (i + 0.5) / (2P) * size``,
+    clipped to ``[0, extent - 1]``; each cell weighs the mean of the two
+    triangles ``max(1 - |pos - cell|, 0)``, which is nonzero only on
+    ``floor(pos)`` and ``floor(pos) + 1``. Slots in ascending cell order:
+    ``f0, f0 + 1, f1, f1 + 1``; a slot that repeats a cell or leaves the map
+    has weight 0 (its cell is clamped into the map)."""
+    n = 2 * pool
+    grid = ((torch.arange(n, dtype=torch.float32) + 0.5) / n).to(lo.device)  # true division
+    pos = (lo[:, None] + grid * size[:, None]).clamp(0.0, extent - 1.0).reshape(-1, pool, 2)
+    f0, f1 = torch.floor(pos).long().unbind(-1)
+    cells = torch.stack([f0, f0 + 1, f1, f1 + 1], -1)
+    live = torch.stack([torch.ones_like(f0, dtype=torch.bool), f0 + 1 < extent,
+                        f1 > f0 + 1, (f1 > f0) & (f1 + 1 < extent)], -1)
+    cf = cells.float()
+
+    def tri(p):
+        return (1.0 - (p[..., None] - cf).abs()).clamp(min=0.0)
+
+    wts = (tri(pos[..., 0]) + tri(pos[..., 1])) * 0.5
+    return cells.clamp(max=extent - 1), torch.where(live, wts, 0.0)
+
+
+def roi_align_fused_reference(feat, rois, spatial_scale: float, pool_size: int = 7,
+                              w_first: bool = False):
+    """Plain PyTorch version of the fused ROI-align kernel (the function of
+    ``aznet_tpu/ops/pallas/roi_kernel.py``): ``feat [H, W, C]`` bf16/f32,
+    ``rois [R, 4]`` f32 -> ``[R, P, P, C]`` in ``feat``'s dtype.
+
+    Weights from :func:`fused_taps`, rounded to the feature dtype. H-first:
+    ``rows[p, w] = sum_h wy[p, h] * feat[h, w]`` then ``out[p, q] = sum_w
+    wx[q, w] * rows[p, w]``; W-first: ``cols[q, h]`` over w, then the sum
+    over h. Each sum runs over the four tap slots in ascending cell order,
+    one f32 multiply and one f32 add per step (zero-weight slots add
+    nothing), and its result is rounded to the feature dtype: the
+    intermediate before the second sum, the output after it."""
+    h, w, c = feat.shape
+    p = pool_size
+    dt = feat.dtype
+    featf = feat.float()
+
+    def tap_sum(weights, values):
+        acc = torch.zeros_like(values[0])
+        for wk, vk in zip(weights, values):
+            acc = acc + wk * vk
+        return acc
+
+    def one_chunk(r):
+        x1, y1, x2, y2 = (r * spatial_scale).unbind(-1)
+        cy, wy = fused_taps(y1, (y2 - y1).clamp(min=1.0), h, p)
+        cx, wx = fused_taps(x1, (x2 - x1).clamp(min=1.0), w, p)
+        wy, wx = wy.to(dt).float(), wx.to(dt).float()
+        n = r.shape[0]
+        if w_first:
+            # cols [R, Q, H, C]; then gather h per (p, k): [R, Q, P, C].
+            feat_t = featf.permute(1, 0, 2)
+            cols = tap_sum([wx[:, :, k, None, None] for k in range(4)],
+                           [feat_t[cx[:, :, k]] for k in range(4)]).to(dt).float()
+            idx = [cy[:, None, :, k, None].expand(n, p, p, c) for k in range(4)]
+            out = tap_sum([wy[:, None, :, k, None] for k in range(4)],
+                          [torch.gather(cols, 2, i) for i in idx])
+            return out.permute(0, 2, 1, 3).to(dt)
+        rows = tap_sum([wy[:, :, k, None, None] for k in range(4)],
+                       [featf[cy[:, :, k]] for k in range(4)]).to(dt).float()  # [R, P, W, C]
+        idx = [cx[:, None, :, k, None].expand(n, p, p, c) for k in range(4)]
+        return tap_sum([wx[:, None, :, k, None] for k in range(4)],
+                       [torch.gather(rows, 2, i) for i in idx]).to(dt)
+
+    if rois.shape[0] == 0:
+        return feat.new_zeros((0, p, p, c))
+    return torch.cat([one_chunk(rois[i:i + FUSED_CHUNK])
+                      for i in range(0, rois.shape[0], FUSED_CHUNK)])
+
+
+def roi_align_fused(feat, rois, spatial_scale: float, pool_size: int = 7):
+    """``'align_pallas'`` mode: the fused ROI align (counterpart of
+    ``roi_align_pallas``), bf16 or f32 features. A CUDA tensor launches the
+    CUDA kernel (``ops/cuda/roi_align_kernel.py``), a CPU tensor takes
+    :func:`roi_align_fused_reference`; the order is :func:`fused_w_first`."""
+    if feat.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"the fused ROI align takes bf16 or f32 features, got {feat.dtype}")
+    h, w, c = feat.shape
+    wf = fused_w_first(h, w, c, feat.element_size(), pool_size)
+    rois = rois.to(torch.float32)
+    if feat.is_cuda:
+        return roi_align_kernel.roi_align_cuda(feat, rois, spatial_scale, pool_size, wf)
+    if feat.device.type != "cpu":
+        raise ValueError(f"no fused ROI align for device {feat.device}")
+    return roi_align_fused_reference(feat, rois, spatial_scale, pool_size, wf)
+
+
+def roi_pool_caffe(feat, rois, spatial_scale: float, pool_size: int = 7):
+    """``'caffe_max'`` mode, Caffe ROIPooling: ``feat [H, W, C]``, ``rois
+    [R, 4]`` image coordinates -> ``[R, P, P, C]``. Roi corners round to the
+    feature grid in float32 (``floor(x * scale + 0.5)``), ``roi_w = max(x2 -
+    x1 + 1, 1)``, bin boundaries ``floor(p * roi / P)`` and ``ceil((p + 1) *
+    roi / P)`` in exact integer arithmetic, clipped to the map; max over the
+    bin, 0 for an empty bin (``aznet_tpu/ops/roi_pool.py::roi_pool_caffe``)."""
+    h, w, c = feat.shape
+    p = pool_size
+    # A bin spans at most roi/P + 2 cells; rounded rois span at most H + 1.
+    mbh = -(-(h + 1) // p) + 2
+    mbw = -(-(w + 1) // p) + 2
+    dev = feat.device
+    ps = torch.arange(p, device=dev)
+    neg = torch.tensor(float("-inf"), dtype=feat.dtype, device=dev)
+
+    def bins(lo, hi, extent, span):
+        size = (hi - lo + 1).clamp(min=1)[:, None]
+        start = ((ps * size) // p + lo[:, None]).clamp(0, extent)
+        end = (-((-(ps + 1) * size) // p) + lo[:, None]).clamp(0, extent)
+        idx = start[..., None] + torch.arange(span, device=dev)  # [R, P, span]
+        return idx.clamp(max=extent - 1), idx < end[..., None]
+
+    def one_chunk(r):
+        x1, y1, x2, y2 = torch.floor(r.float() * spatial_scale + 0.5).long().unbind(-1)
+        hidx, hvalid = bins(y1, y2, h, mbh)
+        widx, wvalid = bins(x1, x2, w, mbw)
+        vals = feat[hidx[:, :, None, :, None], widx[:, None, :, None, :]]
+        mask = (hvalid[:, :, None, :, None] & wvalid[:, None, :, None, :])[..., None]
+        pooled = torch.where(mask, vals, neg).amax(dim=(3, 4))
+        return torch.where(mask.any(dim=(3, 4)), pooled, 0.0).to(feat.dtype)
+
+    if rois.shape[0] == 0:
+        return feat.new_zeros((0, p, p, c))
+    return torch.cat([one_chunk(rois[i:i + CAFFE_CHUNK])
+                      for i in range(0, rois.shape[0], CAFFE_CHUNK)])
+
+
+POOLING_MODES = ("align", "align_pallas", "caffe_max")
+
+
 def roi_pool(feat, rois, spatial_scale: float, pool_size: int = 7,
              mode: str = "align"):
-    """Dispatch on ``cfg.MODEL.POOLING_MODE``; only ``'align'`` is ported.
-    int8 features take :func:`roi_align_int8` and pool to int8."""
-    if mode != "align":
-        raise ValueError(f"POOLING_MODE {mode!r} is not ported (only 'align')")
+    """Dispatch on ``cfg.MODEL.POOLING_MODE``: ``'align'`` (the einsums),
+    ``'align_pallas'`` (:func:`roi_align_fused`), ``'caffe_max'``
+    (:func:`roi_pool_caffe`). int8 features take :func:`roi_align_int8` and
+    pool to int8, in ``'align'`` mode only."""
+    if mode not in POOLING_MODES:
+        raise ValueError(f"unknown POOLING_MODE {mode!r}; options: {POOLING_MODES}")
     if feat.dtype == torch.int8:
+        if mode != "align":
+            raise ValueError(f"int8 features need POOLING_MODE 'align', got {mode!r}")
         return roi_align_int8(feat, rois, spatial_scale, pool_size)
     if not feat.is_floating_point():
-        raise ValueError(f"roi_align needs float or int8 features, got {feat.dtype}")
+        raise ValueError(f"roi_pool needs float or int8 features, got {feat.dtype}")
+    if mode == "align_pallas":
+        return roi_align_fused(feat, rois, spatial_scale, pool_size)
+    if mode == "caffe_max":
+        return roi_pool_caffe(feat, rois, spatial_scale, pool_size)
     return roi_align(feat, rois, spatial_scale, pool_size)

@@ -19,7 +19,7 @@ from typing import Callable, Tuple
 
 import torch
 
-from aznet_tpu.config import SearchConfig
+from aznet_tpu_torch.config import SearchConfig
 from aznet_tpu_torch.ops.boxes import bbox_transform_inv, clip_boxes
 from aznet_tpu_torch.ops.nms import nms_topk
 from aznet_tpu_torch.ops.topk import top_k

@@ -44,7 +44,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def _nets(cfg):
     jnet = japi.build_az_net(cfg)
     sd = params_from_flax(jax.tree_util.tree_map(np.asarray, jnet.params))
-    return jnet, tapi.build_az_net(cfg, state_dict=sd)
+    return jnet, tapi.build_az_net(cfg, state_dict=sd, device="cpu")
 
 
 def _assert_props(got, want):
@@ -96,15 +96,16 @@ def test_make_propose_batch_padded_matches():
 
 def test_port_runs_without_jax():
     """The card's machine has no JAX: import the port with ``jax`` and
-    ``flax`` made unimportable, build a smallnet net with the port's own
-    seeded init on the CPU, and propose."""
+    ``flax`` made unimportable, build a smallnet net from the port's own
+    config with its seeded init on the CPU, and propose; no module of the
+    JAX package was imported."""
     code = textwrap.dedent("""
         import sys
         for name in ("jax", "jaxlib", "flax"):
             sys.modules[name] = None
         import numpy as np, torch
         torch.set_num_threads(1)
-        from aznet_tpu.config import Config, cfg_from_dict
+        from aznet_tpu_torch.config import Config, cfg_from_dict
         from aznet_tpu_torch.api import build_az_net, im_propose
         cfg = cfg_from_dict(Config(), {
             "MODEL": {"BACKBONE": "smallnet", "FC_DIM": 32, "NUM_TEMPLATES": 5},
@@ -115,7 +116,7 @@ def test_port_runs_without_jax():
         dets = im_propose(build_az_net(cfg, device="cpu"), im)
         assert dets.shape[1] == 5 and 0 < dets.shape[0] <= 10, dets.shape
         assert np.isfinite(dets).all()
-        assert not any(m.split(".")[0] in ("jax", "flax") for m in sys.modules
+        assert not any(m.split(".")[0] in ("jax", "flax", "aznet_tpu") for m in sys.modules
                        if sys.modules[m] is not None)
         print("OK", dets.shape[0])
     """)

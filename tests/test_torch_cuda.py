@@ -1,6 +1,7 @@
 """On a card: the CUDA kernels against their plain PyTorch versions, bit for
-bit (NMS keep masks; int8 conv codes and bf16 exits). Imports no JAX, so it
-runs where JAX is absent:
+bit (NMS keep masks; int8 conv codes and bf16 exits; the fused ROI align),
+or within one bf16 ulp (the fused conv1 block, whose f32 sums run in another
+order inside ``mma``). Imports no JAX, so it runs where JAX is absent:
 
     python -m pytest -p no:cacheprovider --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -11,11 +12,15 @@ import numpy as np
 import pytest
 import torch
 
+from aznet_tpu_torch import api as tapi
+from aznet_tpu_torch.config import Config, cfg_from_dict
 from aznet_tpu_torch.models.heads import int8_matmul
 from aznet_tpu_torch.models.vgg import VGG16Trunk
+from aznet_tpu_torch.ops import conv1_fused as tconv1
 from aznet_tpu_torch.ops import conv_int8 as tconv
 from aznet_tpu_torch.ops import nms as tnms
-from aznet_tpu_torch.ops.cuda import conv_int8_kernel, nms_kernel
+from aznet_tpu_torch.ops import roi_pool as troi
+from aznet_tpu_torch.ops.cuda import conv1_kernel, conv_int8_kernel, nms_kernel, roi_align_kernel
 
 pytestmark = pytest.mark.cuda
 
@@ -148,3 +153,107 @@ def test_int8_trunk_body_on_card_equals_cpu(dev):
     assert conv_int8_kernel.LAUNCHES["strip"] - before["strip"] == 10
     assert got.dtype == torch.bfloat16
     assert torch.equal(got.cpu(), want)
+
+
+def _roi_case(seed, h, w, c, r, dtype, dev):
+    """Post-ReLU-like features; rois of every size, some past the map's
+    edge, some below one cell, one all zeros (a padded frontier row)."""
+    rng = np.random.RandomState(seed)
+    feat = torch.from_numpy(np.maximum(rng.randn(h, w, c), 0).astype(np.float32))
+    xy = rng.uniform(-40, w * 16, (r, 2))
+    wh = np.exp(rng.uniform(np.log(2), np.log(900), (r, 2)))
+    rois = np.concatenate([xy, xy + wh], 1).astype(np.float32)
+    rois[0] = 0.0
+    return feat.to(dtype).to(dev), torch.from_numpy(rois).to(dev)
+
+
+# (H, W, C, R, dtype, w_first): the slice's map (38 x 50 x 512) in both orders
+# and dtypes, channel counts that are not multiples of 128, one roi.
+ROI_CASES = [
+    (38, 50, 512, 300, torch.bfloat16, False), (38, 50, 512, 64, torch.float32, True),
+    (38, 50, 512, 64, torch.bfloat16, True), (38, 50, 512, 8, torch.float32, False),
+    (13, 21, 40, 33, torch.bfloat16, False), (9, 7, 200, 1, torch.float32, True),
+]
+
+
+@pytest.mark.parametrize("h,w,c,r,dtype,w_first", ROI_CASES)
+def test_roi_align_kernel_equals_plain(dev, h, w, c, r, dtype, w_first):
+    feat, rois = _roi_case(h * 7 + r, h, w, c, r, dtype, dev)
+    before = roi_align_kernel.LAUNCHES
+    got = roi_align_kernel.roi_align_cuda(feat, rois, 1 / 16.0, 7, w_first)
+    assert roi_align_kernel.LAUNCHES == before + 1
+    want = troi.roi_align_fused_reference(feat, rois, 1 / 16.0, 7, w_first)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (r, 7, 7, c)
+    assert torch.equal(got, want)
+    assert float(want.float().abs().max()) > 0
+
+
+def test_roi_align_dispatch_and_rejects(dev):
+    feat, rois = _roi_case(1, 38, 50, 512, 8, torch.float32, dev)
+    before = roi_align_kernel.LAUNCHES
+    got = troi.roi_pool(feat, rois, 1 / 16.0, 7, mode="align_pallas")  # f32: W-first
+    assert roi_align_kernel.LAUNCHES == before + 1
+    assert torch.equal(got, troi.roi_align_fused_reference(feat, rois, 1 / 16.0, 7, True))
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        roi_align_kernel.roi_align_cuda(feat.half(), rois, 1 / 16.0, 7, False)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        roi_align_kernel.roi_align_cuda(feat, rois.cpu(), 1 / 16.0, 7, False)
+
+
+# (B, H, W, C): the slice's shape cut in rows, widths that are not multiples
+# of the 64-column tile, C = 16 (VGG-16 at WIDTH 0.25).
+CONV1_CASES = [(2, 64, 800, 64), (1, 34, 130, 64), (2, 64, 48, 16), (1, 6, 70, 32)]
+
+
+@pytest.mark.parametrize("bsz,h,w,c", CONV1_CASES)
+def test_conv1_kernel_within_one_ulp(dev, bsz, h, w, c):
+    rng = np.random.RandomState(h + c)
+    y = torch.from_numpy(np.maximum(rng.randn(bsz, h, w, c), 0).astype(np.float32) * 40)
+    w12 = torch.from_numpy((rng.randn(c, c, 3, 3) * 0.05).astype(np.float32))
+    b12 = torch.from_numpy(rng.uniform(-1, 1, c).astype(np.float32))
+    y, w12, b12 = (t.to(dev, torch.bfloat16) for t in (y, w12, b12))
+    before = conv1_kernel.LAUNCHES
+    got = conv1_kernel.conv1_2_pool_cuda(y, tconv1.kernel_weights(w12), b12.float())
+    assert conv1_kernel.LAUNCHES == before + 1
+    want = tconv1.conv1_2_pool_reference(y, w12, b12)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (bsz, h // 2, w // 2, c)
+    ok, frac = tconv1.within_one_bf16_ulp(got, want)
+    assert ok, frac
+    assert 0.05 < float((want > 0).float().mean()) < 0.999
+
+
+def test_conv1_kernel_rejects(dev):
+    y = torch.zeros((1, 8, 8, 8), device=dev, dtype=torch.bfloat16)
+    w9 = torch.zeros((9, 8, 8), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        conv1_kernel.conv1_2_pool_cuda(y, w9, torch.zeros(8, device=dev))
+    with pytest.raises(TypeError, match="bf16"):
+        conv1_kernel.conv1_2_pool_cuda(y.float(), w9, torch.zeros(8, device=dev))
+
+
+def _detect_cfg():
+    return cfg_from_dict(Config(), {
+        "MODEL": {"WIDTH": 0.25, "FC_DIM": 64, "NUM_TEMPLATES": 11,
+                  "POOLING_MODE": "align_pallas", "FUSE_CONV1": True},
+        "SEAR": {"FRONTIER_CAP": 16, "CAND_BUF": 256, "MAX_LEVELS": 3, "NUM_PROPOSALS": 50},
+        "TEST": {"SCALES": (64,), "MAX_SIZE": 128, "BBOX_ITER": 2}})
+
+
+def test_detect_on_card_equals_cpu(dev):
+    """VGG-16 at WIDTH 0.25, bf16, align_pallas + FUSE_CONV1: im_detect on
+    the card against the CPU on the same boxes; both kernels launch."""
+    cfg = _detect_cfg()
+    cpu_net = tapi.build_frcnn_net(cfg, device="cpu")
+    gpu_net = tapi.build_frcnn_net(cfg, state_dict=cpu_net.params, device=dev)
+    rng = np.random.RandomState(1)
+    im = rng.randint(0, 256, (96, 128, 3)).astype(np.uint8)
+    xy = rng.uniform(0, 80, (40, 2))
+    boxes = np.concatenate([xy, np.minimum(xy + rng.uniform(8, 60, (40, 2)), 120)], 1)
+    before = (roi_align_kernel.LAUNCHES, conv1_kernel.LAUNCHES)
+    got = tapi.im_detect(gpu_net, im, boxes.astype(np.float32))
+    assert roi_align_kernel.LAUNCHES - before[0] == 2 and conv1_kernel.LAUNCHES - before[1] == 1
+    want = tapi.im_detect(cpu_net, im, boxes.astype(np.float32))
+    np.testing.assert_allclose(got[0], want[0], atol=1e-2, rtol=0)
+    np.testing.assert_allclose(got[1], want[1], atol=0.5, rtol=0)

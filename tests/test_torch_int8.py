@@ -278,7 +278,7 @@ def _nets(overrides):
     cfg = cfg_from_dict(Config(), overrides)
     jnet = japi.build_az_net(cfg)
     sd = params_from_flax(_np_tree(jnet.params))
-    return cfg, jnet, tapi.build_az_net(cfg, state_dict=sd)
+    return cfg, jnet, tapi.build_az_net(cfg, state_dict=sd, device="cpu")
 
 
 def test_calibration_matches():
@@ -296,7 +296,7 @@ def test_calibration_matches():
                                rtol=1e-5, atol=0)
     with pytest.raises(ValueError, match="not int8"):
         tquant.calibrate_trunk_int8(
-            tapi.build_az_net(tquant.with_int8_scales(cfg, want)), images)
+            tapi.build_az_net(tquant.with_int8_scales(cfg, want), device="cpu"), images)
 
 
 @pytest.mark.parametrize("levels", [0, 1, 2])
@@ -344,7 +344,7 @@ def test_int8_head_matches(dtype):
         cfg8 = dataclasses.replace(cfg, MODEL=dataclasses.replace(
             cfg.MODEL, COMPUTE_DTYPE="bfloat16", INT8_HEAD_SCALES=(0.05, 0.02), INT8_ROI=True))
     jnet8 = japi.build_az_net(cfg8, params=jnet.params)
-    tnet8 = tapi.build_az_net(cfg8, state_dict=tnet.params)
+    tnet8 = tapi.build_az_net(cfg8, state_dict=tnet.params, device="cpu")
     rng = np.random.RandomState(4)
     feat = rng.randint(0, 80, (6, 8, 64)).astype(np.int8)
     xy = rng.uniform(0, 60, (20, 2)).astype(np.float32)
@@ -374,7 +374,7 @@ def _int8_nets(monkeypatch, backend="pallas"):
     head_scales = jquant.calibrate_head_int8(jnet, calib, scales)
     cfg8 = _int8_cfg(cfg, scales, head_scales, INT8_ROI=True, INT8_BACKEND=backend)
     return cfg8, japi.build_az_net(cfg8, params=jnet.params), tapi.build_az_net(
-        cfg8, state_dict=tnet.params)
+        cfg8, state_dict=tnet.params, device="cpu")
 
 
 def _assert_props(got, want):
@@ -419,14 +419,16 @@ def test_net_params_are_the_float32_masters():
     overrides = dict(SMALL, MODEL=dict(SMALL["MODEL"], COMPUTE_DTYPE="bfloat16"))
     cfg = cfg_from_dict(Config(), overrides)
     sd = tapi.build_az_net(dataclasses.replace(
-        cfg, MODEL=dataclasses.replace(cfg.MODEL, COMPUTE_DTYPE="float32")), seed=9).params
-    net = tapi.build_az_net(cfg, state_dict=sd)
+        cfg, MODEL=dataclasses.replace(cfg.MODEL, COMPUTE_DTYPE="float32")), seed=9,
+        device="cpu").params
+    net = tapi.build_az_net(cfg, state_dict=sd, device="cpu")
     assert next(net.model.parameters()).dtype == torch.bfloat16
     assert net.params.keys() == sd.keys()
     for k, v in sd.items():
         assert net.params[k].dtype == torch.float32
         assert torch.equal(net.params[k], v), k
-    net8 = tapi.build_az_net(tquant.with_int8_scales(cfg, [0.1] * 13), state_dict=net.params)
+    net8 = tapi.build_az_net(tquant.with_int8_scales(cfg, [0.1] * 13), state_dict=net.params,
+                             device="cpu")
     w = sd["trunk.conv3_1.weight"]
     q, s = tconv.pack_weights_9(w)
     layer = net8.model.trunk._int8_layers["conv3_1"]
@@ -451,7 +453,7 @@ def test_int8_guards(override, exc, match):
 def test_int8_requires_scales():
     cfg = cfg_from_dict(Config(), {"MODEL": {"WIDTH": 0.125, "FC_DIM": 16,
                                              "COMPUTE_DTYPE": "int8"}})
-    net = tapi.build_az_net(cfg)
+    net = tapi.build_az_net(cfg, device="cpu")
     with pytest.raises(ValueError, match="INT8_SCALES"):
         net.model.features(torch.zeros((1, 64, 64, 3)))
 
@@ -467,7 +469,7 @@ def test_int8_port_runs_without_jax():
         import dataclasses
         import numpy as np, torch
         torch.set_num_threads(1)
-        from aznet_tpu.config import Config, cfg_from_dict
+        from aznet_tpu_torch.config import Config, cfg_from_dict
         from aznet_tpu_torch.api import build_az_net, im_propose
         from aznet_tpu_torch.ops.quant import (calibrate_head_int8, calibrate_trunk_int8,
                                                with_int8_scales)
@@ -476,16 +478,16 @@ def test_int8_port_runs_without_jax():
             "SEAR": {"FRONTIER_CAP": 16, "CAND_BUF": 128, "MAX_LEVELS": 2,
                      "NUM_PROPOSALS": 10},
             "TEST": {"SCALES": [64], "MAX_SIZE": 128}})
-        net = build_az_net(cfg)
+        net = build_az_net(cfg, device="cpu")
         calib = np.random.RandomState(7).uniform(-120, 120, (2, 64, 128, 3))
         scales = calibrate_trunk_int8(net, calib, batch_size=2)
         cfg8 = with_int8_scales(cfg, scales, calibrate_head_int8(net, calib, scales))
         cfg8 = dataclasses.replace(cfg8, MODEL=dataclasses.replace(cfg8.MODEL, INT8_ROI=True))
         im = np.random.RandomState(0).randint(0, 256, (100, 150, 3)).astype(np.uint8)
-        dets = im_propose(build_az_net(cfg8, state_dict=net.params), im)
+        dets = im_propose(build_az_net(cfg8, state_dict=net.params, device="cpu"), im)
         assert dets.shape[1] == 5 and 0 < dets.shape[0] <= 10, dets.shape
         assert np.isfinite(dets).all()
-        assert not any(m.split(".")[0] in ("jax", "flax") for m in sys.modules
+        assert not any(m.split(".")[0] in ("jax", "flax", "aznet_tpu") for m in sys.modules
                        if sys.modules[m] is not None)
         print("OK", dets.shape[0])
     """)

@@ -116,8 +116,8 @@ def test_aznet_roi_forward_matches():
 @pytest.mark.parametrize("override,match", [
     (dict(COMPUTE_DTYPE="int8", INT8_BACKEND="xla"), "COMPUTE_DTYPE"),
     (dict(COMPUTE_DTYPE="int8", INT8_CHAIN_FROM="conv1_2"), "int8"),
-    (dict(FUSE_CONV1=True), "FUSE_CONV1"),
-    (dict(POOLING_MODE="caffe_max"), "POOLING_MODE"),
+    (dict(COMPUTE_DTYPE="float16"), "COMPUTE_DTYPE"),
+    (dict(POOLING_MODE="bilinear"), "POOLING_MODE"),
     (dict(BACKBONE="resnet50"), "not ported"),
 ])
 def test_unported_settings_raise(override, match):
