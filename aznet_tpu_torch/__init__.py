@@ -3,16 +3,19 @@
 Mirrors ``aznet_tpu``'s layout (``aznet_tpu/X/y.py`` -> ``aznet_tpu_torch/X/y.py``)
 and has its own copy of the config tree (``aznet_tpu_torch.config``, the
 same fields and defaults). Imports torch and numpy, never JAX nor
-``aznet_tpu``. Implemented so far: the float (bf16/f32) VGG-16 / smallnet
-propose path, the int8 VGG-16 propose path (``api.im_propose``,
-``api.make_propose_batch``; calibration in ``ops.quant``) and the detection
-path (``api.im_detect``, ``api.make_detect_batch(_padded)``,
-``api.make_fused_detect_batch_padded``). Nets are built on the card unless
-``device="cpu"`` is passed. Four hand-written CUDA kernels run on CUDA
-tensors, each with a plain PyTorch version for CPU tensors: exact greedy
-NMS (``csrc/nms.cu``), the int8 3x3 conv with its fused pool
-(``csrc/conv_int8.cu``), the fused ROI align (``csrc/roi_align.cu``) and the
-fused conv1_2 + ReLU + pool1 (``csrc/conv1_fused.cu``).
+``aznet_tpu``. Implemented so far: the float (bf16/f32) propose path on
+every trunk of the JAX package (VGG-16, ResNet-50, CaffeNet,
+VGG_CNN_M_1024, smallnet), the int8 propose path on VGG-16 and ResNet-50
+(``api.im_propose``, ``api.make_propose_batch``; calibration in
+``ops.quant``) and the detection path (``api.im_detect``,
+``api.make_detect_batch(_padded)``, ``api.make_fused_detect_batch_padded``).
+Nets are built on the card unless ``device="cpu"`` is passed. Five
+hand-written CUDA kernels run on CUDA tensors, each with a plain PyTorch
+version for CPU tensors: exact greedy NMS (``csrc/nms.cu``), the int8 3x3
+conv with its fused pool (``csrc/conv_int8.cu``), the fused ROI align
+(``csrc/roi_align.cu``), the fused conv1_2 + ReLU + pool1
+(``csrc/conv1_fused.cu``) and the tiled IoU matrix (``csrc/iou.cu``, called
+by no path, as its Pallas counterpart).
 """
 
 __version__ = "0.1.0"

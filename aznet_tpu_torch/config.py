@@ -117,9 +117,10 @@ class ModelConfig:
     # fc7 width when it differs from fc6; 0 = FC_DIM.
     FC7_DIM: int = 0
     DROPOUT: float = 0.5
-    # "float32" | "bfloat16" | "int8" (inference, vgg16; needs INT8_SCALES).
+    # "float32" | "bfloat16" | "int8" (inference, vgg16 or resnet50; needs INT8_SCALES).
     COMPUTE_DTYPE: str = "bfloat16"
-    # Per-layer activation scales of the int8 trunk, conv1_1..conv5_3.
+    # Activation scales of the int8 trunk: vgg16 conv1_1..conv5_3; resnet50
+    # two per bottleneck (block input, mid), then the trunk output's.
     INT8_SCALES: Tuple[float, ...] = ()
     # (pooled-input scale, fc6-output scale) of the int8 fc6/fc7.
     INT8_HEAD_SCALES: Tuple[float, ...] = ()

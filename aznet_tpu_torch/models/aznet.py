@@ -16,24 +16,27 @@ from torch import nn
 from aznet_tpu_torch.config import ModelConfig
 from aznet_tpu_torch.models.backbones import get_backbone
 from aznet_tpu_torch.models.heads import AZHead
+from aznet_tpu_torch.models.resnet import FrozenBN
 from aznet_tpu_torch.ops.roi_pool import POOLING_MODES, roi_pool
 
 
 def check_supported(mc: ModelConfig) -> None:
     """Raise on MODEL settings this port does not implement; warn once for
-    ``CONV1_S2D``, whose rewrite is term-identical to the plain conv1_1.
+    ``CONV1_S2D`` (VGG-16) and ``STEM_S2D`` (ResNet-50), whose space-to-depth
+    rewrites are term-identical to the plain convs.
 
-    Int8 is ported for vgg16 only; the trunk checks its own int8 settings
-    (``models/vgg.py``)."""
+    The backbone factory raises on int8 for a trunk other than vgg16 and
+    resnet50, as the reference's; the VGG trunk checks its own int8
+    settings (``models/vgg.py``)."""
     if mc.COMPUTE_DTYPE not in ("float32", "bfloat16", "int8"):
         raise NotImplementedError(f"COMPUTE_DTYPE={mc.COMPUTE_DTYPE!r} is not ported")
-    if mc.COMPUTE_DTYPE == "int8" and mc.BACKBONE != "vgg16":
-        raise NotImplementedError(
-            f"COMPUTE_DTYPE='int8' is ported for vgg16 only, not {mc.BACKBONE!r}")
     if mc.POOLING_MODE not in POOLING_MODES:
         raise ValueError(f"unknown POOLING_MODE {mc.POOLING_MODE!r}; options: {POOLING_MODES}")
-    if mc.CONV1_S2D:
+    if mc.CONV1_S2D and mc.BACKBONE == "vgg16":
         warnings.warn("MODEL.CONV1_S2D is ignored: the plain conv1_1 computes "
+                      "the same function", stacklevel=3)
+    if mc.STEM_S2D and mc.BACKBONE == "resnet50":
+        warnings.warn("MODEL.STEM_S2D is ignored: the plain 7x7/2 stem computes "
                       "the same function", stacklevel=3)
 
 
@@ -90,15 +93,19 @@ class AZNet(RoiNet):
 
 def init_params(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded initialisation with the Flax initialisers of the same layers:
-    lecun-normal kernels (truncated at 2 sigma, fan-in), zero biases, and
+    lecun-normal kernels (truncated at 2 sigma, fan-in), zero biases,
     normal(0.01) / normal(0.001) for the heads' score / box layers (each
-    head's ``SCORE_STD``)."""
+    head's ``SCORE_STD``), and the identity for ``FrozenBN`` (scale 1, bias
+    0)."""
     std_of = {}
     for mod in model.modules():
         for name, std in getattr(mod, "SCORE_STD", {}).items():
             std_of[getattr(mod, name)] = std
     with torch.no_grad():
         for mod in model.modules():
+            if isinstance(mod, FrozenBN):
+                nn.init.ones_(mod.scale)
+                nn.init.zeros_(mod.bias)
             if not isinstance(mod, (nn.Conv2d, nn.Linear)):
                 continue
             if mod in std_of:
@@ -110,4 +117,5 @@ def init_params(model: nn.Module, generator: torch.Generator) -> None:
                 std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
                 nn.init.trunc_normal_(mod.weight, 0.0, std, -2 * std, 2 * std,
                                       generator=generator)
-            nn.init.zeros_(mod.bias)
+            if mod.bias is not None:
+                nn.init.zeros_(mod.bias)

@@ -14,20 +14,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from aznet_tpu_torch.ops.conv_int8 import quantize_acts, quantize_columns, scalar_f32
-
-# torch._int_mm on CUDA takes more than 16 rows; the search's first level has 8.
-INT_MM_MIN_ROWS = 32
-
-
-def int8_matmul(x8: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
-    """``x8 [M, K] @ w8[N, K].T`` in exact int32. ``torch._int_mm`` (the
-    card's int8 GEMM; also exact on the CPU); rows are zero-padded to at
-    least :data:`INT_MM_MIN_ROWS` on the card."""
-    m = x8.shape[0]
-    if x8.is_cuda and m < INT_MM_MIN_ROWS:
-        x8 = F.pad(x8, (0, 0, 0, INT_MM_MIN_ROWS - m))
-    return torch._int_mm(x8, w8.t())[:m]
+from aznet_tpu_torch.ops.conv_int8 import (int8_matmul, quantize_acts, quantize_columns,
+                                           scalar_f32)
 
 
 class FCStack(nn.Module):

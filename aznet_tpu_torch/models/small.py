@@ -1,4 +1,14 @@
-"""Small CI trunk (counterpart of ``aznet_tpu/models/small.py::SmallTrunk``)."""
+"""Small trunks (counterpart of ``aznet_tpu/models/small.py``): CaffeNet,
+VGG_CNN_M_1024 and the CI stand-in ``SmallTrunk``.
+
+NHWC in and out, like the reference; inside, the NHWC tensor is viewed as
+NCHW (channels-last memory, what cuDNN runs fastest) and viewed back. Every
+SAME conv with a stride pads as XLA does, through :func:`pad_same` (11x11/4
+on 608 pads (3, 4); 7x7/2 and 5x5/2 on an even size pad (2, 3) and (1, 2));
+stride-1 SAME convs pad symmetrically, so ``padding=k // 2`` is exact there.
+The compute dtype is the parameters' dtype (the API casts them once); the
+LRN runs in float32, as the reference's.
+"""
 
 from __future__ import annotations
 
@@ -18,6 +28,81 @@ def pad_same(x: torch.Tensor, k: int, s: int) -> torch.Tensor:
         total = max((-(-n // s) - 1) * s + k - n, 0)
         pads += [total // 2, total - total // 2]
     return F.pad(x, pads)
+
+
+def lrn(x: torch.Tensor, size: int = 5, alpha: float = 1e-4, beta: float = 0.75,
+        k: float = 1.0, dim: int = -1) -> torch.Tensor:
+    """Caffe cross-channel LRN along ``dim``: ``x / (k + (alpha / size) *
+    window_sum(x**2)) ** beta``, the window ``size`` channels centred on each
+    channel (zero beyond the edges), computed in float32 as the reference
+    writes it and returned in ``x``'s dtype. (``F.local_response_norm``
+    divides in another order.)"""
+    xf = x.float().movedim(dim, -1)
+    sq = F.pad(xf * xf, (size // 2, size - 1 - size // 2))
+    c = xf.shape[-1]
+    ssum = sq[..., 0:c]
+    for i in range(1, size):
+        ssum = ssum + sq[..., i:i + c]
+    return (xf / (k + (alpha / size) * ssum) ** beta).movedim(-1, dim).to(x.dtype)
+
+
+def _pool3x2(x: torch.Tensor) -> torch.Tensor:
+    """Caffe's ceil-mode 3x3/2 max pool of NCHW ``x``: the bottom and right
+    padded by one ``-inf``, then a 3x3/2 pool (Flax's ``((0, 1), (0, 1))``
+    padding, by construction)."""
+    return F.max_pool2d(F.pad(x, (0, 1, 0, 1), value=float("-inf")), 3, 2)
+
+
+class CaffeNetTrunk(nn.Module):
+    """AlexNet-style trunk: ``[B, H, W, 3]`` -> ``[B, H/16, W/16, 256]``.
+    conv1 11x11/4, pool, LRN, conv2 5x5 (2 groups), pool, LRN, conv3 3x3,
+    conv4 and conv5 3x3 (2 groups), each conv followed by a ReLU."""
+
+    feat_stride = 16
+    out_channels = 256
+
+    def __init__(self):
+        super().__init__()
+        self.conv1 = nn.Conv2d(3, 96, 11, stride=4)
+        self.conv2 = nn.Conv2d(96, 256, 5, padding=2, groups=2)
+        self.conv3 = nn.Conv2d(256, 384, 3, padding=1)
+        self.conv4 = nn.Conv2d(384, 384, 3, padding=1, groups=2)
+        self.conv5 = nn.Conv2d(384, 256, 3, padding=1, groups=2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.conv1.weight.dtype).permute(0, 3, 1, 2)
+        x = F.relu(self.conv1(pad_same(x, 11, 4)))
+        x = lrn(_pool3x2(x), dim=1)
+        x = F.relu(self.conv2(x))
+        x = lrn(_pool3x2(x), dim=1)
+        for conv in (self.conv3, self.conv4, self.conv5):
+            x = F.relu(conv(x))
+        return x.permute(0, 2, 3, 1)
+
+
+class VGGCNNM1024Trunk(nn.Module):
+    """VGG_CNN_M_1024 trunk: ``[B, H, W, 3]`` -> ``[B, H/16, W/16, 512]``.
+    conv1 7x7/2, LRN, pool, conv2 5x5/2, LRN, pool, three 512-channel 3x3
+    convs, each conv followed by a ReLU (pair with ``MODEL.FC7_DIM`` 1024)."""
+
+    feat_stride = 16
+    out_channels = 512
+
+    def __init__(self):
+        super().__init__()
+        self.conv1 = nn.Conv2d(3, 96, 7, stride=2)
+        self.conv2 = nn.Conv2d(96, 256, 5, stride=2)
+        self.conv3 = nn.Conv2d(256, 512, 3, padding=1)
+        self.conv4 = nn.Conv2d(512, 512, 3, padding=1)
+        self.conv5 = nn.Conv2d(512, 512, 3, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.conv1.weight.dtype).permute(0, 3, 1, 2)
+        x = _pool3x2(lrn(F.relu(self.conv1(pad_same(x, 7, 2))), dim=1))
+        x = _pool3x2(lrn(F.relu(self.conv2(pad_same(x, 5, 2))), dim=1))
+        for conv in (self.conv3, self.conv4, self.conv5):
+            x = F.relu(conv(x))
+        return x.permute(0, 2, 3, 1)
 
 
 class SmallTrunk(nn.Module):

@@ -1,7 +1,8 @@
-"""Int8 3x3 convolution: quantization, weight packing, the plain PyTorch
-version and the dispatch to the CUDA kernel (counterpart of
-``aznet_tpu/ops/conv_int8.py`` plus the host side of
-``aznet_tpu/ops/pallas/conv_int8_chain.py`` and ``conv_int8_kernel.py``).
+"""Int8 convolution: quantization, weight packing, the 3x3 conv's plain
+PyTorch version and its dispatch to the CUDA kernel, and the 1x1 conv of the
+ResNet bottlenecks (counterpart of ``aznet_tpu/ops/conv_int8.py`` plus the
+host side of ``aznet_tpu/ops/pallas/conv_int8_chain.py`` and
+``conv_int8_kernel.py``).
 
 Scheme (as the reference): symmetric, zero-point 0; weights per output
 channel, ``s_w = max(max|w| / 127, 1e-12)``; activations one static scale per
@@ -55,6 +56,20 @@ def pack_weights_9(w: torch.Tensor):
     s = torch.clamp(w.abs().amax(dim=(0, 1, 2)) / scalar_f32(INT8_MAX, w.device), min=1e-12)
     q = torch.round(w / s).clamp_(-INT8_MAX, INT8_MAX).to(torch.int8)
     return q.reshape(9, w.shape[2], w.shape[3]), s
+
+
+# torch._int_mm on CUDA takes more than 16 rows; the search's first level has 8.
+INT_MM_MIN_ROWS = 32
+
+
+def int8_matmul(x8: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
+    """``x8 [M, K] @ w8[N, K].T`` in exact int32. ``torch._int_mm`` (the
+    card's int8 GEMM; also exact on the CPU); rows are zero-padded to at
+    least :data:`INT_MM_MIN_ROWS` on the card."""
+    m = x8.shape[0]
+    if x8.is_cuda and m < INT_MM_MIN_ROWS:
+        x8 = F.pad(x8, (0, 0, 0, INT_MM_MIN_ROWS - m))
+    return torch._int_mm(x8, w8.t())[:m]
 
 
 def quantize_columns(w: torch.Tensor):
@@ -129,6 +144,35 @@ def conv3x3_int8_reference(x: torch.Tensor, s_x: float, layer: Int8Conv,
         return y.to(out_dtype)
     q = torch.round(y * scalar_f32(1.0 / s_out, x.device))
     return q.clamp_(-INT8_MAX, INT8_MAX).to(torch.int8)
+
+
+def quantize_weights_1x1(w: torch.Tensor):
+    """1x1 conv weight, OIHW ``[Co, C, 1, 1]`` (or ``[Co, C]``) -> (int8
+    ``[Co, C]``, scales ``[Co]`` f32), per output channel from the float32
+    values (the reference's ``quantize_weights_1x1``, which returns the
+    transpose ``[C, Co]``)."""
+    return quantize_columns(w.reshape(w.shape[0], w.shape[1]))
+
+
+def conv1x1_int8(x8: torch.Tensor, s_x: float, w_q: torch.Tensor, s_w: torch.Tensor,
+                 out_dtype=torch.float32) -> torch.Tensor:
+    """1x1 conv on int8 activations ``x8 [..., C]`` at scale ``s_x``, with
+    ``(w_q [Co, C], s_w)`` from :func:`quantize_weights_1x1`: one int8 GEMM
+    with exact int32 sums (``models/heads.py::int8_matmul``, ``torch._int_mm``),
+    then ``float(acc) * (f32(s_x) * s_w)`` in float32, then ``out_dtype``. On
+    the card, ``_int_mm`` needs C and Co multiples of 8: other widths raise
+    (no float fallback)."""
+    c = x8.shape[-1]
+    if x8.dtype != torch.int8 or w_q.dtype != torch.int8:
+        raise TypeError(f"conv1x1_int8 takes int8 operands, got {x8.dtype} and {w_q.dtype}")
+    if w_q.shape[1] != c:
+        raise ValueError(f"weights {tuple(w_q.shape)} for {c} input channels")
+    if x8.is_cuda and (c % 8 or w_q.shape[0] % 8):
+        raise ValueError(f"the card's int8 GEMM takes C and Co multiples of 8, got "
+                         f"{c} -> {w_q.shape[0]}")
+    acc = int8_matmul(x8.reshape(-1, c), w_q)
+    y = acc.float() * (scalar_f32(s_x, x8.device) * s_w)
+    return y.to(out_dtype).reshape(*x8.shape[:-1], w_q.shape[0])
 
 
 def conv3x3_int8(x: torch.Tensor, s_x: float, layer: Int8Conv,

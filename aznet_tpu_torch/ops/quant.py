@@ -1,6 +1,7 @@
-"""Post-training int8 calibration of the VGG-16 trunk and the fc stack
-(``aznet_tpu/ops/quant.py``: ``calibrate_trunk_int8``,
-``calibrate_head_int8``, ``with_int8_scales``).
+"""Post-training int8 calibration of the VGG-16 and ResNet-50 trunks and
+the fc stack (``aznet_tpu/ops/quant.py``: ``calibrate_trunk_int8``,
+``calibrate_trunk_int8_resnet``, ``calibrate_head_int8``,
+``with_int8_scales``).
 
 The float (bf16/f32) net runs on calibration images; forward hooks read each
 trunk conv's pre-ReLU output and fc6's, and each scale is the post-ReLU
@@ -28,13 +29,13 @@ from aznet_tpu_torch.search.templates import division_tree_regions
 CONV_NAMES = tuple(n for n, ch in VGG16_LAYOUT if ch is not None)
 
 
-def _capture(modules: dict, reduce):
-    """Forward hooks that store ``reduce(output)`` per name; returns
-    (results dict, hook handles)."""
+def _capture(modules: dict, reduce, use_input: bool = False):
+    """Forward hooks that store ``reduce(output)`` (``reduce(first input)``
+    with ``use_input``) per name; returns (results dict, hook handles)."""
     seen, handles = {}, []
     for name, mod in modules.items():
-        def hook(_mod, _inp, out, name=name):
-            seen.setdefault(name, []).append(reduce(out))
+        def hook(_mod, inp, out, name=name):
+            seen.setdefault(name, []).append(reduce(inp[0] if use_input else out))
         handles.append(mod.register_forward_hook(hook))
     return seen, handles
 
@@ -64,6 +65,35 @@ def calibrate_trunk_int8(net, images, percentile: float = 100.0,
         for h in handles:
             h.remove()
     return tuple(max(max(seen[n]), 1e-6) / 127.0 for n in CONV_NAMES)
+
+
+@torch.inference_mode()
+def calibrate_trunk_int8_resnet(net, images, batch_size: int = 2) -> tuple:
+    """Activation scales of the int8 ResNet-50 bottleneck 1x1 convs from a
+    bf16/f32 resnet50 ``Net`` on ``images [N, H, W, 3]`` (preprocessed):
+    per block, in block order, the block input's (conv1 and the downsample)
+    and the post-bn2-ReLU mid activation's (conv3) absolute maximum over
+    127, then a trailing trunk-output scale, which the trunk does not use
+    and :func:`calibrate_head_int8` reads as ``trunk_scales[-1]``."""
+    if net.cfg.MODEL.COMPUTE_DTYPE == "int8":
+        raise ValueError("calibrate with a bfloat16/float32 net, not int8")
+    trunk = net.model.trunk
+    blocks = dict(zip(trunk.block_names, trunk.blocks()))
+    absmax = lambda t: float(t.float().abs().max())
+    # Each block's input, bn2's output before its ReLU, the trunk's output.
+    seen_in, h_in = _capture(blocks, absmax, use_input=True)
+    seen_mid, h_mid = _capture({n: b.bn2 for n, b in blocks.items()}, _relu_max)
+    seen_out, h_out = _capture({"out": trunk}, absmax)
+    try:
+        images = np.asarray(images, np.float32)
+        for start in range(0, images.shape[0], batch_size):
+            net.model.features(torch.from_numpy(images[start:start + batch_size]).to(net.device))
+    finally:
+        for h in h_in + h_mid + h_out:
+            h.remove()
+    per_block = [max(max(seen[n]), 1e-6) / 127.0
+                 for n in trunk.block_names for seen in (seen_in, seen_mid)]
+    return tuple(per_block + [max(max(seen_out["out"]), 1e-6) / 127.0])
 
 
 @torch.inference_mode()

@@ -19,12 +19,20 @@ from aznet_tpu_torch.ops.cuda import roi_align_kernel
 ROI_CHUNK = 256  # rois per contraction, to bound the intermediate's memory
 
 
+def sample_grid(n: int, device) -> torch.Tensor:
+    """``(i + 0.5) / n`` for ``i < n``, float32, on ``device``. Built on the
+    host with a true division and then moved: on a CUDA tensor PyTorch turns
+    ``x / python_number`` into ``x * (1 / n)``, which can differ from the
+    reference's division by an ulp."""
+    return ((torch.arange(n, dtype=torch.float32) + 0.5) / n).to(device)
+
+
 def _bilinear_pool_weights(lo, size, extent: int, pool: int, sampling: int):
     """``[R, pool, extent]`` weights: per bin, the mean of ``sampling``
     bilinear samples along one axis (each row sums to 1)."""
     n = pool * sampling
     dev = lo.device
-    grid = (torch.arange(n, dtype=torch.float32, device=dev) + 0.5) / n
+    grid = sample_grid(n, dev)
     pos = (lo[:, None] + grid[None, :] * size[:, None]).clamp(0.0, extent - 1.0)
     cells = torch.arange(extent, dtype=torch.float32, device=dev)
     w = (1.0 - (pos[:, :, None] - cells).abs()).clamp(min=0.0)
@@ -134,8 +142,7 @@ def fused_taps(lo, size, extent: int, pool: int):
     ``floor(pos)`` and ``floor(pos) + 1``. Slots in ascending cell order:
     ``f0, f0 + 1, f1, f1 + 1``; a slot that repeats a cell or leaves the map
     has weight 0 (its cell is clamped into the map)."""
-    n = 2 * pool
-    grid = ((torch.arange(n, dtype=torch.float32) + 0.5) / n).to(lo.device)  # true division
+    grid = sample_grid(2 * pool, lo.device)
     pos = (lo[:, None] + grid * size[:, None]).clamp(0.0, extent - 1.0).reshape(-1, pool, 2)
     f0, f1 = torch.floor(pos).long().unbind(-1)
     cells = torch.stack([f0, f0 + 1, f1, f1 + 1], -1)

@@ -5,8 +5,11 @@ arrays (``{"params": {"trunk": {"conv1_1": {"kernel", "bias"}}, "head":
 ...}}``, or the inner ``"params"`` dict) and names them as the port's
 modules do (``trunk.conv1_1.weight``, ``head.fc.fc6.bias``, ...):
 
-- conv kernels HWIO -> OIHW;
+- conv kernels HWIO -> OIHW (grouped kernels ``[kh, kw, C / g, Co]`` and
+  1x1 kernels too: both frameworks split the output channels into groups in
+  order);
 - Dense kernels ``[in, out]`` -> Linear weights ``[out, in]``;
+- FrozenBN ``scale`` and ``bias`` keep their names;
 - fc6's input rows stay in the reference's NHWC ``[R, P, P, C]`` flatten
   order: the port's ROI align pools into NHWC before the flatten, so no
   permutation of fc6 is needed.
@@ -35,8 +38,8 @@ def params_from_flax(tree: Mapping) -> dict:
             if key == "kernel":
                 t = t.permute(3, 2, 0, 1) if t.ndim == 4 else t.t()
                 out[f"{prefix}weight"] = t.contiguous()
-            elif key == "bias":
-                out[f"{prefix}bias"] = t
+            elif key in ("bias", "scale"):  # "scale": a ResNet FrozenBN
+                out[f"{prefix}{key}"] = t
             else:
                 raise KeyError(f"unexpected parameter {prefix}{key}")
 

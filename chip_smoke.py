@@ -4,7 +4,8 @@
     python3 chip_smoke.py        # from the repository root; needs one card and nvcc
 
 1. Builds the CUDA kernels from ``aznet_tpu_torch/csrc`` (into the
-   git-ignored ``build/``): NMS, the int8 conv, ROI align, fused conv1.
+   git-ignored ``build/``): NMS, the int8 conv, ROI align, fused conv1,
+   IoU.
 2. Phase 1: holds the kernel's keep masks against its plain PyTorch version
    on the card, bit for bit: the search's shape (1 x 2048, IoU 0.7), the
    16 x 4096 stream shape (boxes uniform in [0, 2000] plus wh in [5, 300],
@@ -53,6 +54,28 @@
    plain versions on the path's own inputs, and the port on the card
    against the port on the CPU (VGG-16 at WIDTH 0.25). Prints detect img/s
    at b=2 from CUDA events after two warmups.
+8. Phase 7: the tiled IoU kernel (``csrc/iou.cu``) alone, as the JAX
+   package holds ``bbox_overlaps_pallas`` alone (no path calls either), bit
+   for bit against its plain version (``ops/iou.py::bbox_overlaps``) at
+   300x200, 50x40, 128x128, 200x300, 2048x2048 and 4096x4096, with
+   degenerate, zero-area and union <= 0 boxes; each timed beside the plain
+   version and its bound. Phase 1 also runs the NMS kernel on score-sorted
+   16 x 4096 input (the input of ``tools/bench_nms_variants.py``'s
+   kernel-only launch) and at ResNet-50's 1 x 4096.
+9. Phase 8: ResNet-50 at 1080p (``experiments/cfgs/resnet50_1080p.yml``,
+   ``POOLING_MODE='align_pallas'``): two raw 1080x1920 images on a
+   1088x1920 canvas, bf16, then int8 calibrated on two random canvases at
+   batch 1 with ``INT8_ROI``; the NMS and ROI-align launch counts reset just
+   before each main path and read just after, both kernels held on the
+   path's own inputs (the W-first bf16 order at C=1024); img/s, trunk and
+   search times. Then the int8 net with the einsum ``'align'`` once (the
+   int8 ROI align on the 68x120 map), the einsum ROI align on that map on
+   the card against the CPU, and ResNet-50 on the card against the CPU at a
+   small image (f32, and the int8 trunk).
+10. Phase 9: CaffeNet and VGG_CNN_M_1024 from their config files, bf16,
+   ``'align_pallas'`` (the ROI-align kernel at P=6), two raw 375x500 images
+   on a 608x800 canvas, as phase 8; each on the card against the CPU at a
+   small image.
 
 Prints the card's name and power limit, one JSON line of kernel records
 (each with its bound and library yardstick), and, as the last line,
@@ -79,16 +102,20 @@ ROI_SOURCE = "aznet_tpu_torch/csrc/roi_align.cu"
 ROI_REPLACES = "aznet_tpu/ops/pallas/roi_kernel.py:289"
 CONV1_SOURCE = "aznet_tpu_torch/csrc/conv1_fused.cu"
 CONV1_REPLACES = "aznet_tpu/ops/pallas/conv1_kernel.py:132"
+IOU_SOURCE = "aznet_tpu_torch/csrc/iou.cu"
+IOU_REPLACES = "aznet_tpu/ops/pallas/iou_kernel.py:43"
 BATCH = 2
 RAW_HW = (375, 500)
 CANVAS = (608, 800)
+RESNET_RAW_HW = (1080, 1920)  # resnet50_1080p: raw 1080p frames on a 1088x1920 canvas
+RESNET_CANVAS = (1088, 1920)
 DETECT_ROIS = 300
 # One H100 SXM's published peaks (NVIDIA data sheet, dense, 700 W): device
 # memory bytes/s and operations/s per type; "f32" is the rate outside the
 # tensor cores, where the NMS and ROI-align kernels do their arithmetic.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
-IOU_OPS = 15  # f32 operations per IoU of a box pair in the NMS mask pass
+IOU_OPS = 15  # f32 operations per IoU of a box pair (NMS mask pass, IoU kernel)
 
 
 class SmokeFailure(Exception):
@@ -135,9 +162,10 @@ def device_us(fn, name, iters=20):
     return total / iters if total else None
 
 
-def nms_inputs(seed, bsz, n, extent, tie_rows, dev):
+def nms_inputs(seed, bsz, n, extent, tie_rows, dev, presorted=False):
     """Boxes uniform in [0, extent] plus wh in [5, 300]; uniform scores, except
-    ``tie_rows`` streams with 8-level ties, +-0, subnormals and invalid rows."""
+    ``tie_rows`` streams with 8-level ties, +-0, subnormals and invalid rows.
+    ``presorted``: each stream's rows in score-descending order."""
     import torch
 
     rng = np.random.RandomState(seed)
@@ -151,8 +179,12 @@ def nms_inputs(seed, bsz, n, extent, tie_rows, dev):
         scores[b, n // 8: n // 6] = np.float32(1e-40)
         scores[b, n // 6: n // 5] = np.float32(-3e-39)
         valid[b] = rng.rand(n) > 0.1
-    return [torch.from_numpy(a).to(dev) for a in
-            (np.concatenate([xy, xy + wh], -1), scores, valid)]
+    boxes = np.concatenate([xy, xy + wh], -1)
+    if presorted:
+        order = np.argsort(-scores, axis=1, kind="stable")
+        boxes = np.take_along_axis(boxes, order[..., None], 1)
+        scores = np.take_along_axis(scores, order, 1)
+    return [torch.from_numpy(a).to(dev) for a in (boxes, scores, valid)]
 
 
 def phase1_nms(dev):
@@ -166,11 +198,17 @@ def phase1_nms(dev):
         ("cell_16x4096", 3, 16, 4096, 2000.0, 0, 0.5, True),
         ("ties_4x2048", 5, 4, 2048, 1000.0, 4, 0.7, False),
         ("ties_2x1000", 6, 2, 1000, 500.0, 2, 0.5, False),
+        # The input of tools/bench_nms_variants.py's kernel-only launch of
+        # _nms_kernel_nosub: already score-sorted (the sort is the identity,
+        # so the keep mask is in sorted order too).
+        ("presorted_16x4096", 3, 16, 4096, 2000.0, 0, 0.5, True),
+        ("path_1x4096", 4, 1, 4096, 1900.0, 0, 0.7, True),  # ResNet-50's CAND_BUF
     ]
     err = 0.0
     times = {}
     for name, seed, bsz, n, extent, ties, iou, timed in cases:
-        boxes, scores, valid = nms_inputs(seed, bsz, n, extent, ties, dev)
+        boxes, scores, valid = nms_inputs(seed, bsz, n, extent, ties, dev,
+                                          presorted=name.startswith("presorted"))
         got = tnms.nms_mask_batched(boxes, scores, iou, valid)
         want = tnms.nms_mask_reference(boxes, scores, iou, valid)
         torch.cuda.synchronize()
@@ -205,19 +243,21 @@ def build_net(tag, cfg, dev, state_dict=None):
     return net
 
 
-def phase2_propose(dev, net, tag="phase2", recorders=(), counters=()):
-    """The propose path of ``net``. ``recorders`` are context managers that
-    wrap other kernels of the path while it runs; ``counters`` are
-    ``(name, reset, read)`` launch counters, reset just before the path
-    and read just after. Returns (NMS launches, img/s, nms_err, {name: count},
-    the preprocessed blobs of the two images)."""
+def phase2_propose(dev, net, tag="phase2", recorders=(), counters=(), raw_hw=RAW_HW,
+                   canvas=CANVAS):
+    """The propose path of ``net`` on two raw ``raw_hw`` images on a
+    ``canvas``. ``recorders`` are context managers that wrap other kernels of
+    the path while it runs; ``counters`` are ``(name, reset, read)`` launch
+    counters, reset just before the path and read just after. Returns (NMS
+    launches, img/s, nms_err, {name: count}, the preprocessed blobs of the
+    two images)."""
     import torch
 
     from aznet_tpu_torch import api
     from aznet_tpu_torch.ops import nms as tnms
     from aznet_tpu_torch.ops.cuda import nms_kernel
 
-    cfg, raw_hw, canvas = net.cfg, RAW_HW, CANVAS
+    cfg = net.cfg
     rng = np.random.RandomState(0)
     ims_np = rng.randint(0, 256, (BATCH,) + raw_hw + (3,)).astype(np.uint8)
     images = torch.from_numpy(ims_np).to(dev)
@@ -314,7 +354,7 @@ def breakdown(tag, net, blobs):
         head_ms = cuda_ms(lambda: net.model.roi_forward(feat, rois), 10, 2)
         split = ""
         trunk = net.model.trunk
-        if getattr(trunk, "int8_mode", False):
+        if hasattr(trunk, "int8_prefix") and trunk.int8_mode:  # VGG-16's int8 split
             codes = trunk.int8_prefix(blobs)
             split = (f" (bf16 prefix + quantize {cuda_ms(lambda: trunk.int8_prefix(blobs), 5, 2):.4f}"
                      f" ms, int8 layers {cuda_ms(lambda: trunk.int8_body(codes), 5, 2):.4f} ms)")
@@ -324,30 +364,11 @@ def breakdown(tag, net, blobs):
 
 
 def phase2_reference(dev):
-    """The port on the card against the port on the CPU, small f32 smallnet
-    config, same seeded weights: proposals agree to 1e-4 (scores) and 1e-2
-    pixels (boxes)."""
-    import torch
-
+    """The port on the card against the port on the CPU: smallnet, the
+    small f32 config of :func:`card_vs_cpu`."""
     from aznet_tpu_torch.config import Config, cfg_from_dict
-    from aznet_tpu_torch import api
 
-    cfg = cfg_from_dict(Config(), {
-        "MODEL": {"BACKBONE": "smallnet", "FC_DIM": 64, "NUM_TEMPLATES": 11,
-                  "COMPUTE_DTYPE": "float32"},
-        "SEAR": {"FRONTIER_CAP": 16, "CAND_BUF": 256, "MAX_LEVELS": 3, "NUM_PROPOSALS": 50},
-        "TEST": {"SCALES": (64,), "MAX_SIZE": 128}})
-    cpu_net = api.build_az_net(cfg, device="cpu")
-    gpu_net = api.build_az_net(cfg, state_dict=cpu_net.params, device=dev)
-    im = np.random.RandomState(1).randint(0, 256, (96, 128, 3)).astype(np.uint8)
-    want = api.im_propose(cpu_net, im)
-    got = api.im_propose(gpu_net, im)
-    check(got.shape == want.shape, f"card {got.shape} vs CPU {want.shape} proposals")
-    d_s = float(np.abs(got[:, 4] - want[:, 4]).max())
-    d_b = float(np.abs(got[:, :4] - want[:, :4]).max())
-    print(f"phase2 reference (smallnet f32, card vs CPU): {got.shape[0]} proposals, "
-          f"max |d score| {d_s:.3g}, max |d box| {d_b:.3g}", flush=True)
-    check(d_s <= 1e-4 and d_b <= 1e-2, "card and CPU proposals disagree")
+    card_vs_cpu("phase2", cfg_from_dict(Config(), {"MODEL": {"BACKBONE": "smallnet"}}), dev)
 
 
 def main_path_int8_layers():
@@ -762,7 +783,6 @@ def phase6_detect(dev):
 
     from aznet_tpu_torch import api
     from aznet_tpu_torch.ops import conv1_fused as tconv1
-    from aznet_tpu_torch.ops import roi_pool as troi
     from aznet_tpu_torch.ops.cuda import conv1_kernel, nms_kernel, roi_align_kernel
 
     cfg = detect_config()
@@ -820,14 +840,10 @@ def phase6_detect(dev):
           f"max |d box| / max |box| {d_b:.3g}", flush=True)
     check(d_s <= 1e-2 and d_b <= 1e-2, "the fused program disagrees with the two-program path")
 
-    errs = {"roi": 0.0, "conv1": 0.0}
+    errs = {"conv1": 0.0}
     frac = 0.0
     for kind, args, out in recorded:
-        if kind == "roi":
-            feat, rois, scale, pool, w_first = args
-            want = troi.roi_align_fused_reference(feat, rois, scale, pool, w_first)
-            errs["roi"] = max(errs["roi"], (out.float() - want.float()).abs().max().item())
-        else:
+        if kind == "conv1":
             y, w9, bias = args
             w12 = w9.reshape(3, 3, w9.shape[1], w9.shape[2]).permute(2, 3, 0, 1)
             want = tconv1.conv1_2_pool_reference(y, w12, bias)
@@ -836,7 +852,7 @@ def phase6_detect(dev):
                       "path's inputs")
             frac = max(frac, f)
             errs["conv1"] = max(errs["conv1"], (out.float() - want.float()).abs().max().item())
-    rs = sorted({int(a[1].shape[0]) for k, a, _ in recorded if k == "roi"})
+    errs["roi"], rs, _ = roi_path_errs(recorded)
     print(f"phase6 kernels on the path's inputs: ROI align ({counts['roi_align']} launches, R in "
           f"{rs}) max_abs_err {errs['roi']}; conv1 ({counts['conv1']} launches) max_abs_err "
           f"{errs['conv1']}, within one bf16 ulp, at most {frac:.4%} of elements differ",
@@ -901,6 +917,271 @@ def phase6_reference(dev):
     check(d_s <= 1e-2 and d_b <= 0.5, "card and CPU detections disagree")
 
 
+def iou_inputs(seed, n, k):
+    """Boxes in [0, 1000] plus wh in [0, 200], one box in 16 of each side
+    degenerate (wh -1, -0.5 or -30: zero, small or negative area with offset
+    1); row 0 with a negative area (union < 0 with every column), row 1 and
+    column 0 with zero area (union 0 between them)."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for m in (n, k):
+        xy = rng.uniform(0, 1000, (m, 2))
+        wh = rng.uniform(0, 200, (m, 2))
+        bad = rng.rand(m) < 1 / 16
+        wh[bad] = rng.choice([-1.0, -0.5, -30.0], (int(bad.sum()), 2))
+        out.append(np.concatenate([xy, xy + wh], 1).astype(np.float32))
+    out[0][0] = [0.0, 500.0, 1000.0, 0.0]
+    out[0][1] = [500.0, 500.0, 499.0, 499.0]
+    out[1][0] = [10.0, 10.0, 9.0, 9.0]
+    return out
+
+
+def iou_bound(n, k):
+    """Both box sets read once, the ``[N, K]`` f32 matrix written once;
+    :data:`IOU_OPS` f32 operations per pair."""
+    return bound((n + k) * 16 + n * k * 4, n * k * IOU_OPS, "f32")
+
+
+def phase7_iou(dev):
+    """The IoU kernel alone (``csrc/iou.cu``; no main path calls it, as no
+    path of the JAX package calls ``bbox_overlaps_pallas``), bit for bit
+    against its plain version at check_iou's, test_pallas's and the NMS
+    candidates' shapes and at 4096 x 4096, each timed. Returns {"err", "ms",
+    "plain_ms", "bound"} with the times at 4096 x 4096."""
+    import torch
+
+    from aznet_tpu_torch.ops.cuda import iou_kernel
+    from aznet_tpu_torch.ops.iou import bbox_overlaps
+
+    err, rec = 0.0, {}
+    for n, k in ((300, 200), (50, 40), (128, 128), (200, 300), (2048, 2048), (4096, 4096)):
+        a, b = (torch.from_numpy(x).to(dev) for x in iou_inputs(n + k, n, k))
+        got = iou_kernel.bbox_overlaps_cuda(a, b, 1.0)
+        want = bbox_overlaps(a, b, 1.0)
+        torch.cuda.synchronize()
+        e = (got - want).abs().max().item()
+        err = max(err, e)
+        k_ms = cuda_ms(lambda: iou_kernel.bbox_overlaps_cuda(a, b, 1.0), 50, 3)
+        p_ms = cuda_ms(lambda: bbox_overlaps(a, b, 1.0), 10, 2)
+        dev_us = device_us(lambda: iou_kernel.bbox_overlaps_cuda(a, b, 1.0), "iou_kernel")
+        b_ms, b_by = iou_bound(n, k)
+        print(f"phase7 iou {n}x{k}: max_abs_err {e}, zeros {(want == 0).float().mean().item():.4f}"
+              f", max {want.max().item():.6f}; kernel {k_ms:.4f} ms (device time {dev_us} us, "
+              f"{n * k * 4 / k_ms / 1e6:.1f} GB/s written), plain {p_ms:.4f} ms, bound "
+              f"{b_ms * 1e3:.3f} us ({b_by})", flush=True)
+        check(e == 0.0, f"IoU kernel disagrees with the plain version at {n}x{k}")
+        check(bool((want[0] == 0).all()) and want.max().item() > 0, f"{n}x{k}: degenerate case")
+        rec = {"ms": k_ms, "plain_ms": p_ms, "bound": (b_ms, b_by)}
+    rec["err"] = err
+    return rec
+
+
+def cfg_file(name, **model):
+    """``experiments/cfgs/<name>.yml`` through the port's ``cfg_from_file``,
+    then ``MODEL`` overrides."""
+    from pathlib import Path
+
+    from aznet_tpu_torch.config import Config, cfg_from_dict, cfg_from_file
+
+    path = Path(__file__).resolve().parent / "experiments" / "cfgs" / f"{name}.yml"
+    return cfg_from_dict(cfg_from_file(Config(), str(path)), {"MODEL": model})
+
+
+def roi_path_errs(recorded):
+    """Each recorded ROI-align launch against the plain version on the same
+    inputs: (max_abs_err, sorted R values, {(dtype, P, order) seen})."""
+    from aznet_tpu_torch.ops import roi_pool as troi
+
+    err, rs, modes = 0.0, set(), set()
+    for kind, args, out in recorded:
+        if kind != "roi":
+            continue
+        feat, rois, scale, pool, w_first = args
+        want = troi.roi_align_fused_reference(feat, rois, scale, pool, w_first)
+        err = max(err, (out.float() - want.float()).abs().max().item())
+        rs.add(int(rois.shape[0]))
+        modes.add((str(feat.dtype)[6:], tuple(feat.shape), pool, "W-first" if w_first else "H-first"))
+    return err, sorted(rs), modes
+
+
+def propose_phase(dev, tag, net, raw_hw, canvas):
+    """The propose path of ``net`` (``POOLING_MODE='align_pallas'``) with the
+    NMS and ROI-align launch counts reset just before and read just after,
+    and both kernels held against their plain versions on that run's own
+    inputs. Returns {"nms", "roi"} launches, the errors and img/s."""
+    from aznet_tpu_torch.ops.cuda import roi_align_kernel
+
+    def reset():
+        roi_align_kernel.LAUNCHES = 0
+
+    recorded = []
+    nms_launches, ips, nms_err, counts, blobs = phase2_propose(
+        dev, net, tag, recorders=[recording_detect_kernels(recorded)],
+        counters=[("roi_align", reset, lambda: roi_align_kernel.LAUNCHES)],
+        raw_hw=raw_hw, canvas=canvas)
+    levels = net.cfg.SEAR.MAX_LEVELS
+    check(counts["roi_align"] >= BATCH + 1, f"ROI-align kernel launched "
+          f"{counts['roi_align']} times in {BATCH + 1} searches of up to {levels} levels")
+    roi_err, rs, modes = roi_path_errs(recorded)
+    print(f"{tag} ROI align on the path's {counts['roi_align']} inputs (R in {rs}; {sorted(modes)}): "
+          f"kernel vs plain max_abs_err {roi_err}", flush=True)
+    check(roi_err == 0.0, f"{tag}: ROI-align kernel disagrees with the plain version on the "
+                          "path's inputs")
+    return {"nms": nms_launches, "roi": counts["roi_align"], "nms_err": nms_err,
+            "roi_err": roi_err, "modes": modes, "ips": ips, "blobs": blobs}
+
+
+def card_vs_cpu(tag, cfg, dev, int8=False):
+    """A small config of the same trunk on the card against the port on the
+    CPU, same seeded weights, f32 (TF32 off): trunk features to 1e-4 of max
+    |x|; im_propose on a 96x128 image: the same count, the sorted scores to
+    1e-4, at least 90% of the boxes within 0.01 px of a CPU box (near-ties of
+    the random head may swap at the cut). ``int8``: the int8 trunk, with
+    scales calibrated on the CPU on the same input, features to a cosine of
+    0.999 (its bf16 convs round apart on the two devices, and a value near a
+    quantization boundary may take the other code)."""
+    import torch
+
+    from aznet_tpu_torch import api
+    from aznet_tpu_torch.config import cfg_from_dict
+    from aznet_tpu_torch.ops.quant import calibrate_trunk_int8_resnet, with_int8_scales
+
+    small = cfg_from_dict(cfg, {
+        "MODEL": {"FC_DIM": 64, "FC7_DIM": 0, "COMPUTE_DTYPE": "float32"},
+        "SEAR": {"FRONTIER_CAP": 16, "CAND_BUF": 256, "MAX_LEVELS": 3, "NUM_PROPOSALS": 50},
+        "TEST": {"SCALES": (64,), "MAX_SIZE": 128}})
+    cpu_net = api.build_az_net(small, device="cpu")
+    rng = np.random.RandomState(1)
+    x = torch.from_numpy(rng.uniform(-120, 120, (1, 64, 96, 3)).astype(np.float32))
+    if int8:
+        small = with_int8_scales(small, calibrate_trunk_int8_resnet(cpu_net, x.numpy()))
+        cpu_net = api.build_az_net(small, state_dict=cpu_net.params, device="cpu")
+    gpu_net = api.build_az_net(small, state_dict=cpu_net.params, device=dev)
+    with torch.inference_mode():
+        want = cpu_net.model.features(x).float()
+        got = gpu_net.model.features(x.to(dev)).float().cpu()
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    cos = (got * want).sum().item() / max(got.norm().item() * want.norm().item(), 1e-30)
+    line = (f"{tag} reference ({small.MODEL.BACKBONE} {small.MODEL.COMPUTE_DTYPE}, card vs CPU): "
+            f"trunk max rel err {rel:.3g}, cosine {cos:.7f}")
+    check(cos >= 0.999 if int8 else rel <= 1e-4, f"{tag}: card and CPU trunks disagree")
+    if not int8:
+        im = rng.randint(0, 256, (96, 128, 3)).astype(np.uint8)
+        p_gpu, p_cpu = api.im_propose(gpu_net, im), api.im_propose(cpu_net, im)
+        check(p_gpu.shape == p_cpu.shape, f"{tag}: card {p_gpu.shape} vs CPU {p_cpu.shape}")
+        d_s = float(np.abs(np.sort(p_gpu[:, 4]) - np.sort(p_cpu[:, 4])).max())
+        near = float((np.abs(p_gpu[:, None, :4] - p_cpu[None, :, :4]).max(-1).min(-1)
+                      <= 1e-2).mean())
+        line += f"; {p_gpu.shape[0]} proposals, max |d score| {d_s:.3g}, {near:.3f} of boxes match"
+        check(d_s <= 1e-4 and near >= 0.9, f"{tag}: card and CPU proposals disagree")
+    print(line, flush=True)
+
+
+def phase8_resnet(dev):
+    """ResNet-50 at 1080p (``experiments/cfgs/resnet50_1080p.yml``): the bf16
+    propose path, then int8 from the same float32 weights, calibrated on two
+    random canvases at batch 1, with ``INT8_ROI``; each with
+    ``POOLING_MODE='align_pallas'`` and both kernels held on the path's own
+    inputs; then the int8 path with the einsum ``'align'`` (where
+    ``INT8_ROI`` quantizes the C4 map) once, the einsum ROI align on the
+    1080p map on the card against the CPU, and the trunk on the card against
+    the CPU at a small image."""
+    import dataclasses
+
+    import torch
+
+    from aznet_tpu_torch import api
+    from aznet_tpu_torch.ops import roi_pool as troi
+    from aznet_tpu_torch.ops.quant import (calibrate_head_int8, calibrate_trunk_int8_resnet,
+                                           with_int8_scales)
+
+    raw_hw, canvas = RESNET_RAW_HW, RESNET_CANVAS
+    cfg = cfg_file("resnet50_1080p", POOLING_MODE="align_pallas")
+    check(api._canvas_for(*raw_hw, cfg) == canvas, "the 1080p canvas is not 1088x1920")
+    net = build_net("phase8", cfg, dev)
+    out = {"bf16": propose_phase(dev, "phase8 bf16", net, raw_hw, canvas)}
+    check(("bfloat16", (canvas[0] // 16, canvas[1] // 16, 1024), 7, "W-first")
+          in out["bf16"]["modes"], "the 68x120x1024 bf16 map did not take the W-first order")
+
+    t0 = time.perf_counter()
+    calib = np.random.RandomState(7).randint(0, 256, (2,) + canvas + (3,)).astype(np.float32)
+    calib -= np.asarray(cfg.PIXEL_MEANS, np.float32)
+    scales = calibrate_trunk_int8_resnet(net, calib, batch_size=1)
+    head_scales = calibrate_head_int8(net, calib, scales, batch_size=1)
+    torch.cuda.synchronize()
+    print(f"phase8 calibration: {time.perf_counter() - t0:.2f} s; {len(scales)} trunk scales "
+          f"(first {[round(s, 6) for s in scales[:4]]}, output {scales[-1]:.6f}), head scales "
+          f"{[round(s, 6) for s in head_scales]}", flush=True)
+    cfg8 = with_int8_scales(cfg, scales, head_scales)
+    cfg8 = dataclasses.replace(cfg8, MODEL=dataclasses.replace(cfg8.MODEL, INT8_ROI=True))
+    net8 = build_net("phase8 int8", cfg8, dev, state_dict=net.params)
+    out["int8"] = propose_phase(dev, "phase8 int8", net8, raw_hw, canvas)
+    blobs = out["bf16"]["blobs"]
+    with torch.inference_mode():
+        f16 = net.model.features(blobs).float()
+        f8 = net8.model.features(blobs).float()
+    cos = (f16 * f8).sum().item() / max(f16.norm().item() * f8.norm().item(), 1e-9)
+    print(f"phase8 int8 vs bf16 trunk features: cosine {cos:.6f}; img/s at b={BATCH}: int8 "
+          f"{out['int8']['ips']:.2f} vs bf16 {out['bf16']['ips']:.2f} (same call)", flush=True)
+    check(cos > 0.98, f"int8 ResNet-50 features drift from the bf16 trunk: cosine {cos}")
+    del net8
+
+    # The int8 ROI path: 'align' with INT8_ROI quantizes the 68x120 C4 map.
+    cfg8a = dataclasses.replace(cfg8, MODEL=dataclasses.replace(cfg8.MODEL,
+                                                                POOLING_MODE="align"))
+    net8a = build_net("phase8 int8 align", cfg8a, dev, state_dict=net.params)
+    im = np.random.RandomState(0).randint(0, 256, raw_hw + (3,)).astype(np.uint8)
+    dets = api.im_propose(net8a, im)
+    check(dets.ndim == 2 and 1 <= dets.shape[0] <= cfg.SEAR.NUM_PROPOSALS
+          and np.isfinite(dets).all(), f"int8 'align' im_propose gave {dets.shape}")
+    print(f"phase8 int8 'align' + INT8_ROI im_propose: {dets.shape[0]} proposals", flush=True)
+    del net8a
+
+    # The einsum 'align' on the 1080p map (W-first by its rule), card vs CPU.
+    with torch.inference_mode():
+        feat = net.model.features(blobs[:1])[0]
+    h, w, c = feat.shape
+    wf = troi._contract_w_first(h, w, c, feat.element_size())
+    rng = np.random.RandomState(9)
+    xy = rng.uniform(0, (canvas[1] - 32, canvas[0] - 32), (32, 2))
+    rois = np.concatenate([xy, np.minimum(xy + rng.uniform(16, 900, (32, 2)),
+                                          (canvas[1] - 1, canvas[0] - 1))], 1)
+    rois = torch.from_numpy(rois.astype(np.float32))
+    got = troi.roi_align(feat, rois.to(dev), 1 / 16.0, 7).float().cpu()
+    want = troi.roi_align(feat.cpu(), rois, 1 / 16.0, 7).float()
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    print(f"phase8 einsum 'align' on {h}x{w}x{c} bf16 ({'W' if wf else 'H'}-first), R=32, "
+          f"card vs CPU: max rel err {rel:.3g}", flush=True)
+    check(wf and rel <= 1e-2, "the einsum ROI align on the 1080p map: order or values off")
+    del net, feat
+    torch.cuda.empty_cache()
+
+    card_vs_cpu("phase8", cfg_file("resnet50_1080p", STEM_S2D=False), dev)
+    card_vs_cpu("phase8 int8", cfg_file("resnet50_1080p", STEM_S2D=False), dev, int8=True)
+    return out
+
+
+def phase9_small(dev):
+    """CaffeNet and VGG_CNN_M_1024 from their config files, bf16,
+    ``POOLING_MODE='align_pallas'`` (the ROI-align kernel at P=6), on two raw
+    375x500 images on a 608x800 canvas; then each on the card against the
+    CPU at a small image."""
+    import torch
+
+    out = {}
+    for backbone, name in (("caffenet", "az_caffenet_voc"),
+                           ("vgg_cnn_m_1024", "az_vgg_cnn_m_1024_voc")):
+        cfg = cfg_file(name, POOLING_MODE="align_pallas")
+        check(cfg.MODEL.BACKBONE == backbone and cfg.MODEL.POOL_SIZE == 6, f"{name}: config")
+        net = build_net(f"phase9 {backbone}", cfg, dev)
+        out[backbone] = propose_phase(dev, f"phase9 {backbone}", net, RAW_HW, CANVAS)
+        check(any(m[2] == 6 for m in out[backbone]["modes"]), f"{backbone}: no P=6 launch")
+        del net
+        torch.cuda.empty_cache()
+        card_vs_cpu(f"phase9 {backbone}", cfg_file(name), dev)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -909,6 +1190,7 @@ def main() -> int:
         return 2
     from aznet_tpu_torch import _build
     from aznet_tpu_torch.config import Config
+    from aznet_tpu_torch.ops.cuda import iou_kernel
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -942,12 +1224,26 @@ def main() -> int:
     det = phase6_detect(dev)
     phase6_reference(dev)
 
+    # The IoU kernel is on no path: its launches outside phase 7 stay 0.
+    iou_path_launches = iou_kernel.LAUNCHES
+    iou = phase7_iou(dev)
+    iou_kernel.LAUNCHES = 0
+    res = phase8_resnet(dev)
+    small = phase9_small(dev)
+    iou_path_launches += iou_kernel.LAUNCHES
+    paths = [res["bf16"], res["int8"], small["caffenet"], small["vgg_cnn_m_1024"]]
+    print(f"phase7-9 launches: IoU kernel {iou_path_launches} on the main paths (no path calls "
+          f"it); " + "; ".join(f"{tag} nms {p['nms']}, roi_align {p['roi']}" for tag, p in zip(
+              ("resnet50 bf16", "resnet50 int8", "caffenet", "vgg_cnn_m_1024"), paths)),
+          flush=True)
+
     k_ms, p_ms = times["path_1x2048"]
     nms_b = nms_bound(1, 2048)
     records = [{
         "name": "nms_exact_greedy", "route": "cuda", "source": NMS_SOURCE,
         "replaces": NMS_REPLACES, "launches": launches,
-        "max_abs_err": max(err1, err2, int8["nms_err"]), "ms": k_ms, "plain_ms": p_ms,
+        "max_abs_err": max(err1, err2, int8["nms_err"], *(p["nms_err"] for p in paths)),
+        "ms": k_ms, "plain_ms": p_ms,
         "bound_ms": nms_b[0], "bound_by": nms_b[1], "library_ms": None}]
     for entry, replaces in (("chain", CHAIN_REPLACES), ("strip", STRIP_REPLACES)):
         b_ms, b_by = int8_conv_bound(entry)
@@ -964,9 +1260,15 @@ def main() -> int:
         records.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": det["launches"]["roi_align" if key == "roi" else "conv1"],
-            "max_abs_err": max(rec["err"], det["err"][key]), "ms": rec["ms"],
+            "max_abs_err": max(rec["err"], det["err"][key],
+                               *(p["roi_err"] for p in paths if key == "roi")), "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound"][0],
             "bound_by": rec["bound"][1], "library_ms": rec["library_ms"]})
+    records.append({
+        "name": "bbox_overlaps_iou", "route": "cuda", "source": IOU_SOURCE,
+        "replaces": IOU_REPLACES, "launches": iou_path_launches, "max_abs_err": iou["err"],
+        "ms": iou["ms"], "plain_ms": iou["plain_ms"], "bound_ms": iou["bound"][0],
+        "bound_by": iou["bound"][1], "library_ms": None})
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,15 +14,38 @@ import torch
 
 from aznet_tpu_torch import api as tapi
 from aznet_tpu_torch.config import Config, cfg_from_dict
+from aznet_tpu_torch.models import resnet
 from aznet_tpu_torch.models.heads import int8_matmul
 from aznet_tpu_torch.models.vgg import VGG16Trunk
 from aznet_tpu_torch.ops import conv1_fused as tconv1
 from aznet_tpu_torch.ops import conv_int8 as tconv
 from aznet_tpu_torch.ops import nms as tnms
 from aznet_tpu_torch.ops import roi_pool as troi
-from aznet_tpu_torch.ops.cuda import conv1_kernel, conv_int8_kernel, nms_kernel, roi_align_kernel
+from aznet_tpu_torch.ops.cuda import (conv1_kernel, conv_int8_kernel, iou_kernel, nms_kernel,
+                                      roi_align_kernel)
+from aznet_tpu_torch.ops.iou import bbox_overlaps
 
 pytestmark = pytest.mark.cuda
+
+
+def iou_inputs(seed, n, k):
+    """Boxes in [0, 1000] plus wh in [0, 200]; about one box in 16 of each
+    side degenerate (wh -1, -0.5 or -30: zero, small or negative area with
+    offset 1). Row 0 has a negative area, so its union with every column is
+    < 0; row 1 and column 0 have zero area, so their union is 0."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for m in (n, k):
+        xy = rng.uniform(0, 1000, (m, 2))
+        wh = rng.uniform(0, 200, (m, 2))
+        bad = rng.rand(m) < 1 / 16
+        wh[bad] = rng.choice([-1.0, -0.5, -30.0], (int(bad.sum()), 2))
+        out.append(np.concatenate([xy, xy + wh], 1).astype(np.float32))
+    out[0][0] = [0.0, 500.0, 1000.0, 0.0]
+    if n > 1:
+        out[0][1] = [500.0, 500.0, 499.0, 499.0]
+    out[1][0] = [10.0, 10.0, 9.0, 9.0]
+    return out
 
 
 @pytest.fixture
@@ -231,6 +254,113 @@ def test_conv1_kernel_rejects(dev):
         conv1_kernel.conv1_2_pool_cuda(y, w9, torch.zeros(8, device=dev))
     with pytest.raises(TypeError, match="bf16"):
         conv1_kernel.conv1_2_pool_cuda(y.float(), w9, torch.zeros(8, device=dev))
+
+
+def test_sample_grid_on_card_is_the_cpus(dev):
+    """The ``'align'`` ROI align's sample grid: computed on the card as it
+    was (``(arange + 0.5) / n`` on a CUDA tensor), PyTorch multiplies by the
+    float32 reciprocal and differs from the true division at n = 12 and 14
+    (P = 6 and 7, two samples); ``sample_grid`` builds it on the host and
+    equals the CPU's bit for bit."""
+    for n in (12, 14):
+        i = np.arange(n, dtype=np.float32) + np.float32(0.5)
+        old = ((torch.arange(n, dtype=torch.float32, device=dev) + 0.5) / n).cpu().numpy()
+        np.testing.assert_array_equal(old, i * (np.float32(1) / np.float32(n)))
+        assert (old != i / np.float32(n)).any()
+        new = troi.sample_grid(n, dev)
+        assert new.is_cuda
+        assert torch.equal(new.cpu(), troi.sample_grid(n, "cpu"))
+        np.testing.assert_array_equal(new.cpu().numpy(), i / np.float32(n))
+
+
+# (N, K): check_iou's, test_pallas's, the NMS candidate shape; ragged tiles.
+IOU_CASES = [(300, 200), (50, 40), (128, 128), (200, 300), (2048, 2048), (7, 129), (33, 1)]
+
+
+@pytest.mark.parametrize("n,k", IOU_CASES)
+def test_iou_kernel_equals_plain(dev, n, k):
+    boxes, query = (torch.from_numpy(b).to(dev) for b in iou_inputs(n * 7 + k, n, k))
+    for offset in (1.0, 0.0):
+        before = iou_kernel.LAUNCHES
+        got = iou_kernel.bbox_overlaps_cuda(boxes, query, offset)
+        assert iou_kernel.LAUNCHES == before + 1
+        want = bbox_overlaps(boxes, query, offset)
+        torch.cuda.synchronize()
+        assert got.shape == (n, k) and got.dtype == torch.float32
+        assert float((got - want).abs().max()) == 0.0
+        assert float(want.max()) > 0 or k == 1  # one column: the degenerate one
+
+
+def test_iou_kernel_rejects(dev):
+    boxes = torch.zeros((4, 4), device=dev)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        iou_kernel.bbox_overlaps_cuda(boxes, boxes.cpu())
+    with pytest.raises(ValueError, match=r"\[N, 4\]"):
+        iou_kernel.bbox_overlaps_cuda(boxes[:, :3], boxes)
+    with pytest.raises(TypeError, match="float"):
+        iou_kernel.bbox_overlaps_cuda(boxes.int(), boxes)
+    assert iou_kernel.bbox_overlaps_cuda(boxes[:0], boxes).shape == (0, 4)
+
+
+def _small_trunk_cfg(backbone):
+    return cfg_from_dict(Config(), {
+        "MODEL": {"BACKBONE": backbone, "FC_DIM": 64, "NUM_TEMPLATES": 11,
+                  "POOL_SIZE": 7 if backbone == "resnet50" else 6, "STEM_S2D": False,
+                  "POOLING_MODE": "align_pallas"},
+        "SEAR": {"FRONTIER_CAP": 16, "CAND_BUF": 256, "MAX_LEVELS": 3, "NUM_PROPOSALS": 50},
+        "TEST": {"SCALES": (64,), "MAX_SIZE": 128}})
+
+
+@pytest.mark.parametrize("backbone", ["resnet50", "caffenet", "vgg_cnn_m_1024"])
+def test_trunks_on_card_equal_cpu(dev, backbone):
+    """The new trunks in bf16 with the fused ROI align: the trunk features on
+    the card against the CPU (cuDNN and the CPU round bf16 sums apart: 2e-2
+    of max |x|), and im_detect on the same boxes (scores 2e-2, boxes 0.5 px:
+    through ResNet-50's 13 bf16 blocks the softmax moved by up to 1.26e-2 on
+    an H100); the ROI-align kernel launches once per head call."""
+    cfg = _small_trunk_cfg(backbone)
+    cpu_net = tapi.build_frcnn_net(cfg, device="cpu")
+    gpu_net = tapi.build_frcnn_net(cfg, state_dict=cpu_net.params, device=dev)
+    rng = np.random.RandomState(1)
+    x = torch.from_numpy(rng.uniform(-120, 120, (1, 64, 96, 3)).astype(np.float32))
+    with torch.inference_mode():
+        want = cpu_net.model.features(x).float()
+        got = gpu_net.model.features(x.to(dev)).float().cpu()
+    assert float((got - want).abs().max()) <= 2e-2 * float(want.abs().max())
+    im = rng.randint(0, 256, (96, 128, 3)).astype(np.uint8)
+    xy = rng.uniform(0, 80, (40, 2))
+    boxes = np.concatenate([xy, np.minimum(xy + rng.uniform(8, 60, (40, 2)), 120)], 1)
+    before = roi_align_kernel.LAUNCHES
+    got = tapi.im_detect(gpu_net, im, boxes.astype(np.float32))
+    assert roi_align_kernel.LAUNCHES - before == 1
+    want = tapi.im_detect(cpu_net, im, boxes.astype(np.float32))
+    np.testing.assert_allclose(got[0], want[0], atol=2e-2, rtol=0)
+    np.testing.assert_allclose(got[1], want[1], atol=0.5, rtol=0)
+
+
+def test_int8_resnet_block_on_card_equals_cpu(dev):
+    """An int8 bottleneck (stride 2, with its downsample): from the same bf16
+    input, the card's int8 1x1 GEMMs (``torch._int_mm``) equal the CPU's, so
+    the block outputs differ only by the bf16 3x3 conv's rounding."""
+    torch.manual_seed(0)
+    block = resnet.Bottleneck(256, 128, stride=2).eval()
+    with torch.no_grad():
+        for p in block.parameters():
+            if p.ndim == 4:
+                p.normal_(0, 0.05)
+    block.prepare_int8()
+    x = torch.relu(torch.randn(2, 256, 20, 26)).to(torch.bfloat16)
+    xq = tconv.quantize_acts(x, 0.03)
+    w_q, s_w = block._int8["downsample"]
+    want = tconv.conv1x1_int8(xq.permute(0, 2, 3, 1), 0.03, w_q, s_w)
+    got = tconv.conv1x1_int8(xq.to(dev).permute(0, 2, 3, 1), 0.03, w_q.to(dev), s_w.to(dev))
+    assert torch.equal(got.cpu(), want)
+    with torch.no_grad():
+        cpu = block(x, (0.03, 0.02)).float()
+        gpu = block.to(dev)
+        gpu.prepare_int8()
+        card = gpu(x.to(dev), (0.03, 0.02)).float().cpu()
+    assert float((card - cpu).abs().max()) <= 2e-2 * float(cpu.abs().max())
 
 
 def _detect_cfg():

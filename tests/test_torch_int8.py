@@ -443,7 +443,7 @@ def test_net_params_are_the_float32_masters():
     (dict(COMPUTE_DTYPE="int8", INT8_BACKEND="xla"), NotImplementedError, "xla"),
     (dict(COMPUTE_DTYPE="int8", INT8_CHAIN_FROM="conv1_2"), NotImplementedError, "conv1_2"),
     (dict(COMPUTE_DTYPE="int8", INT8_CHAIN_FROM="conv12"), ValueError, "INT8_CHAIN_FROM"),
-    (dict(COMPUTE_DTYPE="int8", BACKBONE="smallnet"), NotImplementedError, "vgg16 only"),
+    (dict(COMPUTE_DTYPE="int8", BACKBONE="smallnet"), ValueError, "vgg16 and resnet50"),
 ])
 def test_int8_guards(override, exc, match):
     with pytest.raises(exc, match=match):

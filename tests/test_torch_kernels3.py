@@ -130,6 +130,17 @@ def test_fused_taps_are_the_dense_weights():
     assert (cells.numpy() >= 0).all() and (cells.numpy() < extent).all()
 
 
+@pytest.mark.parametrize("n", [12, 14, 3, 61])
+def test_sample_grid_is_a_true_division(n):
+    """The sample grid of both ROI aligns is ``(i + 0.5) / n`` in float32,
+    as NumPy's true division computes it (P = 6 and 7 with two samples give
+    n = 12 and 14, where ``x * (1 / n)`` differs in 4 and 8 places)."""
+    i = np.arange(n, dtype=np.float32) + np.float32(0.5)
+    want = i / np.float32(n)
+    assert (want != i * (np.float32(1) / np.float32(n))).any()  # the case matters
+    np.testing.assert_array_equal(troi.sample_grid(n, "cpu").numpy(), want)
+
+
 def test_roi_pool_modes_dispatch_and_reject():
     feat = torch.zeros((4, 5, 8))
     rois = torch.tensor([[0.0, 0.0, 30.0, 30.0]])

@@ -118,7 +118,7 @@ def test_aznet_roi_forward_matches():
     (dict(COMPUTE_DTYPE="int8", INT8_CHAIN_FROM="conv1_2"), "int8"),
     (dict(COMPUTE_DTYPE="float16"), "COMPUTE_DTYPE"),
     (dict(POOLING_MODE="bilinear"), "POOLING_MODE"),
-    (dict(BACKBONE="resnet50"), "not ported"),
+    (dict(BACKBONE="resnet101"), "unknown backbone"),
 ])
 def test_unported_settings_raise(override, match):
     import dataclasses
