@@ -83,10 +83,8 @@ def quantize_columns(w: torch.Tensor):
 
 @dataclasses.dataclass
 class Int8Conv:
-    """One quantized 3x3 layer: ``w_k [9, Co, Cp]`` int8 in the kernel's
-    layout (k-contiguous per output channel, C zero-padded to ``Cp``, a
-    multiple of 32; see :func:`kernel_layout`), ``s_w`` and ``bias`` ``[Co]``
-    float32."""
+    """One quantized 3x3 layer: ``w_k`` int8 in the kernel's tiled layout
+    (:func:`kernel_layout`), ``s_w`` and ``bias`` ``[Co]`` float32."""
 
     w_k: torch.Tensor
     s_w: torch.Tensor
@@ -100,11 +98,26 @@ class Int8Conv:
 
 
 def kernel_layout(w_q9: torch.Tensor) -> torch.Tensor:
-    """``[9, C, Co]`` (:func:`pack_weights_9`) -> ``[9, Co, Cp]`` int8, Cp = C
-    rounded up to 32, zero-padded."""
-    c = w_q9.shape[1]
-    cp = -(-c // conv_int8_kernel.K_CHUNK) * conv_int8_kernel.K_CHUNK
-    return F.pad(w_q9.transpose(1, 2), (0, cp - c)).contiguous()
+    """``[9, C, Co]`` (:func:`pack_weights_9`) -> the kernel's tiled layout
+    ``[Co/128, Cp/32, 2, 9, 128, 16]`` int8: for each block of 128 output
+    channels and each chunk of 32 input channels, one contiguous 36,864-byte
+    piece in the order the kernel stages it (16-channel half, tap, output
+    channel, 16 channels), so that one bulk copy moves it. C is zero-padded
+    to Cp (a multiple of 32) and Co to a multiple of 128."""
+    _, c, co = w_q9.shape
+    kc, nt = conv_int8_kernel.K_CHUNK, conv_int8_kernel.CO_TILE
+    cp, cop = -(-c // kc) * kc, -(-co // nt) * nt
+    w = F.pad(w_q9, (0, cop - co, 0, cp - c))  # [9, Cp, Cop]
+    w = w.reshape(9, cp // kc, 2, kc // 2, cop // nt, nt)  # tap, chunk, half, ch, tile, n
+    return w.permute(4, 1, 2, 0, 5, 3).contiguous()
+
+
+def unpack_kernel_layout(w_k: torch.Tensor, c: int, co: int) -> torch.Tensor:
+    """The inverse of :func:`kernel_layout`: ``[9, C, Co]``."""
+    tiles, chunks = w_k.shape[:2]
+    w = w_k.permute(3, 1, 2, 5, 0, 4).reshape(9, chunks * conv_int8_kernel.K_CHUNK,
+                                               tiles * conv_int8_kernel.CO_TILE)
+    return w[:, :c, :co]
 
 
 def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
@@ -130,7 +143,7 @@ def conv3x3_int8_reference(x: torch.Tensor, s_x: float, layer: Int8Conv,
     if c > 1040:
         raise ValueError(f"the float32 tap products are exact for C <= 1040, got {c}")
     xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))
-    wf = layer.w_k[:, :, :c].transpose(1, 2).float()  # [9, C, Co]
+    wf = unpack_kernel_layout(layer.w_k, c, layer.s_w.shape[0]).float()  # [9, C, Co]
     acc = None
     for tap in range(9):
         dy, dx = divmod(tap, 3)

@@ -23,7 +23,12 @@
    conv2_2 .. conv5_3), non-power-of-two scales: the chain entry (fused pool)
    where a pool follows, the strip entry elsewhere; plus the strip entry at
    conv2_2's shape without the pool and at a C=64 input. Kernel equals plain
-   bit for bit (int8 codes, bf16 exit); both timed with CUDA events.
+   bit for bit (int8 codes, bf16 exit). Per layer: the tile chosen, the
+   kernel's device time (``torch.profiler``) and TOP/s beside its CUDA-event
+   time, the plain version's time, and ``torch._int_mm`` at the layer's
+   implicit-GEMM shape (M = B*H*W, K = 9*C, N = Co) on an im2col matrix
+   built outside the timed region: the int8 GEMM core alone, no im2col, no
+   epilogue, a yardstick the port never calls (``library_ms``).
 5. Phase 4: the int8 VGG-16 propose path at full width: the bf16 net of
    phase 2 is calibrated on two random canvases (``RandomState(7)`` minus
    the pixel means) and rebuilt int8 (int8 trunk from conv2_2, int8 fc6/fc7,
@@ -81,6 +86,12 @@ Prints the card's name and power limit, one JSON line of kernel records
 (each with its bound and library yardstick), and, as the last line,
 ``{"ok": true, "device": {...}}``. Exits non-zero at the first failure and
 when no CUDA device is present. Imports no JAX and nothing of ``aznet_tpu``.
+
+    python3 chip_smoke.py --conv-times [ROOT]
+
+times the int8 conv alone at phase 3's 10 layers (device and CUDA-event
+time) with the package under ROOT (default: this checkout), so that two
+checkouts run in turn in one call compare two versions of the kernel.
 """
 
 from __future__ import annotations
@@ -144,22 +155,27 @@ def cuda_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def device_us(fn, name, iters=20):
+def device_us(fn, name, iters=20, attempts=3):
     """Mean device time in microseconds per call of ``fn`` of the kernels
     whose name holds ``name``, under ``torch.profiler``; None when the
-    profiler saw no device time. Unlike :func:`cuda_ms` over back-to-back
-    calls, it leaves out the host's launch overhead."""
+    profiler saw no device time in ``attempts`` sessions (one session of
+    many in a process has come back without the card's events). Unlike
+    :func:`cuda_ms` over back-to-back calls, it leaves out the host's launch
+    overhead."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages() if name in e.key)
-    return total / iters if total else None
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages() if name in e.key)
+        if total:
+            return total / iters
+    return None
 
 
 def nms_inputs(seed, bsz, n, extent, tie_rows, dev, presorted=False):
@@ -405,18 +421,38 @@ def conv_case(seed, h, w, c, co, dev):
     return x, Int8Conv.from_float(weight, bias)
 
 
+def im2col_gemm(x, layer):
+    """The layer's GEMM core as one ``torch._int_mm`` call (the yardstick;
+    the port never calls it): the im2col matrix ``[B*H*W, 9*C]`` and the
+    weights ``[9*C, Co]`` (column-major), both built here, outside any timed
+    region. Returns the call."""
+    import torch
+    import torch.nn.functional as F
+
+    from aznet_tpu_torch.ops.conv_int8 import unpack_kernel_layout
+
+    b, h, w, c = x.shape
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+    cols = torch.stack([xp[:, dy:dy + h, dx:dx + w] for dy in range(3) for dx in range(3)],
+                       dim=3).reshape(b * h * w, 9 * c)
+    co = layer.s_w.shape[0]
+    wmat = unpack_kernel_layout(layer.w_k, c, co).permute(2, 0, 1).reshape(co, 9 * c).contiguous()
+    return lambda: torch._int_mm(cols, wmat.t())
+
+
 def phase3_conv(dev):
     """The int8 conv kernel alone at the main path's shapes. Returns
-    {"err": {entry: max_abs_err}, "ms"/"plain_ms": {entry: summed over the
-    main-path layers that entry runs}}."""
+    {"err": {entry: max_abs_err}, "ms"/"plain_ms"/"library_ms": {entry:
+    summed over the main-path layers that entry runs}}."""
     import torch
 
     from aznet_tpu_torch.ops import conv_int8 as tconv
+    from aznet_tpu_torch.ops.cuda import conv_int8_kernel as ck
 
     s_x = 0.0419
-    err = {"chain": 0.0, "strip": 0.0}
-    ms = {"chain": 0.0, "strip": 0.0}
-    plain_ms = {"chain": 0.0, "strip": 0.0}
+    entries = ("chain", "strip")
+    err = {e: 0.0 for e in entries}
+    ms, plain_ms, library_ms, dev_us = ({e: 0.0 for e in entries} for _ in range(4))
     cases = [(*layer, True) for layer in main_path_int8_layers()]
     h0, w0 = cases[0][1:3]  # conv2_2's map: the strip entry there, and at C=64
     cases += [("conv2_2_nopool", h0, w0, 128, 128, False, False, False),
@@ -434,24 +470,77 @@ def phase3_conv(dev):
         diff = (got.float() - want.float()).abs().max().item()
         err[entry] = max(err[entry], diff)
         nz = (want != 0).float().mean().item()
+        tile = ck.tile_config(x, co)
         line = (f"phase3 {name} {entry} {BATCH}x{h}x{w}x{c}->{co}"
                 f"{' pool' if pool else ''}{' bf16 exit' if last else ''}: "
-                f"max_abs_err {diff}, nonzero {nz:.3f}, max |out| {want.float().abs().max().item()}")
+                f"max_abs_err {diff}, nonzero {nz:.3f}, max |out| {want.float().abs().max().item()}"
+                f"; tile {tile['rows']}x{tile['cols']}x{tile['co']}, grid {tile['grid']}")
         check(diff == 0.0, f"int8 conv kernel disagrees with the plain version at {name}")
         check(0.01 < nz, f"{name}: degenerate output")
         if timed:
             k_ms, p_ms = cuda_ms(run, 20, 3), cuda_ms(plain, 3, 1)
+            k_us = device_us(run, "conv3x3_int8")
+            check(k_us is not None, f"{name}: the profiler saw no conv kernel")
+            gemm = im2col_gemm(x, layer)
+            l_ms, l_us = cuda_ms(gemm, 20, 3), device_us(gemm, "")
             ms[entry] += k_ms
             plain_ms[entry] += p_ms
+            library_ms[entry] += l_ms
+            dev_us[entry] += k_us
             ops = 2.0 * BATCH * h * w * 9 * c * co
-            line += (f"; kernel {k_ms:.4f} ms ({ops / k_ms / 1e9:.1f} TOP/s), "
-                     f"plain {p_ms:.4f} ms")
+            line += (f"; kernel {k_ms:.4f} ms by events, device {k_us:.2f} us "
+                     f"({ops / k_us / 1e6:.1f} TOP/s), plain {p_ms:.4f} ms; int8 GEMM core, "
+                     f"no im2col, no epilogue (torch._int_mm {BATCH * h * w}x{9 * c}x{co}): "
+                     f"{l_ms:.4f} ms by events, device {l_us:.2f} us "
+                     f"({ops / l_us / 1e6:.1f} TOP/s)")
         print(line, flush=True)
-    print(f"phase3 per trunk call (b={BATCH}): chain {ms['chain']:.4f} ms vs plain "
-          f"{plain_ms['chain']:.4f} ms, bound {int8_conv_bound('chain')[0]:.4f} ms; strip "
-          f"{ms['strip']:.4f} ms vs plain {plain_ms['strip']:.4f} ms, bound "
-          f"{int8_conv_bound('strip')[0]:.4f} ms (operations)", flush=True)
-    return {"err": err, "ms": ms, "plain_ms": plain_ms}
+    # The one main-path shape where the host picks 2-row tiles: conv5 at b=1
+    # (im_propose's trunk call); both tiles timed, each held against plain.
+    name, h, w, c, co, _, _ = main_path_int8_layers()[-2]
+    x, layer = conv_case(200, h, w, c, co, dev)
+    x = x[:1].contiguous()
+    chosen = ck.tile_config(x, co)["rows"]
+    real_rows, us = ck.tile_rows, {}
+    try:
+        for rows in (chosen, 6 - chosen):
+            ck.tile_rows = lambda *args, rows=rows: rows
+            run = lambda: tconv.conv3x3_int8(x, s_x, layer, 0.4, pool=False)
+            check(torch.equal(run(), tconv.conv3x3_int8_reference(x, s_x, layer, 0.4)),
+                  f"int8 conv kernel with {rows}-row tiles disagrees at {name}, b=1")
+            us[rows] = device_us(run, "conv3x3_int8")
+    finally:
+        ck.tile_rows = real_rows
+    print(f"phase3 tile choice at {name} b=1 (1x{h}x{w}x{c}->{co}): chosen {chosen} rows "
+          f"{us[chosen]:.2f} us, {6 - chosen} rows {us[6 - chosen]:.2f} us (device)", flush=True)
+    for entry in entries:
+        print(f"phase3 {entry} per trunk call (b={BATCH}): kernel {ms[entry]:.4f} ms by events, "
+              f"device {dev_us[entry]:.2f} us; plain {plain_ms[entry]:.4f} ms; int8 GEMM core, "
+              f"no im2col, no epilogue (torch._int_mm) {library_ms[entry]:.4f} ms; bound "
+              f"{int8_conv_bound(entry)[0]:.4f} ms (operations)", flush=True)
+    print(f"phase3 the 10 int8 layers per trunk call (b={BATCH}): device "
+          f"{sum(dev_us.values()):.2f} us, events {sum(ms.values()):.4f} ms", flush=True)
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms}
+
+
+def conv_times(dev, root):
+    """``--conv-times [ROOT]``: the int8 conv alone at the main path's 10
+    layers (phase 3's inputs), device time and CUDA-event time, with the
+    package found under ROOT (default: this checkout). Two checkouts run in
+    turn inside one chip call compare two versions of the kernel on one card."""
+    from aznet_tpu_torch.ops import conv_int8 as tconv
+
+    total_us = total_ms = 0.0
+    for k, (name, h, w, c, co, pool, last) in enumerate(main_path_int8_layers()):
+        x, layer = conv_case(100 + k, h, w, c, co, dev)
+        s_out = None if last else 0.3717 + 0.01 * k
+        run = lambda: tconv.conv3x3_int8(x, 0.0419, layer, s_out, pool=pool)
+        k_us, k_ms = device_us(run, "conv3x3_int8"), cuda_ms(run, 20, 3)
+        check(k_us is not None, f"{name}: the profiler saw no conv kernel")
+        total_us, total_ms = total_us + k_us, total_ms + k_ms
+        print(f"conv-times {root} {name} {BATCH}x{h}x{w}x{c}->{co}: device {k_us:.2f} us, "
+              f"events {k_ms:.4f} ms", flush=True)
+    print(f"conv-times {root}: 10 layers device {total_us:.2f} us, events {total_ms:.4f} ms",
+          flush=True)
 
 
 @contextlib.contextmanager
@@ -1182,12 +1271,18 @@ def phase9_small(dev):
     return out
 
 
-def main() -> int:
+def main(argv) -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if argv[:1] == ["--conv-times"]:
+        root = argv[1] if len(argv) > 1 else "."
+        sys.path.insert(0, root)
+        torch.cuda.set_device(0)
+        conv_times(torch.device("cuda", 0), root)
+        return 0
     from aznet_tpu_torch import _build
     from aznet_tpu_torch.config import Config
     from aznet_tpu_torch.ops.cuda import iou_kernel
@@ -1252,7 +1347,7 @@ def main() -> int:
             "replaces": replaces, "launches": int8["launches"][entry],
             "max_abs_err": max(conv["err"][entry], int8["conv_err"][entry]),
             "ms": conv["ms"][entry], "plain_ms": conv["plain_ms"][entry],
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": conv["library_ms"][entry]})
     for key, name, source, replaces in (
             ("roi", "roi_align_fused", ROI_SOURCE, ROI_REPLACES),
             ("conv1", "conv1_fused_pool", CONV1_SOURCE, CONV1_REPLACES)):
@@ -1278,7 +1373,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        sys.exit(main())
+        sys.exit(main(sys.argv[1:]))
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         sys.exit(1)

@@ -115,11 +115,20 @@ def _conv_case(seed, bsz, h, w, c, co, dev):
 
 # (B, H, W, C, Co, pool, s_out): non-power-of-two scales; VGG shapes, a C=64
 # input, widths that are not multiples of 32/128, odd sizes, a bf16 exit.
+# Then the tiles of R rows (4, or 2 on small maps) x 64 columns x 128
+# channels cut raggedly: W not a multiple of 64, odd H on the strip entry,
+# Co = 192 and 640, C = 8 (Cp padded to 32, 8-byte copies), b = 3, the bf16
+# exit at conv5's 38x50x512 (b=2: R=4; b=1 above: R=2), and conv2_2 of the
+# main path (b=2, 304x400x128 -> 128, pool) end to end.
 CONV_CASES = [
     (2, 20, 24, 128, 128, True, 0.7131), (2, 76, 100, 256, 512, True, 0.3717),
     (2, 13, 10, 128, 128, False, 0.5519), (1, 38, 50, 512, 512, False, None),
     (1, 9, 70, 64, 128, False, 0.4441), (2, 8, 8, 16, 32, False, 0.2923),
     (2, 6, 66, 24, 40, True, 0.8317), (1, 5, 33, 8, 8, False, None),
+    (2, 20, 100, 128, 128, True, 0.6173), (1, 11, 70, 64, 128, False, 0.5011),
+    (1, 10, 66, 128, 192, True, 0.4229), (1, 7, 33, 256, 640, False, 0.3391),
+    (3, 14, 50, 512, 512, True, 0.2857), (2, 38, 50, 512, 512, False, None),
+    (2, 12, 130, 8, 64, True, 0.9137), (2, 304, 400, 128, 128, True, 0.3717),
 ]
 
 
@@ -147,6 +156,10 @@ def test_conv_int8_kernel_rejects(dev):
     x12, _ = _conv_case(0, 1, 6, 6, 12, 16, dev)
     with pytest.raises(ValueError, match="multiples of 8"):
         conv_int8_kernel.conv3x3_int8_strip(x12, 0.1, layer.w_k, layer.s_w, layer.bias, 0.1)
+    x_many = torch.zeros((conv_int8_kernel.GRID_MAX_YZ + 1, 1, 1, 16), dtype=torch.int8,
+                         device=dev)
+    with pytest.raises(ValueError, match="grid too large"):
+        conv_int8_kernel.conv3x3_int8_strip(x_many, 0.1, layer.w_k, layer.s_w, layer.bias, 0.1)
 
 
 def test_int8_matmul_pads_rows(dev):

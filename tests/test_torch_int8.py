@@ -58,6 +58,7 @@ from aznet_tpu_torch.models import aznet as taznet
 from aznet_tpu_torch.models import vgg as tvgg
 from aznet_tpu_torch.ops import conv_int8 as tconv
 from aznet_tpu_torch.ops import quant as tquant
+from aznet_tpu_torch.ops.cuda import conv_int8_kernel as ck
 from aznet_tpu_torch.ops.roi_pool import roi_align_int8
 from aznet_tpu_torch.search.templates import division_tree_regions
 from aznet_tpu_torch.utils.convert import params_from_flax
@@ -115,6 +116,77 @@ def test_pack_and_quantize_bit_exact():
     twq, tsw = tconv.quantize_columns(torch.from_numpy(k.T.copy()))
     np.testing.assert_array_equal(twq.numpy(), np.asarray(jwq).T)
     np.testing.assert_array_equal(tsw.numpy(), np.asarray(jsw))
+
+
+# -- the CUDA kernel's host side: weight layout and tiles --------------------
+
+
+@pytest.mark.parametrize("c,co", [(8, 8), (24, 40), (64, 128), (128, 192), (256, 640)])
+def test_kernel_layout_unpacks_to_pack_weights_9(c, co):
+    """The tiled layout holds ``pack_weights_9``'s integers, zeros in the
+    padding, and one contiguous ``[half, tap, n, 16]`` piece per block of 128
+    output channels and chunk of 32 input channels, where the kernel's bulk
+    copy reads it."""
+    rng = np.random.RandomState(c + co)
+    w = torch.from_numpy((rng.randn(co, c, 3, 3) * 0.05).astype(np.float32))
+    q9, _ = tconv.pack_weights_9(w)
+    w_k = tconv.kernel_layout(q9)
+    tiles, chunks = -(-co // 128), -(-c // 32)
+    assert w_k.shape == (tiles, chunks, 2, 9, 128, 16) and w_k.is_contiguous()
+    assert torch.equal(tconv.unpack_kernel_layout(w_k, c, co), q9)
+    full = tconv.unpack_kernel_layout(w_k, chunks * 32, tiles * 128)
+    assert not full[:, c:].any() and not full[:, :, co:].any()
+    flat = w_k.reshape(-1)
+    for tile in range(tiles):
+        for chunk in range(chunks):
+            piece = flat[(tile * chunks + chunk) * 36864:][:36864].reshape(2, 9, 128, 16)
+            want = full[:, chunk * 32:chunk * 32 + 32, tile * 128:tile * 128 + 128]
+            assert torch.equal(piece, want.reshape(9, 2, 16, 128).permute(1, 0, 3, 2))
+
+
+def _cover(n, step, count):
+    """How many of ``count`` spans of ``step`` from 0 hold each of n indices."""
+    hits = np.zeros(n, int)
+    for k in range(count):
+        hits[k * step:k * step + step] += 1
+    return hits
+
+
+# (B, H, W, Co): the 10 main-path layers' maps (b=2 and b=1, 608x800 canvas)
+# and the card tests' ragged cases.
+TILE_SHAPES = [(2, 304, 400, 128), (2, 152, 200, 256), (2, 76, 100, 512), (2, 38, 50, 512),
+               (1, 304, 400, 128), (1, 152, 200, 256), (1, 76, 100, 512), (1, 38, 50, 512),
+               (3, 14, 50, 512), (1, 11, 70, 128), (1, 10, 66, 192), (1, 7, 33, 640),
+               (2, 6, 66, 40), (1, 5, 33, 8), (2, 12, 130, 64)]
+
+
+@pytest.mark.parametrize("b,h,w,co", TILE_SHAPES)
+def test_conv_int8_tiles_cover_once(b, h, w, co):
+    """The grid's blocks cover every output pixel and channel exactly once,
+    with no empty block, and every 2x2 pool window lies inside one block."""
+    for n_sms in (132, 114, 8):
+        rows = ck.tile_rows(b, h, w, co, n_sms)
+        assert rows in (2, 4)  # even: a pool window's two rows share a block
+        gx, gy, gz = ck.grid(b, h, w, co, rows)
+        tiles = -(-co // ck.CO_TILE)
+        assert gz == b * tiles
+        assert (_cover(h, rows, gy) == 1).all() and (gy - 1) * rows < h
+        assert (_cover(w, ck.TILE_COLS, gx) == 1).all() and (gx - 1) * ck.TILE_COLS < w
+        assert (_cover(co, ck.CO_TILE, tiles) == 1).all()
+        pool_rows = np.arange(h // 2 * 2).reshape(-1, 2) // rows
+        pool_cols = np.arange(w // 2 * 2).reshape(-1, 2) // ck.TILE_COLS
+        assert (pool_rows[:, 0] == pool_rows[:, 1]).all()
+        assert (pool_cols[:, 0] == pool_cols[:, 1]).all()
+
+
+def test_conv_int8_tile_choice():
+    """4 rows a block on the main path at b=2; 2 on conv5 at b=1 (40 blocks
+    of 4 rows would leave 92 of 132 SMs idle)."""
+    for b, h, w, co in TILE_SHAPES[:4]:
+        assert ck.tile_rows(b, h, w, co, 132) == 4
+    assert ck.tile_rows(1, 38, 50, 512, 132) == 2
+    assert ck.chunk_cycles(4) == 9 * 64 * 4  # the tensor cores bound the 4-row tile
+    assert ck.chunk_cycles(2) > 9 * 64 * 2  # the chunk's bytes bound the 2-row tile
 
 
 # -- the conv's plain version against the Pallas kernels ---------------------
