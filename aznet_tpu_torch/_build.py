@@ -49,7 +49,7 @@ def build() -> Path:
     """Compile the sources if this hash has no library yet; return its path."""
     sources = sorted(SRC_DIR.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sorted(SRC_DIR.glob("*.cu*")):  # the sources and the headers they include
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     out_dir = BUILD_ROOT / digest.hexdigest()[:16]

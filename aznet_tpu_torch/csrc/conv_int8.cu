@@ -64,10 +64,9 @@
 //         inv_s_out = float32(1.0 / s_out) computed in double on the host;
 //   bf16: __float2bfloat16_rn(y) (the trunk's exit, conv5_3).
 
-#include <cuda.h>  // CUtensorMap and its enums only: the encoder is fetched at run time
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "hopper.cuh"  // mbarriers, bulk/TMA copies, descriptors, the tensor-map encoder
 
 namespace {
 
@@ -92,59 +91,6 @@ struct Tile {
   static constexpr int kSmemBytes = kBarBytes + kStages * kStageBytes;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-// Bulk copy (TMA, no tensor map) of `bytes` contiguous bytes into shared
-// memory; the barrier's transaction count drops by them when they land.
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
-                                          uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-// TMA: the box of `map` at (c0, c1, c2, c3) into shared memory, zeros where
-// it leaves the tensor; the barrier's transaction count drops by its bytes.
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
-                                            int c2, int c3, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
-      : "memory");
-}
-
 // The barrier counts this thread's arrival once all its cp.asyncs so far land.
 __device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(bar) : "memory");
@@ -155,14 +101,6 @@ __device__ __forceinline__ void cp_async8(uint32_t dst, const void* src, bool ok
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src),
                "r"(ok ? 8 : 0)
                : "memory");
-}
-
-// wgmma shared-memory descriptor, no swizzle: start address, LBO = bytes
-// between the two 16-byte core matrices along K, SBO = bytes between
-// successive groups of 8 rows (M or N).
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32);
 }
 
 __device__ __forceinline__ void fence_regs(int (&d)[64]) {
@@ -434,34 +372,10 @@ conv3x3_int8_kernel(const int8_t* __restrict__ x, const __grid_constant__ CUtens
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
 // The TMA map of x [B, H, W, C] int8 (C % 16 == 0) with boxes of 16
-// channels x 66 columns x `rows` rows x 1 image, no swizzle (the wgmma A
-// layout), zeros out of bounds.
+// channels x 66 columns x `rows` rows x 1 image.
 int patch_map(CUtensorMap* map, const void* x, int B, int H, int W, int C, int rows) {
-  static EncodeTiled encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-    if (err != cudaSuccess) return (int)err;
-    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return (int)cudaErrorNotSupported;
-    encode = reinterpret_cast<EncodeTiled>(fn);
-  }
-  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)C, (cuuint64_t)W * C, (cuuint64_t)H * W * C};
-  const cuuint32_t box[4] = {16, kInCols, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<void*>(x), dims,
-                              strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                              CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+  return nhwc_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, x, B, H, W, C, 16, kInCols, rows);
 }
 
 template <bool kPool, bool kBf16, int kRowsPerWG>

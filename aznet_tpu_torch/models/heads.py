@@ -16,6 +16,7 @@ from torch import nn
 
 from aznet_tpu_torch.ops.conv_int8 import (int8_matmul, quantize_acts, quantize_columns,
                                            scalar_f32)
+from aznet_tpu_torch.utils.precision import float32_precision
 
 
 class FCStack(nn.Module):
@@ -49,7 +50,8 @@ class FCStack(nn.Module):
             raise ValueError("int8 pooled features reached a non-int8 head "
                              "(missing INT8_HEAD_SCALES)")
         x = x.to(self.fc6.weight.dtype)
-        return F.relu(self.fc7(F.relu(self.fc6(x))))
+        with float32_precision():
+            return F.relu(self.fc7(F.relu(self.fc6(x))))
 
     def _int8_stack(self, x: torch.Tensor) -> torch.Tensor:
         if self._int8 is None:
@@ -66,6 +68,7 @@ class FCStack(nn.Module):
         return dense(h8, s_mid, "fc7").to(torch.bfloat16)
 
 
+@float32_precision()
 def fused_heads(x: torch.Tensor, layers) -> torch.Tensor:
     """ONE f32 dot of fc7's output against the concatenated output layers,
     on the weights as stored (bf16-rounded in bf16 mode): the reference's

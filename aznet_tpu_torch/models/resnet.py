@@ -17,6 +17,8 @@ inside, the NHWC tensor is viewed as NCHW in channels-last memory.
 - Compute dtype: the parameters' dtype, except in int8 mode, where the
   parameters stay float32 (the int8 layers quantize them) and the float
   layers compute in bf16 from them, as the reference's int8 trunk does.
+  Float32 convolutions run in true float32 whatever the caller's TF32
+  flags (``utils/precision.py``).
 
 Int8 mode (``int8_scales``, two per block: the block input's and the
 post-bn2-ReLU mid activation's, from ``ops/quant.py``): the three 1x1 convs
@@ -34,6 +36,7 @@ from torch import nn
 
 from aznet_tpu_torch.models.small import pad_same
 from aznet_tpu_torch.ops.conv_int8 import conv1x1_int8, quantize_acts, quantize_weights_1x1
+from aznet_tpu_torch.utils.precision import float32_precision
 
 STAGE_SIZES = (3, 4, 6)  # C2, C3, C4 (C5 is not used at stride 16)
 
@@ -162,6 +165,7 @@ class ResNet50Trunk(nn.Module):
         for block in self.blocks():
             block.prepare_int8()
 
+    @float32_precision()
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n = len(self.block_names)
         scales = ()

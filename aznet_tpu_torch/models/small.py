@@ -7,7 +7,8 @@ SAME conv with a stride pads as XLA does, through :func:`pad_same` (11x11/4
 on 608 pads (3, 4); 7x7/2 and 5x5/2 on an even size pad (2, 3) and (1, 2));
 stride-1 SAME convs pad symmetrically, so ``padding=k // 2`` is exact there.
 The compute dtype is the parameters' dtype (the API casts them once); the
-LRN runs in float32, as the reference's.
+LRN runs in float32, as the reference's. Float32 convolutions run in true
+float32 whatever the caller's TF32 flags (``utils/precision.py``).
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from aznet_tpu_torch.utils.precision import float32_precision
 
 
 def pad_same(x: torch.Tensor, k: int, s: int) -> torch.Tensor:
@@ -69,6 +72,7 @@ class CaffeNetTrunk(nn.Module):
         self.conv4 = nn.Conv2d(384, 384, 3, padding=1, groups=2)
         self.conv5 = nn.Conv2d(384, 256, 3, padding=1, groups=2)
 
+    @float32_precision()
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.conv1.weight.dtype).permute(0, 3, 1, 2)
         x = F.relu(self.conv1(pad_same(x, 11, 4)))
@@ -96,6 +100,7 @@ class VGGCNNM1024Trunk(nn.Module):
         self.conv4 = nn.Conv2d(512, 512, 3, padding=1)
         self.conv5 = nn.Conv2d(512, 512, 3, padding=1)
 
+    @float32_precision()
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.conv1.weight.dtype).permute(0, 3, 1, 2)
         x = _pool3x2(lrn(F.relu(self.conv1(pad_same(x, 7, 2))), dim=1))
@@ -119,6 +124,7 @@ class SmallTrunk(nn.Module):
         self.conv3 = nn.Conv2d(width * 2, width * 2, 3, padding=1)
         self.conv4 = nn.Conv2d(width * 2, out_channels, 3, padding=1)
 
+    @float32_precision()
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.conv1.weight.dtype).permute(0, 3, 1, 2)
         x = F.relu(self.conv1(pad_same(x, 5, 2)))

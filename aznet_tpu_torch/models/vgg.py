@@ -5,7 +5,8 @@ NHWC in and out, like the reference. Float path: the NHWC tensor is viewed
 as NCHW in channels-last memory, which is what cuDNN's bf16 convolutions run
 fastest on, and the output is viewed back without a copy. The 3x3/s1 SAME
 padding is symmetric, so ``padding=1`` matches JAX exactly. The compute
-dtype is the parameters' dtype (the API casts them once).
+dtype is the parameters' dtype (the API casts them once); float32 runs in
+true float32 whatever the caller's TF32 flags (``utils/precision.py``).
 
 ``fuse_conv1`` (``MODEL.FUSE_CONV1``, float path only): conv1_1, conv1_2 and
 pool1 run through ``ops/conv1_fused.py`` (the CUDA kernel on the card, its
@@ -34,6 +35,7 @@ from torch import nn
 from aznet_tpu_torch.ops.conv1_fused import fused_conv1_pool
 from aznet_tpu_torch.ops.conv_int8 import (Int8Conv, conv3x3_int8, max_pool_2x2,
                                            quantize_acts)
+from aznet_tpu_torch.utils.precision import float32_precision
 
 # (name, channels) per conv; None entries are 2x2/2 max pools.
 VGG16_LAYOUT = (
@@ -91,7 +93,10 @@ class VGG16Trunk(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.int8_mode:
             return self.int8_body(self.int8_prefix(x))
-        x = x.to(self.conv1_1.weight.dtype)
+        return self._float_forward(x.to(self.conv1_1.weight.dtype))
+
+    @float32_precision()
+    def _float_forward(self, x: torch.Tensor) -> torch.Tensor:
         layout = VGG16_LAYOUT
         if self.fuse_conv1 and x.shape[1] % 32 == 0 and x.shape[2] % 2 == 0:
             x = fused_conv1_pool(x, self.conv1_1.weight, self.conv1_1.bias,
@@ -134,9 +139,7 @@ class VGG16Trunk(nn.Module):
         is exact on bf16 values, so it is allowed here)."""
         _, scales, split = self._int8_walk()
         x = x.to(torch.bfloat16)
-        prev_tf32 = torch.backends.cudnn.allow_tf32
-        torch.backends.cudnn.allow_tf32 = True
-        try:
+        with float32_precision(tf32=True):
             for name, ch in VGG16_LAYOUT[:split]:
                 if ch is None:
                     x = max_pool_2x2(x)
@@ -147,8 +150,6 @@ class VGG16Trunk(nn.Module):
                 y = torch.relu(y.permute(0, 2, 3, 1) + conv.bias.float())
                 x = (quantize_acts(y, scales[name]) if name == self._INT8_BF16_PREFIX[-1]
                      else y.to(torch.bfloat16))
-        finally:
-            torch.backends.cudnn.allow_tf32 = prev_tf32
         return x
 
     def int8_body(self, x: torch.Tensor) -> torch.Tensor:

@@ -3,9 +3,12 @@
 
 Replaces ``aznet_tpu/ops/pallas/conv1_kernel.py::fused_conv1_pool`` (its
 Pallas part; conv1_1 runs outside, as there). An implicit GEMM on the bf16
-tensor cores (``mma.sync`` m16n8k16, f32 accumulation) over tiles of 2 rows
-x 64 columns x 64 output channels, with bias, ReLU and the 2x2/2 max-pool in
-the epilogue (see the source's header). Bound by compute at VGG-16's shape.
+tensor cores (``wgmma`` m64n128k16, f32 accumulation) with the output
+channels as M and 128 pixels of a row as N, the weights resident in shared
+memory, the halo patch brought by TMA into a ring of stages, and persistent
+blocks that walk tiles of 2 rows x 128 columns; bias, ReLU and the 2x2/2
+max-pool close in registers (see the source's header). Bound by compute at
+VGG-16's shape.
 
 Only CUDA tensors are accepted; the plain PyTorch version is
 ``aznet_tpu_torch.ops.conv1_fused.conv1_2_pool_reference`` and the dispatch
@@ -18,7 +21,10 @@ import ctypes
 
 import torch
 
-CHANNEL_MULTIPLE = 16  # the kernel's K chunk and N step
+MAX_CHANNELS = 64  # C and Co: the resident weights and the wgmma M
+CHANNEL_MULTIPLE = 8  # C and Co: TMA's 16-byte rows, the 16-byte output stores
+TILE_COLS = 128  # output columns per tile = wgmma N
+CONSUMERS = 2  # consumer warpgroups per block; the block's k-th tile goes to k % 2
 
 # Launches of the kernel (one per call that reaches the card).
 LAUNCHES = 0
@@ -34,7 +40,7 @@ def _launcher():
         lib = _build.load()
         p, i = ctypes.c_void_p, ctypes.c_int
         fn = lib.aznet_conv1_fused
-        fn.argtypes = [p, p, p, i, i, i, i, i, p, p]
+        fn.argtypes = [p, p, p, i, i, i, i, i, i, p, p]
         fn.restype = i
         lib.aznet_cuda_error_string.argtypes = [i]
         lib.aznet_cuda_error_string.restype = ctypes.c_char_p
@@ -42,42 +48,72 @@ def _launcher():
     return _fns
 
 
-def conv1_2_pool_cuda(y: torch.Tensor, w9: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """``y [B, H, W, C]`` bf16 (H, W even), ``w9 [9, Co, C]`` bf16 (tap =
-    dy*3 + dx), ``bias [Co]`` f32, contiguous on one CUDA device -> bf16
-    ``[B, H/2, W/2, Co]``: 3x3 SAME conv, + bias, ReLU, 2x2/2 max-pool. C and
-    Co must be multiples of 16. Raises on anything else."""
+def num_tiles(b: int, h: int, w: int) -> int:
+    """Tiles of a ``[b, h, w, C]`` input: (image, row pair, 128-column segment)."""
+    return b * (h // 2) * -(-w // TILE_COLS)
+
+
+def grid_size(tiles: int, sms: int) -> int:
+    """Persistent blocks: one per SM, but no more than gives each of a
+    block's two consumer warpgroups a tile."""
+    return max(1, min(sms, -(-tiles // CONSUMERS)))
+
+
+def tile_walk(b: int, h: int, w: int, grid: int):
+    """The kernel's persistent order, as the kernel walks it: ``{(block,
+    warpgroup): [(image, row pair, segment), ...]}`` (block x takes tiles x,
+    x + grid, ...; its k-th tile goes to warpgroup k % 2)."""
+    tiles, segs, pairs = num_tiles(b, h, w), -(-w // TILE_COLS), h // 2
+    walk = {}
+    for x in range(grid):
+        for k, t in enumerate(range(x, tiles, grid)):
+            walk.setdefault((x, k % CONSUMERS), []).append(
+                (t // segs // pairs, (t // segs) % pairs, t % segs))
+    return walk
+
+
+def conv1_2_pool_cuda(y: torch.Tensor, w_k: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """``y [B, H, W, C]`` bf16 (H, W even), ``w_k`` the tiled bf16 weights
+    ``[ceil(C/16), 9, 2, 64, 8]`` (``ops/conv1_fused.py::kernel_layout``),
+    ``bias [Co]`` f32, contiguous on one CUDA device -> bf16 ``[B, H/2, W/2,
+    Co]``: 3x3 SAME conv, + bias, ReLU, 2x2/2 max-pool. C and Co must be
+    multiples of 8 and at most 64. Raises on anything else."""
     global LAUNCHES
-    tensors = (y, w9, bias)
+    tensors = (y, w_k, bias)
     if not all(t.is_cuda for t in tensors) or len({t.device for t in tensors}) != 1:
         raise ValueError("conv1_2_pool_cuda takes CUDA tensors on one device")
-    if y.dtype != torch.bfloat16 or w9.dtype != torch.bfloat16:
-        raise TypeError(f"the fused conv1 kernel takes bf16 y and w9, got {y.dtype}/{w9.dtype}")
+    if y.dtype != torch.bfloat16 or w_k.dtype != torch.bfloat16:
+        raise TypeError(f"the fused conv1 kernel takes bf16 y and w_k, got {y.dtype}/{w_k.dtype}")
     if bias.dtype != torch.float32:
         raise TypeError(f"bias must be float32, got {bias.dtype}")
-    if y.ndim != 4 or w9.ndim != 3 or w9.shape[0] != 9 or w9.shape[2] != y.shape[3]:
-        raise ValueError(f"shapes y {tuple(y.shape)}, w9 {tuple(w9.shape)}")
+    if y.ndim != 4 or bias.ndim != 1:
+        raise ValueError(f"shapes y {tuple(y.shape)}, bias {tuple(bias.shape)}")
     b, h, w, c = y.shape
-    co = w9.shape[1]
-    if c % CHANNEL_MULTIPLE or co % CHANNEL_MULTIPLE:
-        raise ValueError(f"the fused conv1 kernel takes C and Co that are multiples of "
-                         f"{CHANNEL_MULTIPLE}, got {c}, {co}")
+    co = bias.shape[0]
+    for name, n in (("C", c), ("Co", co)):
+        if n % CHANNEL_MULTIPLE or not 0 < n <= MAX_CHANNELS:
+            raise ValueError(f"the fused conv1 kernel takes {name} a multiple of "
+                             f"{CHANNEL_MULTIPLE} up to {MAX_CHANNELS}, got {n}")
+    if w_k.shape != (-(-c // 16), 9, 2, MAX_CHANNELS, 8):
+        raise ValueError(f"w_k {tuple(w_k.shape)} is not the tiled layout for C={c}")
     if h % 2 or w % 2:
         raise ValueError(f"the fused 2x2 pool needs even H and W, got {h}x{w}")
-    if bias.shape != (co,):
-        raise ValueError(f"bias {tuple(bias.shape)} vs Co={co}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the fused conv1 kernel needs contiguous tensors")
-    if y.data_ptr() % 8 or w9.data_ptr() % 16:
-        raise ValueError("y must be 8-byte and w9 16-byte aligned")
-    if h // 2 > 65535 or b * -(-co // 64) > 65535:
-        raise ValueError(f"grid too large for y {tuple(y.shape)}, Co={co}")
+    if y.data_ptr() % 16 or w_k.data_ptr() % 16:
+        raise ValueError("y and w_k must be 16-byte aligned")
+    tiles = num_tiles(b, h, w)
+    if tiles >= 2**31:
+        raise ValueError(f"too many tiles for y {tuple(y.shape)}")
     out = torch.empty((b, h // 2, w // 2, co), dtype=torch.bfloat16, device=y.device)
+    if out.numel() == 0:
+        return out
+    sms = torch.cuda.get_device_properties(y.device).multi_processor_count
     fn, err_str = _launcher()
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream(y.device).cuda_stream
-        err = fn(y.data_ptr(), w9.data_ptr(), bias.data_ptr(), b, h, w, c, co,
-                 out.data_ptr(), stream)
+        err = fn(y.data_ptr(), w_k.data_ptr(), bias.data_ptr(), b, h, w, c, co,
+                 grid_size(tiles, sms), out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"fused conv1 kernel launch failed: {err_str(err).decode()} ({err})")
     LAUNCHES += 1

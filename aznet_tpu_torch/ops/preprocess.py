@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from aznet_tpu_torch.utils.precision import float32_precision
+
 
 def compute_scale(h: int, w: int, target_size: int, max_size: int) -> float:
     """The reference's scale rule: shortest side -> target, capped by max_size.
@@ -29,6 +31,7 @@ def _f32(v, device):
     return torch.as_tensor(v, dtype=torch.float32, device=device)
 
 
+@float32_precision()
 def resize_bilinear_scale(im, scale, out_h: int, out_w: int,
                           compute_dtype=torch.float32, src_hw=None):
     """Resize ``im [H, W, C]`` by ``scale`` onto an ``[out_h, out_w, C]``

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from aznet_tpu_torch.ops.cuda import roi_align_kernel
+from aznet_tpu_torch.utils.precision import float32_precision
 
 ROI_CHUNK = 256  # rois per contraction, to bound the intermediate's memory
 
@@ -47,6 +48,7 @@ def _contract_w_first(h: int, w: int, c: int, itemsize: int, override=None) -> b
     return w > h and h * w * c * itemsize > 8 * 1024 * 1024
 
 
+@float32_precision()
 def roi_align(feat, rois, spatial_scale: float, pool_size: int = 7,
               sampling: int = 2, w_first=None):
     """``feat [H, W, C]``, ``rois [R, 4]`` image coords -> ``[R, P, P, C]``:

@@ -18,6 +18,15 @@
    kernel against the plain version on the NMS inputs that run produced,
    and holds the port on the card against the port on the CPU on a small
    f32 smallnet config. Prints img/s from CUDA events after two warmups.
+   Every card-vs-CPU check runs under PyTorch's default precision flags (the
+   port scopes its own float32 precision, ``utils/precision.py``). Then
+   two precision probes: which TF32 settings (the legacy ``allow_tf32``
+   flags, the newer ``fp32_precision``) the card's float32 convolution and
+   matmul honour, what reading the other API does after setting one, and
+   that the port's scope gives float32 under a caller's TF32 set through
+   either API; and fc6 at full width (300 x 25,088 x 4,096 bf16) with
+   ``allow_bf16_reduced_precision_reduction`` True and False against an f32
+   product of the same operands, each timed.
 4. Phase 3: the int8 conv kernel alone (``aznet_tpu_torch/csrc/conv_int8.cu``)
    at the 10 int8 layer shapes of the main path (b=2, 608x800 canvas:
    conv2_2 .. conv5_3), non-power-of-two scales: the chain entry (fused pool)
@@ -40,13 +49,16 @@
    bf16 img/s of phase 2. Then the int8 port on the card against the port on
    the CPU (VGG-16 at WIDTH 0.125, strip entry, fixed scales).
 6. Phase 5: the fused ROI-align kernel (``csrc/roi_align.cu``) alone on the
-   38x50x512 trunk map of a 608x800 canvas: bf16 at R = 8, 64 and 300
-   (H-first by the order rule) and f32 at R = 64 (W-first), bit for bit
-   against its plain version; the fused conv1 kernel (``csrc/conv1_fused.cu``)
-   at b=2, 608x800x64 bf16, within one bf16 ulp. Each timed with CUDA
-   events beside its plain version and a library yardstick the port never
-   calls (the einsum ``'align'`` ROI align; cuDNN conv2d + relu +
-   max_pool2d), with its device time from ``torch.profiler``.
+   38x50x512 trunk map of a 608x800 canvas: bf16 at R = 8, 32, 64 and 300
+   (H-first by the order rule) and f32 at R = 64 (W-first), and on
+   ResNet-50's 68x120x1024 map of a 1088x1920 canvas (bf16, W-first) at R =
+   8, 32 and 128, bit for bit against its plain version; the fused conv1
+   kernel (``csrc/conv1_fused.cu``) at b=2, 608x800x64 bf16, within one bf16
+   ulp. Each timed with CUDA events beside its plain version and a library
+   yardstick the port never calls (the einsum ``'align'`` ROI align; cuDNN
+   conv2d + relu + max_pool2d, and cuDNN's conv2d alone), with its device
+   time from ``torch.profiler``; conv1 also as TFLOP/s and a share of the
+   bf16 peak.
 7. Phase 6: the detection path at full width: VGG-16 bf16, FC_DIM 4096, 21
    classes, ``POOLING_MODE='align_pallas'``, ``FUSE_CONV1``, seeded weights,
    the AZ net and the Fast R-CNN net joined by ``share_trunk``. With the
@@ -92,6 +104,11 @@ when no CUDA device is present. Imports no JAX and nothing of ``aznet_tpu``.
 times the int8 conv alone at phase 3's 10 layers (device and CUDA-event
 time) with the package under ROOT (default: this checkout), so that two
 checkouts run in turn in one call compare two versions of the kernel.
+
+    python3 chip_smoke.py --conv1-times [ROOT]
+
+does the same for the fused conv1 kernel at phase 5's b=2 608x800x64 input
+(device time, TFLOP/s and share of the bf16 peak, CUDA-event time).
 """
 
 from __future__ import annotations
@@ -385,6 +402,134 @@ def phase2_reference(dev):
     from aznet_tpu_torch.config import Config, cfg_from_dict
 
     card_vs_cpu("phase2", cfg_from_dict(Config(), {"MODEL": {"BACKBONE": "smallnet"}}), dev)
+
+
+def precision_probe(dev):
+    """Which TF32 settings the card's float32 convolution (cuDNN) and matmul
+    (cuBLAS) honour: for PyTorch's defaults, the legacy flags
+    (``cudnn.allow_tf32``, ``matmul.allow_tf32``) and the newer
+    ``fp32_precision`` settings (``cudnn.conv``, ``cuda.matmul``), the error
+    of each against float64 on the CPU (TF32 keeps 10 mantissa bits: about
+    1e-4..1e-3 relative here; float32 about 1e-7), and what reading the
+    other API gives after setting one (a value, or the error it raises).
+    Then the port's scope (``utils/precision.py``) under a caller's TF32, set
+    through either API: true float32, and the caller's settings back, each
+    as it read before. The process's flags are
+    PyTorch's defaults again at the end."""
+    import torch
+    import torch.nn.functional as F
+
+    from aznet_tpu_torch.utils.precision import float32_precision
+
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    rng = np.random.RandomState(11)
+    x = torch.from_numpy(rng.randn(2, 64, 40, 40).astype(np.float32))
+    w = torch.from_numpy((rng.randn(64, 64, 3, 3) * 0.05).astype(np.float32))
+    a = torch.from_numpy(rng.randn(256, 1024).astype(np.float32))
+    bm = torch.from_numpy(rng.randn(1024, 256).astype(np.float32))
+    conv_ref = F.conv2d(x.double(), w.double(), padding=1)
+    mm_ref = a.double() @ bm.double()
+    xd, wd, ad, bd = (t.to(dev) for t in (x, w, a, bm))
+
+    def rel(got, want):
+        return float((got.double().cpu() - want).abs().max() / want.abs().max())
+
+    def errs():
+        out = []
+        for fn, ref in ((lambda: F.conv2d(xd, wd, padding=1), conv_ref), (lambda: ad @ bd, mm_ref)):
+            try:
+                out.append(f"{rel(fn(), ref):.2e}")
+            except RuntimeError as e:
+                out.append(f"raises ({str(e)[:60]}...)")
+        return out
+
+    def reads():
+        out = []
+        for name, get in (("cudnn.allow_tf32", lambda: cudnn.allow_tf32),
+                          ("cudnn.conv.fp32_precision", lambda: cudnn.conv.fp32_precision),
+                          ("matmul.allow_tf32", lambda: matmul.allow_tf32),
+                          ("matmul.fp32_precision", lambda: matmul.fp32_precision)):
+            try:
+                out.append(f"{name}={get()}")
+            except (RuntimeError, AttributeError) as e:
+                out.append(f"{name} raises {type(e).__name__}")
+        return ", ".join(out)
+
+    def defaults():  # the legacy setters leave both APIs consistent
+        cudnn.allow_tf32 = True
+        torch.set_float32_matmul_precision("highest")
+
+    def new_api(value):
+        cudnn.conv.fp32_precision = value
+        matmul.fp32_precision = value
+
+    settings = (("PyTorch's defaults", lambda: None),
+                ("legacy allow_tf32 True", lambda: (setattr(cudnn, "allow_tf32", True),
+                                                    setattr(matmul, "allow_tf32", True))),
+                ("legacy allow_tf32 False", lambda: (setattr(cudnn, "allow_tf32", False),
+                                                     setattr(matmul, "allow_tf32", False))),
+                ("new fp32_precision 'tf32'", lambda: new_api("tf32")),
+                ("new fp32_precision 'ieee'", lambda: new_api("ieee")))
+    for name, apply in settings:
+        defaults()
+        try:
+            apply()
+            line = f"conv, matmul rel err {errs()}; then {reads()}"
+        except (RuntimeError, AttributeError) as e:
+            line = f"setting raises {type(e).__name__}: {str(e)[:80]}"
+        print(f"phase2 precision probe, {name}: {line}", flush=True)
+    for name, apply in settings[1:4:2]:  # a caller's TF32 through either API
+        defaults()
+        apply()
+        before = reads()
+        with float32_precision():
+            conv_err = rel(F.conv2d(xd, wd, padding=1), conv_ref)
+            mm_err = rel(ad @ bd, mm_ref)
+        restored = reads() == before
+        print(f"phase2 precision probe, caller's {name}, inside the port's scope: conv, matmul "
+              f"rel err {conv_err:.2e}, {mm_err:.2e}; settings restored {restored}", flush=True)
+        check(conv_err < 1e-5 and mm_err < 1e-5 and restored,
+              "the port's float32 scope did not give float32 on the card")
+    defaults()
+
+
+def bf16_reduction_probe(dev):
+    """fc6 at full width on the card (VGG-16's detect head: R=300 x K=25,088
+    x N=4,096, bf16 operands, ``F.linear`` as ``FCStack``) with
+    ``allow_bf16_reduced_precision_reduction`` True (PyTorch's default) and
+    False, each against an f32 product of the same bf16 operands (TF32 off),
+    beside the bf16 rounding of that product, and the time of each."""
+    import torch
+    import torch.nn.functional as F
+
+    from aznet_tpu_torch.utils.precision import float32_precision
+
+    matmul = torch.backends.cuda.matmul
+    g = torch.Generator(device=dev)
+    g.manual_seed(12)
+    x = (torch.relu(torch.randn((DETECT_ROIS, 25088), generator=g, device=dev)) * 4
+         ).to(torch.bfloat16)
+    w = (torch.randn((4096, 25088), generator=g, device=dev) * 0.005).to(torch.bfloat16)
+    b = (torch.randn((4096,), generator=g, device=dev) * 0.1).to(torch.bfloat16)
+    with float32_precision():
+        ref = x.float() @ w.float().t() + b.float()
+    scale = ref.abs().max()
+    prev = matmul.allow_bf16_reduced_precision_reduction
+    outs, line = {}, []
+    try:
+        for flag in (True, False):
+            matmul.allow_bf16_reduced_precision_reduction = flag
+            run = lambda: F.linear(x, w, b)
+            outs[flag] = run()
+            err = float((outs[flag].float() - ref).abs().max() / scale)
+            line.append(f"{flag}: max err {err:.3e} of max |y|, {cuda_ms(run, 20, 3):.4f} ms")
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = prev
+    rounding = float((ref.to(torch.bfloat16).float() - ref).abs().max() / scale)
+    apart = float((outs[True].float() - outs[False].float()).abs().max() / scale)
+    print(f"phase2 bf16 fc6 {DETECT_ROIS}x25088x4096, allow_bf16_reduced_precision_reduction "
+          f"{'; '.join(line)}; bf16 rounding of the f32 product {rounding:.3e}; True vs False "
+          f"{apart:.3e} of max |y| (max |y| {float(scale):.4g})", flush=True)
 
 
 def main_path_int8_layers():
@@ -723,16 +868,65 @@ def roi_bound(feat, rois, w_first):
     return bound(nbytes, ops, "f32")
 
 
-def detect_rois(n, seed, dev):
-    """``n`` boxes on the 608x800 canvas: corners uniform, sides log-uniform
-    in [16, 600] pixels, clipped to the canvas (the search's scaled boxes)."""
+def detect_rois(n, seed, dev, canvas=CANVAS):
+    """``n`` boxes on the ``canvas``: corners uniform, sides log-uniform in
+    [16, 600] pixels, clipped to the canvas (the search's scaled boxes)."""
     import torch
 
     rng = np.random.RandomState(seed)
-    xy = rng.uniform(0, (CANVAS[1] - 16, CANVAS[0] - 16), (n, 2))
+    xy = rng.uniform(0, (canvas[1] - 16, canvas[0] - 16), (n, 2))
     wh = np.exp(rng.uniform(np.log(16), np.log(600), (n, 2)))
-    xy2 = np.minimum(xy + wh, (CANVAS[1] - 1, CANVAS[0] - 1))
+    xy2 = np.minimum(xy + wh, (canvas[1] - 1, canvas[0] - 1))
     return torch.from_numpy(np.concatenate([xy, xy2], 1).astype(np.float32)).to(dev)
+
+
+def time_roi(feat, rois, tag):
+    """The ROI-align kernel on ``feat``/``rois`` (order by the reference's
+    rule) bit for bit against its plain version, timed by events and on the
+    device beside the plain version and the einsum ``'align'``. Returns
+    {"err", "ms", "device_us", "plain_ms", "library_ms", "bound"}."""
+    import torch
+
+    from aznet_tpu_torch.ops import roi_pool as troi
+    from aznet_tpu_torch.ops.cuda import roi_align_kernel
+
+    h, w, c = feat.shape
+    wf = troi.fused_w_first(h, w, c, feat.element_size())
+    run = lambda: roi_align_kernel.roi_align_cuda(feat, rois, 1 / 16.0, 7, wf)
+    got, want = run(), troi.roi_align_fused_reference(feat, rois, 1 / 16.0, 7, wf)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    k_ms = cuda_ms(run, 50, 3)
+    p_ms = cuda_ms(lambda: troi.roi_align_fused_reference(feat, rois, 1 / 16.0, 7, wf), 5, 1)
+    l_ms = cuda_ms(lambda: troi.roi_align(feat, rois, 1 / 16.0, 7), 20, 2)
+    dev_us = device_us(run, "roi_align_kernel")
+    b_ms, b_by = roi_bound(feat, rois, wf)
+    name = (f"{str(feat.dtype)[6:]} {h}x{w}x{c} R={rois.shape[0]} "
+            f"{'W' if wf else 'H'}-first")
+    print(f"phase5 roi_align {tag} {name}: max_abs_err {err}, max |out| "
+          f"{want.float().abs().max().item()}; kernel {k_ms:.4f} ms per call "
+          f"(device time {dev_us} us), plain {p_ms:.4f} ms, library (einsum 'align') "
+          f"{l_ms:.4f} ms, bound {b_ms * 1e3:.3f} us ({b_by})", flush=True)
+    check(err == 0.0, f"ROI-align kernel disagrees with the plain version at {name}")
+    return {"err": err, "ms": k_ms, "device_us": dev_us, "plain_ms": p_ms, "library_ms": l_ms,
+            "bound": (b_ms, b_by), "w_first": wf}
+
+
+def conv1_case(dev):
+    """conv1_2's input at b=2 on the 608x800 canvas (post-ReLU-like bf16),
+    its weights (OIHW bf16) and bias (bf16, as the trunk's)."""
+    import torch
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(6)
+    y = (torch.relu(torch.randn((BATCH,) + CANVAS + (64,), generator=g, device=dev)) * 30
+         ).to(torch.bfloat16)
+    w12 = (torch.randn((64, 64, 3, 3), generator=g, device=dev) * 0.06).to(torch.bfloat16)
+    b12 = (torch.rand((64,), generator=g, device=dev) - 0.5).to(torch.bfloat16)
+    return y, w12, b12
+
+
+CONV1_FLOP = 2.0 * BATCH * CANVAS[0] * CANVAS[1] * 9 * 64 * 64
 
 
 def phase5_kernels(dev):
@@ -744,48 +938,39 @@ def phase5_kernels(dev):
     import torch.nn.functional as F
 
     from aznet_tpu_torch.ops import conv1_fused as tconv1
-    from aznet_tpu_torch.ops import roi_pool as troi
-    from aznet_tpu_torch.ops.cuda import conv1_kernel, roi_align_kernel
+    from aznet_tpu_torch.ops.cuda import conv1_kernel
 
-    h, w, c = CANVAS[0] // 16, CANVAS[1] // 16, 512
     g = torch.Generator(device=dev)
     g.manual_seed(5)
-    base = torch.relu(torch.randn((h, w, c), generator=g, device=dev)) * 20
     out = {}
     roi = {"err": 0.0}
-    for dtype, r in ((torch.bfloat16, 8), (torch.bfloat16, 64), (torch.bfloat16, DETECT_ROIS),
-                     (torch.float32, 64)):
-        feat = base.to(dtype)
-        rois = detect_rois(r, r, dev)
-        wf = troi.fused_w_first(h, w, c, feat.element_size())
-        got = roi_align_kernel.roi_align_cuda(feat, rois, 1 / 16.0, 7, wf)
-        want = troi.roi_align_fused_reference(feat, rois, 1 / 16.0, 7, wf)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        roi["err"] = max(roi["err"], err)
-        k_ms = cuda_ms(lambda: roi_align_kernel.roi_align_cuda(feat, rois, 1 / 16.0, 7, wf), 50, 3)
-        p_ms = cuda_ms(lambda: troi.roi_align_fused_reference(feat, rois, 1 / 16.0, 7, wf), 5, 1)
-        l_ms = cuda_ms(lambda: troi.roi_align(feat, rois, 1 / 16.0, 7), 20, 2)
-        dev_us = device_us(lambda: roi_align_kernel.roi_align_cuda(feat, rois, 1 / 16.0, 7, wf),
-                           "roi_align_kernel")
-        b_ms, b_by = roi_bound(feat, rois, wf)
-        name = f"{str(dtype)[6:]} {h}x{w}x{c} R={r} {'W' if wf else 'H'}-first"
-        print(f"phase5 roi_align {name}: max_abs_err {err}, max |out| "
-              f"{want.float().abs().max().item()}; kernel {k_ms:.4f} ms per call "
-              f"(device time {dev_us} us), plain {p_ms:.4f} ms, library (einsum 'align') "
-              f"{l_ms:.4f} ms, bound {b_ms * 1e3:.3f} us ({b_by})", flush=True)
-        check(err == 0.0, f"ROI-align kernel disagrees with the plain version at {name}")
-        check(wf == (dtype == torch.float32), f"{name}: the order rule picked the other order")
+    # VGG-16's 38x50x512 map at the search's R (8, 32, 64) and the detect
+    # head's 300, bf16 (H-first by the order rule), and f32 at 64 (W-first).
+    h, w, c = CANVAS[0] // 16, CANVAS[1] // 16, 512
+    base = torch.relu(torch.randn((h, w, c), generator=g, device=dev)) * 20
+    for dtype, r in ((torch.bfloat16, 8), (torch.bfloat16, 32), (torch.bfloat16, 64),
+                     (torch.bfloat16, DETECT_ROIS), (torch.float32, 64)):
+        rec = time_roi(base.to(dtype), detect_rois(r, r, dev), "vgg16")
+        roi["err"] = max(roi["err"], rec["err"])
+        check(rec["w_first"] == (dtype == torch.float32), "the order rule picked the other order")
         if dtype == torch.bfloat16 and r == DETECT_ROIS:  # the record: the detect head's shape
-            roi.update(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound=(b_ms, b_by))
+            roi.update(ms=rec["ms"], plain_ms=rec["plain_ms"], library_ms=rec["library_ms"],
+                       bound=rec["bound"])
+    # ResNet-50's 68x120x1024 C4 map of a 1088x1920 canvas (W-first, bf16) at
+    # its search's frontier capacities.
+    h, w, c = RESNET_CANVAS[0] // 16, RESNET_CANVAS[1] // 16, 1024
+    base = (torch.relu(torch.randn((h, w, c), generator=g, device=dev)) * 20).to(torch.bfloat16)
+    for r in (8, 32, 128):
+        rec = time_roi(base, detect_rois(r, 100 + r, dev, RESNET_CANVAS), "resnet50")
+        roi["err"] = max(roi["err"], rec["err"])
+        check(rec["w_first"], "the 68x120x1024 map did not take the W-first order")
+    del base
     out["roi"] = roi
 
-    y = (torch.relu(torch.randn((BATCH,) + CANVAS + (64,), generator=g, device=dev)) * 30
-         ).to(torch.bfloat16)
-    w12 = (torch.randn((64, 64, 3, 3), generator=g, device=dev) * 0.06).to(torch.bfloat16)
-    b12 = (torch.rand((64,), generator=g, device=dev) - 0.5).to(torch.bfloat16)
-    w9, bias = tconv1.kernel_weights(w12), b12.float()
-    got = conv1_kernel.conv1_2_pool_cuda(y, w9, bias)
+    y, w12, b12 = conv1_case(dev)
+    w_k, bias = tconv1.kernel_layout(w12), b12.float()
+    run = lambda: conv1_kernel.conv1_2_pool_cuda(y, w_k, bias)
+    got = run()
     want = tconv1.conv1_2_pool_reference(y, w12, b12)
     torch.cuda.synchronize()
     ok, frac = tconv1.within_one_bf16_ulp(got, want)
@@ -795,22 +980,50 @@ def phase5_kernels(dev):
     def library():
         return F.max_pool2d(torch.relu(F.conv2d(y_nchw, w_cl, b12, padding=1)), 2)
 
-    k_ms = cuda_ms(lambda: conv1_kernel.conv1_2_pool_cuda(y, w9, bias), 20, 3)
+    def cudnn_conv():
+        return F.conv2d(y_nchw, w_cl, b12, padding=1)
+
+    k_ms = cuda_ms(run, 20, 3)
     p_ms = cuda_ms(lambda: tconv1.conv1_2_pool_reference(y, w12, b12), 3, 1)
-    l_ms = cuda_ms(library, 20, 3)
-    dev_us = device_us(lambda: conv1_kernel.conv1_2_pool_cuda(y, w9, bias), "conv1_fused_kernel")
-    ops = 2.0 * BATCH * CANVAS[0] * CANVAS[1] * 9 * 64 * 64
+    l_ms, c_ms = cuda_ms(library, 20, 3), cuda_ms(cudnn_conv, 20, 3)
+    k_us, l_us, c_us = device_us(run, "conv1_fused_kernel"), device_us(library, ""), device_us(
+        cudnn_conv, "")
+    check(k_us is not None, "the profiler saw no conv1 kernel")
     nbytes = y.numel() * 2 + w12.numel() * 2 + 64 * 4 + got.numel() * 2
-    b_ms, b_by = bound(nbytes, ops, "bf16")
+    b_ms, b_by = bound(nbytes, CONV1_FLOP, "bf16")
+    tf = CONV1_FLOP / k_us / 1e6
     print(f"phase5 conv1_fused {BATCH}x{CANVAS[0]}x{CANVAS[1]}x64 bf16: max_abs_err {err}, "
           f"within one bf16 ulp {ok}, {frac:.4%} of elements differ, max |out| "
-          f"{want.float().abs().max().item()}; kernel {k_ms:.4f} ms ({ops / k_ms / 1e9:.1f} "
-          f"TFLOP/s; device time {dev_us} us), plain {p_ms:.4f} ms, library (cuDNN conv2d "
-          f"+ relu + max_pool2d) {l_ms:.4f} ms, bound {b_ms * 1e3:.2f} us ({b_by})", flush=True)
+          f"{want.float().abs().max().item()}; kernel {k_ms:.4f} ms by events, device {k_us:.2f} "
+          f"us ({tf:.1f} TFLOP/s, {tf / (PEAK_OPS['bf16'] / 1e12):.1%} of the bf16 peak), "
+          f"plain {p_ms:.4f} ms, library (cuDNN conv2d + relu + max_pool2d) {l_ms:.4f} ms "
+          f"(device {l_us} us), cuDNN conv2d alone {c_ms:.4f} ms (device {c_us} us, "
+          f"{CONV1_FLOP / c_us / 1e6 if c_us else float('nan'):.1f} TFLOP/s), bound "
+          f"{b_ms * 1e3:.2f} us ({b_by})", flush=True)
     check(ok, "conv1 kernel is more than one bf16 ulp from the plain version")
     out["conv1"] = {"err": err, "frac": frac, "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
                     "bound": (b_ms, b_by)}
     return out
+
+
+def conv1_times(dev, root):
+    """``--conv1-times [ROOT]``: the fused conv1 kernel alone at b=2 on the
+    608x800 canvas (phase 5's input), device time and CUDA-event time, with
+    the package found under ROOT (default: this checkout). Two checkouts run
+    in turn inside one chip call compare two versions of the kernel."""
+    from aznet_tpu_torch.ops import conv1_fused as tconv1
+    from aznet_tpu_torch.ops.cuda import conv1_kernel
+
+    y, w12, b12 = conv1_case(dev)
+    pack = getattr(tconv1, "kernel_layout", None) or tconv1.kernel_weights  # older checkouts
+    w_k, bias = pack(w12), b12.float()
+    run = lambda: conv1_kernel.conv1_2_pool_cuda(y, w_k, bias)
+    k_us, k_ms = device_us(run, "conv1_fused_kernel"), cuda_ms(run, 20, 3)
+    check(k_us is not None, "the profiler saw no conv1 kernel")
+    tf = CONV1_FLOP / k_us / 1e6
+    print(f"conv1-times {root} {BATCH}x{CANVAS[0]}x{CANVAS[1]}x64: device {k_us:.2f} us "
+          f"({tf:.1f} TFLOP/s, {tf / (PEAK_OPS['bf16'] / 1e12):.1%} of the bf16 peak), "
+          f"events {k_ms:.4f} ms", flush=True)
 
 
 @contextlib.contextmanager
@@ -826,9 +1039,9 @@ def recording_detect_kernels(recorded):
         recorded.append(("roi", (feat, rois.clone(), scale, pool, w_first), out))
         return out
 
-    def conv1(y, w9, bias):
-        out = real_conv1(y, w9, bias)
-        recorded.append(("conv1", (y, w9, bias), out))
+    def conv1(y, w_k, bias):
+        out = real_conv1(y, w_k, bias)
+        recorded.append(("conv1", (y, w_k, bias), out))
         return out
 
     roi_align_kernel.roi_align_cuda, conv1_kernel.conv1_2_pool_cuda = roi, conv1
@@ -933,8 +1146,8 @@ def phase6_detect(dev):
     frac = 0.0
     for kind, args, out in recorded:
         if kind == "conv1":
-            y, w9, bias = args
-            w12 = w9.reshape(3, 3, w9.shape[1], w9.shape[2]).permute(2, 3, 0, 1)
+            y, w_k, bias = args
+            w12 = tconv1.unpack_kernel_layout(w_k, y.shape[3], bias.shape[0])
             want = tconv1.conv1_2_pool_reference(y, w12, bias)
             ok, f = tconv1.within_one_bf16_ulp(out, want)
             check(ok, "conv1 kernel is more than one bf16 ulp from the plain version on the "
@@ -1122,8 +1335,8 @@ def propose_phase(dev, tag, net, raw_hw, canvas):
 
 def card_vs_cpu(tag, cfg, dev, int8=False):
     """A small config of the same trunk on the card against the port on the
-    CPU, same seeded weights, f32 (TF32 off): trunk features to 1e-4 of max
-    |x|; im_propose on a 96x128 image: the same count, the sorted scores to
+    CPU, same seeded weights, f32 under PyTorch's default flags (the port
+    scopes its own float32 precision): trunk features to 1e-4 of max |x|; im_propose on a 96x128 image: the same count, the sorted scores to
     1e-4, at least 90% of the boxes within 0.01 px of a CPU box (near-ties of
     the random head may swap at the cut). ``int8``: the int8 trunk, with
     scales calibrated on the CPU on the same input, features to a cosine of
@@ -1277,18 +1490,17 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    if argv[:1] == ["--conv-times"]:
+    if argv[:1] in (["--conv-times"], ["--conv1-times"]):
         root = argv[1] if len(argv) > 1 else "."
         sys.path.insert(0, root)
         torch.cuda.set_device(0)
-        conv_times(torch.device("cuda", 0), root)
+        times = conv_times if argv[0] == "--conv-times" else conv1_times
+        times(torch.device("cuda", 0), root)
         return 0
     from aznet_tpu_torch import _build
     from aznet_tpu_torch.config import Config
     from aznet_tpu_torch.ops.cuda import iou_kernel
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
@@ -1308,6 +1520,8 @@ def main(argv) -> int:
     net = build_net("phase2", Config(), dev)
     launches, ips, err2, _, blobs = phase2_propose(dev, net)
     phase2_reference(dev)
+    precision_probe(dev)
+    bf16_reduction_probe(dev)
 
     conv = phase3_conv(dev)
     int8 = phase4_int8(dev, net, blobs, ips)

@@ -1,7 +1,7 @@
 """On a card: the CUDA kernels against their plain PyTorch versions, bit for
 bit (NMS keep masks; int8 conv codes and bf16 exits; the fused ROI align),
 or within one bf16 ulp (the fused conv1 block, whose f32 sums run in another
-order inside ``mma``). Imports no JAX, so it runs where JAX is absent:
+order inside ``wgmma``). Imports no JAX, so it runs where JAX is absent:
 
     python -m pytest -p no:cacheprovider --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -238,8 +238,12 @@ def test_roi_align_dispatch_and_rejects(dev):
 
 
 # (B, H, W, C): the slice's shape cut in rows, widths that are not multiples
-# of the 64-column tile, C = 16 (VGG-16 at WIDTH 0.25).
-CONV1_CASES = [(2, 64, 800, 64), (1, 34, 130, 64), (2, 64, 48, 16), (1, 6, 70, 32)]
+# of the 128-column tile (48 narrower than one), odd row-pair counts, C = 16
+# (VGG-16 at WIDTH 0.25); then b=3 at 2x800 (21 tiles on an 11-block grid:
+# not a multiple of it), the main path's b=2 608x800 canvas (4,256 tiles on
+# the card's SMs), and C = 8 and 24 (a 16-channel chunk half past C).
+CONV1_CASES = [(2, 64, 800, 64), (1, 34, 130, 64), (2, 64, 48, 16), (1, 6, 70, 32),
+               (3, 2, 800, 64), (2, 608, 800, 64), (1, 6, 70, 8), (2, 34, 130, 24)]
 
 
 @pytest.mark.parametrize("bsz,h,w,c", CONV1_CASES)
@@ -250,7 +254,7 @@ def test_conv1_kernel_within_one_ulp(dev, bsz, h, w, c):
     b12 = torch.from_numpy(rng.uniform(-1, 1, c).astype(np.float32))
     y, w12, b12 = (t.to(dev, torch.bfloat16) for t in (y, w12, b12))
     before = conv1_kernel.LAUNCHES
-    got = conv1_kernel.conv1_2_pool_cuda(y, tconv1.kernel_weights(w12), b12.float())
+    got = conv1_kernel.conv1_2_pool_cuda(y, tconv1.kernel_layout(w12), b12.float())
     assert conv1_kernel.LAUNCHES == before + 1
     want = tconv1.conv1_2_pool_reference(y, w12, b12)
     torch.cuda.synchronize()
@@ -261,12 +265,25 @@ def test_conv1_kernel_within_one_ulp(dev, bsz, h, w, c):
 
 
 def test_conv1_kernel_rejects(dev):
-    y = torch.zeros((1, 8, 8, 8), device=dev, dtype=torch.bfloat16)
-    w9 = torch.zeros((9, 8, 8), device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="multiples of 16"):
-        conv1_kernel.conv1_2_pool_cuda(y, w9, torch.zeros(8, device=dev))
+    """What the kernel cannot take raises; nothing falls back."""
+    y = torch.zeros((1, 8, 8, 16), device=dev, dtype=torch.bfloat16)
+    w_k = tconv1.kernel_layout(torch.zeros((16, 16, 3, 3), device=dev))
+    bias = torch.zeros(16, device=dev)
+    with pytest.raises(ValueError, match="multiple of 8 up to 64"):
+        conv1_kernel.conv1_2_pool_cuda(torch.zeros((1, 8, 8, 12), device=dev,
+                                                   dtype=torch.bfloat16), w_k, bias)
+    with pytest.raises(ValueError, match="multiple of 8 up to 64"):
+        conv1_kernel.conv1_2_pool_cuda(y, w_k, torch.zeros(72, device=dev))
+    with pytest.raises(ValueError, match="tiled layout"):
+        conv1_kernel.conv1_2_pool_cuda(y, w_k[:, :8].contiguous(), bias)
+    with pytest.raises(ValueError, match="even"):
+        conv1_kernel.conv1_2_pool_cuda(y[:, :7].contiguous(), w_k, bias)
     with pytest.raises(TypeError, match="bf16"):
-        conv1_kernel.conv1_2_pool_cuda(y.float(), w9, torch.zeros(8, device=dev))
+        conv1_kernel.conv1_2_pool_cuda(y.float(), w_k, bias)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        conv1_kernel.conv1_2_pool_cuda(y, w_k.cpu(), bias)
+    with pytest.raises(ValueError, match="at most 64"):
+        tconv1.kernel_layout(torch.zeros((128, 64, 3, 3), device=dev))
 
 
 def test_sample_grid_on_card_is_the_cpus(dev):
@@ -382,6 +399,32 @@ def _detect_cfg():
                   "POOLING_MODE": "align_pallas", "FUSE_CONV1": True},
         "SEAR": {"FRONTIER_CAP": 16, "CAND_BUF": 256, "MAX_LEVELS": 3, "NUM_PROPOSALS": 50},
         "TEST": {"SCALES": (64,), "MAX_SIZE": 128, "BBOX_ITER": 2}})
+
+
+def test_float32_net_under_callers_tf32_equals_cpu(dev):
+    """A float32 VGG-16 (WIDTH 0.25) built and run with TF32 turned ON for
+    both cuDNN and cuBLAS, as a caller may leave them (the ``dev`` fixture
+    turns them off; this test turns them on and back): the port scopes its
+    own precision, so the trunk holds the CPU's to 1e-4 of max |x|
+    (``chip_smoke.py``'s ``card_vs_cpu`` bound) and the flags come back."""
+    cfg = cfg_from_dict(Config(), {"MODEL": {"WIDTH": 0.25, "FC_DIM": 64,
+                                             "COMPUTE_DTYPE": "float32"}})
+    prev = torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision()
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        cpu_net = tapi.build_az_net(cfg, device="cpu")
+        gpu_net = tapi.build_az_net(cfg, state_dict=cpu_net.params, device=dev)
+        x = torch.from_numpy(np.random.RandomState(1).uniform(-120, 120, (2, 64, 96, 3))
+                             .astype(np.float32))
+        with torch.inference_mode():
+            want = cpu_net.model.features(x)
+            got = gpu_net.model.features(x.to(dev)).cpu()
+        assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev[0]
+        torch.set_float32_matmul_precision(prev[1])
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
 
 
 def test_detect_on_card_equals_cpu(dev):
