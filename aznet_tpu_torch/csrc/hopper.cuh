@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
-// (conv_int8.cu, conv1_fused.cu): mbarriers, bulk and TMA copies into shared
-// memory, wgmma shared-memory descriptors, and the TMA map of an NHWC tensor
+// (conv_int8.cu, conv1_fused.cu) and the NMS scan's ring (nms.cu):
+// mbarriers, bulk and TMA copies into shared memory, wgmma shared-memory
+// descriptors, and the TMA map of an NHWC tensor
 // (cuTensorMapEncodeTiled, fetched at run time: no -lcuda at link time).
 
 #pragma once

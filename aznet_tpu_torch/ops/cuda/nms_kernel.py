@@ -2,10 +2,14 @@
 
 Replaces ``aznet_tpu/ops/pallas/nms_kernel.py::nms_pallas_batched`` (the
 bitonic-order path). The kernel sorts each stream on the folded score key
-in shared memory, builds the 64-bit suppression bitmask over upper-triangle
-64x64 tiles, and runs the sequential greedy scan, writing keep flags straight
-to original slots. What bounds it: the O(N^2/64) mask words it writes and the
-N-step serial scan per stream (see the source's header).
+(by counting: a row's position is the number of rows with a smaller key,
+spread over the card), builds the 64-bit suppression bitmask over the
+upper-triangle 64x64 tiles only, and runs the greedy scan over 64-row word
+blocks from a shared-memory ring filled by one bulk copy a block, each
+block resolved by warp ballots, writing keep flags straight to original
+slots. What bounds it: the N^2/2 IoUs of the mask pass
+and the scan's serial chain of N/64 word blocks per stream (see the
+source's header).
 
 Only CUDA tensors are accepted; the plain PyTorch version of the same
 function is :func:`aznet_tpu_torch.ops.nms.nms_mask_reference`, and the
@@ -16,6 +20,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 MAX_N = 8192
@@ -36,12 +41,37 @@ def _launcher():
         fn = lib.aznet_nms_launch
         p = ctypes.c_void_p
         fn.argtypes = [p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_float, ctypes.c_float, p, p, p, p, p, p]
+                       ctypes.c_float, ctypes.c_float, p, ctypes.c_size_t, p, p]
         fn.restype = ctypes.c_int
         lib.aznet_cuda_error_string.argtypes = [ctypes.c_int]
         lib.aznet_cuda_error_string.restype = ctypes.c_char_p
         _fn = (fn, lib.aznet_cuda_error_string)
     return _fn
+
+
+def sort_width(n: int) -> int:
+    """The padded sort width of N boxes: a power of two, at least 64."""
+    return max(TILE, 1 << (n - 1).bit_length())
+
+
+def scratch_bytes(bsz: int, n_pad: int) -> int:
+    """Bytes of the kernel's one scratch buffer (``Scratch`` in the source):
+    the mask ``[B, n_pad, n_pad / 64]`` u64, the sorted boxes ``[B, n_pad, 4]``
+    f32 and the sorted indices ``[B, n_pad]`` i32."""
+    return bsz * n_pad * (n_pad // 8 + 16 + 4)
+
+
+def triangle_tile(blk: int) -> tuple[int, int]:
+    """The mask pass's block ``blk`` -> its tile ``(row tile, column tile)``,
+    row <= column, as the kernel inverts ``blk = col * (col + 1) / 2 + row``
+    (a float32 square root, then corrected)."""
+    c = int((np.sqrt(np.float32(8.0) * np.float32(blk) + np.float32(1.0)) - np.float32(1.0))
+            * np.float32(0.5))
+    while c * (c + 1) // 2 > blk:
+        c -= 1
+    while (c + 1) * (c + 2) // 2 <= blk:
+        c += 1
+    return blk - c * (c + 1) // 2, c
 
 
 def nms_cuda_batched(boxes: torch.Tensor, scores: torch.Tensor,
@@ -74,18 +104,19 @@ def nms_cuda_batched(boxes: torch.Tensor, scores: torch.Tensor,
     keep = torch.empty((bsz, n), dtype=torch.bool, device=dev)
     if bsz == 0 or n == 0:
         return keep
-    n_pad = max(TILE, 1 << (n - 1).bit_length())  # sort width: a power of two
-    sorted_idx = torch.empty((bsz, n_pad), dtype=torch.int32, device=dev)
-    sorted_boxes = torch.empty((bsz, n_pad, 4), dtype=torch.float32, device=dev)
-    sorted_valid = torch.empty((bsz, n_pad), dtype=torch.uint8, device=dev)
-    mask = torch.empty((bsz, n_pad, n_pad // TILE), dtype=torch.int64, device=dev)
+    n_pad = sort_width(n)
+    nbytes = scratch_bytes(bsz, n_pad)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     fn, err_str = _launcher()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(boxes.data_ptr(), scores.data_ptr(), valid.data_ptr(), bsz, n,
-                 n_pad, float(thresh), float(offset), sorted_idx.data_ptr(),
-                 sorted_boxes.data_ptr(), sorted_valid.data_ptr(),
-                 mask.data_ptr(), keep.data_ptr(), stream)
+    idx = dev.index
+    args = (boxes.data_ptr(), scores.data_ptr(), valid.data_ptr(), bsz, n, n_pad,
+            float(thresh), float(offset), scratch.data_ptr(), nbytes, keep.data_ptr(),
+            torch._C._cuda_getCurrentRawStream(idx))
+    if idx == torch.cuda.current_device():
+        err = fn(*args)
+    else:  # the launches go to the current device's context
+        with torch.cuda.device(idx):
+            err = fn(*args)
     if err != 0:
         raise RuntimeError(f"NMS kernel launch failed: {err_str(err).decode()} ({err})")
     LAUNCHES += 1

@@ -2,11 +2,11 @@
 
 Replaces ``aznet_tpu/ops/pallas/roi_kernel.py`` (``roi_align_pallas`` and
 its two large-map tilings, ``roi_align_pallas_big`` and ``_big_v2``): one
-kernel with an H-first / W-first flag. One block per (roi, 128-channel
-tile, bin of the first axis), one thread per channel; the first contraction
-goes to shared memory for the cells the second one reads, then the second
-contraction. It is bound by latency: at most 4 x 4 taps per output value,
-no tensor cores.
+kernel with an H-first / W-first flag. One block per (roi, channel slab,
+group of second-axis bins); a thread owns one bin of the first axis and 8
+channels (16-byte loads and stores), and computes the first contraction
+once per distinct cell its second-axis bins read. It is bound by L2 traffic
+and load latency: at most 4 x 4 taps per output value, no tensor cores.
 
 Only CUDA tensors are accepted; the plain PyTorch version is
 ``aznet_tpu_torch.ops.roi_pool.roi_align_fused_reference`` and the dispatch
@@ -20,11 +20,15 @@ import ctypes
 import torch
 
 MAX_POOL = 16  # the kernel's shared tap tables hold up to 16 bins per axis
+VEC = 8  # channels per thread
+MAX_SLAB_THREADS = 32  # threads per first-axis bin of a block
+BLOCKS_PER_SM = 2  # what launch_plan aims for at small R
 
 # Launches of the kernel (one per call that reaches the card).
 LAUNCHES = 0
 
 _fns = None
+_sms = {}  # device index -> streaming multiprocessors
 
 
 def _launcher():
@@ -35,7 +39,7 @@ def _launcher():
         lib = _build.load()
         p, i = ctypes.c_void_p, ctypes.c_int
         fn = lib.aznet_roi_align
-        fn.argtypes = [p, p, i, i, i, i, ctypes.c_float, i, i, i, p, p]
+        fn.argtypes = [p, p, i, i, i, i, ctypes.c_float, i, i, i, i, i, p, p]
         fn.restype = i
         lib.aznet_cuda_error_string.argtypes = [i]
         lib.aznet_cuda_error_string.restype = ctypes.c_char_p
@@ -43,13 +47,38 @@ def _launcher():
     return _fns
 
 
+def launch_plan(r: int, c: int, pool: int, sms: int) -> tuple[int, int]:
+    """``(slab_threads, per)``: each block covers ``slab_threads * 8``
+    channels and ``per`` bins of the second axis. Slabs are up to 256
+    channels wide; the second axis is split into groups only as far as
+    needed to give every SM ``BLOCKS_PER_SM`` blocks (a group shares its
+    cells' first contraction, so R=300 keeps all P bins in one block)."""
+    s = min(MAX_SLAB_THREADS, 1 << (-(-c // VEC) - 1).bit_length())
+    blocks = r * -(-c // (VEC * s))
+    groups = min(pool, max(1, -(-BLOCKS_PER_SM * sms // blocks)))
+    return s, -(-pool // groups)
+
+
+def block_work(c: int, pool: int, slab_threads: int, per: int, block_y: int, thread: int):
+    """What thread ``thread`` of a block with ``blockIdx.y == block_y``
+    computes, as the kernel's index arithmetic has it: ``(first-axis bin,
+    second-axis bins, channels)``, or None for a thread past C."""
+    groups = -(-pool // per)
+    i = thread // slab_threads
+    slab, grp = divmod(block_y, groups)
+    ch = (slab * slab_threads + thread - i * slab_threads) * VEC
+    if ch >= c:
+        return None
+    return i, range(grp * per, min(pool, (grp + 1) * per)), range(ch, min(c, ch + VEC))
+
+
 def roi_align_cuda(feat: torch.Tensor, rois: torch.Tensor, spatial_scale: float,
                    pool_size: int, w_first: bool) -> torch.Tensor:
-    """``feat [H, W, C]`` bf16/f32 and ``rois [R, 4]`` f32, contiguous on one
-    CUDA device -> ``[R, P, P, C]`` in ``feat``'s dtype. Raises on anything
-    else."""
+    """``feat [H, W, C]`` bf16/f32 and ``rois [R, 4]`` f32 on one CUDA device
+    -> ``[R, P, P, C]`` in ``feat``'s dtype. Raises on anything else."""
     global LAUNCHES
-    if not (feat.is_cuda and rois.is_cuda) or feat.device != rois.device:
+    dev = feat.device
+    if not (feat.is_cuda and rois.is_cuda) or rois.device != dev:
         raise ValueError("roi_align_cuda takes CUDA tensors on one device")
     if feat.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"roi_align_cuda takes bf16 or f32 features, got {feat.dtype}")
@@ -62,15 +91,22 @@ def roi_align_cuda(feat: torch.Tensor, rois: torch.Tensor, spatial_scale: float,
     feat, rois = feat.contiguous(), rois.contiguous()
     h, w, c = feat.shape
     r = rois.shape[0]
-    out = torch.empty((r, pool_size, pool_size, c), dtype=feat.dtype, device=feat.device)
+    out = torch.empty((r, pool_size, pool_size, c), dtype=feat.dtype, device=dev)
     if r == 0 or c == 0:
         return out
     fn, err_str = _launcher()
-    with torch.cuda.device(feat.device):
-        stream = torch.cuda.current_stream(feat.device).cuda_stream
-        err = fn(feat.data_ptr(), rois.data_ptr(), r, h, w, c, float(spatial_scale),
-                 pool_size, int(w_first), int(feat.dtype == torch.bfloat16),
-                 out.data_ptr(), stream)
+    idx = dev.index
+    sms = _sms.get(idx) or _sms.setdefault(
+        idx, torch.cuda.get_device_properties(idx).multi_processor_count)
+    s, per = launch_plan(r, c, pool_size, sms)
+    args = (feat.data_ptr(), rois.data_ptr(), r, h, w, c, float(spatial_scale), pool_size,
+            int(w_first), feat.dtype == torch.bfloat16, s, per, out.data_ptr(),
+            torch._C._cuda_getCurrentRawStream(idx))
+    if idx == torch.cuda.current_device():
+        err = fn(*args)
+    else:  # the launch goes to the current device's context
+        with torch.cuda.device(idx):
+            err = fn(*args)
     if err != 0:
         raise RuntimeError(f"ROI-align kernel launch failed: {err_str(err).decode()} ({err})")
     LAUNCHES += 1

@@ -72,13 +72,19 @@ def nms_mask_batched(boxes: torch.Tensor, scores: torch.Tensor,
     CUDA tensor, the plain version for a CPU tensor."""
     if valid is None:
         valid = torch.ones(scores.shape, dtype=torch.bool, device=scores.device)
-    if boxes.is_cuda:
-        boxes = boxes.to(torch.float32).contiguous()
+    if boxes.is_cuda:  # converted and copied only where the kernel needs it
+        if boxes.dtype != torch.float32:
+            boxes = boxes.float()
+        if not boxes.is_contiguous():
+            boxes = boxes.contiguous()
         if boxes.data_ptr() % 16:
             boxes = boxes.clone()
-        return nms_kernel.nms_cuda_batched(
-            boxes, scores.to(torch.float32).contiguous(), iou_threshold,
-            valid.to(torch.bool).contiguous(), offset)
+        if scores.dtype != torch.float32:
+            scores = scores.float()
+        if valid.dtype != torch.bool:
+            valid = valid.bool()
+        return nms_kernel.nms_cuda_batched(boxes, scores.contiguous(), iou_threshold,
+                                           valid.contiguous(), offset)
     if boxes.device.type != "cpu":
         raise ValueError(f"no NMS for device {boxes.device}")
     return nms_mask_reference(boxes, scores, iou_threshold, valid.to(torch.bool), offset)

@@ -219,7 +219,8 @@ def roi_align_fused(feat, rois, spatial_scale: float, pool_size: int = 7):
         raise TypeError(f"the fused ROI align takes bf16 or f32 features, got {feat.dtype}")
     h, w, c = feat.shape
     wf = fused_w_first(h, w, c, feat.element_size(), pool_size)
-    rois = rois.to(torch.float32)
+    if rois.dtype != torch.float32:
+        rois = rois.float()
     if feat.is_cuda:
         return roi_align_kernel.roi_align_cuda(feat, rois, spatial_scale, pool_size, wf)
     if feat.device.type != "cpu":

@@ -10,7 +10,8 @@
    on the card, bit for bit: the search's shape (1 x 2048, IoU 0.7), the
    16 x 4096 stream shape (boxes uniform in [0, 2000] plus wh in [5, 300],
    IoU 0.5, seed 3), and tie-heavy streams with +-0, subnormal and invalid
-   rows. Times both with CUDA events after warmup.
+   rows. Times both with CUDA events after warmup, and the kernel's three
+   passes (sort, mask, scan) on the device with ``torch.profiler``.
 3. Phase 2: the bf16 VGG-16 propose path at full width (seeded random
    weights), ``make_propose_batch`` on two raw 375x500 uint8 images on a
    608x800 canvas and one ``im_propose`` call, with the NMS launch count
@@ -57,8 +58,8 @@
    ulp. Each timed with CUDA events beside its plain version and a library
    yardstick the port never calls (the einsum ``'align'`` ROI align; cuDNN
    conv2d + relu + max_pool2d, and cuDNN's conv2d alone), with its device
-   time from ``torch.profiler``; conv1 also as TFLOP/s and a share of the
-   bf16 peak.
+   time from ``torch.profiler`` (ROI align also with the host's time per
+   call); conv1 also as TFLOP/s and a share of the bf16 peak.
 7. Phase 6: the detection path at full width: VGG-16 bf16, FC_DIM 4096, 21
    classes, ``POOLING_MODE='align_pallas'``, ``FUSE_CONV1``, seeded weights,
    the AZ net and the Fast R-CNN net joined by ``share_trunk``. With the
@@ -109,6 +110,14 @@ checkouts run in turn in one call compare two versions of the kernel.
 
 does the same for the fused conv1 kernel at phase 5's b=2 608x800x64 input
 (device time, TFLOP/s and share of the bf16 peak, CUDA-event time).
+
+    python3 chip_smoke.py --roi-times [ROOT]
+    python3 chip_smoke.py --nms-times [ROOT]
+
+do the same for the ROI-align kernel at phase 5's eight shapes and for the
+NMS kernel at phase 1's three timed shapes (1 x 2048, 1 x 4096, 16 x 4096),
+with the host's time per call beside the device and CUDA-event times, and
+each NMS pass's device time (sort, mask, scan).
 """
 
 from __future__ import annotations
@@ -172,10 +181,10 @@ def cuda_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def device_us(fn, name, iters=20, attempts=3):
-    """Mean device time in microseconds per call of ``fn`` of the kernels
-    whose name holds ``name``, under ``torch.profiler``; None when the
-    profiler saw no device time in ``attempts`` sessions (one session of
+def device_times(fn, names, iters=20, attempts=3):
+    """{name: mean device time in microseconds per call of ``fn`` of the
+    kernels whose name holds ``name``}, under ``torch.profiler``; None when
+    the profiler saw none of them in ``attempts`` sessions (one session of
     many in a process has come back without the card's events). Unlike
     :func:`cuda_ms` over back-to-back calls, it leaves out the host's launch
     overhead."""
@@ -189,10 +198,36 @@ def device_us(fn, name, iters=20, attempts=3):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        total = sum(e.self_device_time_total for e in prof.key_averages() if name in e.key)
-        if total:
-            return total / iters
+        events = prof.key_averages()
+        out = {n: sum(e.self_device_time_total for e in events if n in e.key) / iters
+               for n in names}
+        if any(out.values()):
+            return out
     return None
+
+
+def device_us(fn, name, iters=20, attempts=3):
+    """Mean device time in microseconds per call of ``fn`` of the kernels
+    whose name holds ``name`` (:func:`device_times`); None when not seen."""
+    out = device_times(fn, [name], iters, attempts)
+    return out and out[name]
+
+
+def host_us(fn, iters=50):
+    """Host time in microseconds per call of ``fn``: back-to-back calls with
+    no synchronisation inside, so the clock reads what the host spends to
+    enqueue each call (at these counts the card's launch queue never fills
+    and blocks the host)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / iters * 1e6
 
 
 def nms_inputs(seed, bsz, n, extent, tie_rows, dev, presorted=False):
@@ -220,28 +255,57 @@ def nms_inputs(seed, bsz, n, extent, tie_rows, dev, presorted=False):
     return [torch.from_numpy(a).to(dev) for a in (boxes, scores, valid)]
 
 
+NMS_CASES = [  # name, seed, B, N, extent, tie streams, IoU, timed
+    ("path_1x2048", 0, 1, 2048, 1000.0, 0, 0.7, True),
+    ("cell_16x4096", 3, 16, 4096, 2000.0, 0, 0.5, True),
+    ("ties_4x2048", 5, 4, 2048, 1000.0, 4, 0.7, False),
+    ("ties_2x1000", 6, 2, 1000, 500.0, 2, 0.5, False),
+    # The input of tools/bench_nms_variants.py's kernel-only launch of
+    # _nms_kernel_nosub: already score-sorted (the sort is the identity,
+    # so the keep mask is in sorted order too).
+    ("presorted_16x4096", 3, 16, 4096, 2000.0, 0, 0.5, True),
+    ("path_1x4096", 4, 1, 4096, 1900.0, 0, 0.7, True),  # ResNet-50's CAND_BUF
+]
+NMS_PASSES = ("sort_kernel", "mask_kernel", "scan_kernel")  # the kernel's three launches
+
+
+def nms_case_inputs(name, dev):
+    """Boxes, scores and valid flags of the :data:`NMS_CASES` entry ``name``,
+    with its IoU threshold."""
+    _, seed, bsz, n, extent, ties, iou, _ = next(c for c in NMS_CASES if c[0] == name)
+    return nms_inputs(seed, bsz, n, extent, ties, dev, presorted=name.startswith("presorted")), iou
+
+
+def nms_kernel_times(boxes, scores, iou, valid):
+    """The NMS dispatch on the card, timed: {"ms": CUDA events per call over
+    back-to-back calls, "host_us": the host's time per call, "device_us":
+    the three passes' device time per call, "passes": {pass: device us}}."""
+    from aznet_tpu_torch.ops import nms as tnms
+
+    run = lambda: tnms.nms_mask_batched(boxes, scores, iou, valid)
+    passes = device_times(run, NMS_PASSES)
+    check(passes is not None, "the profiler saw no NMS pass")
+    return {"ms": cuda_ms(run, 20, 3), "host_us": host_us(run), "passes": passes,
+            "device_us": sum(passes.values())}
+
+
+def nms_times_line(t):
+    return (f"device {t['device_us']:.2f} us (" + ", ".join(
+        f"{k.split('_')[0]} {v:.2f}" for k, v in t["passes"].items()) + f"), events "
+        f"{t['ms']:.4f} ms, host {t['host_us']:.2f} us per call, events - device "
+        f"{t['ms'] * 1e3 - t['device_us']:.2f} us")
+
+
 def phase1_nms(dev):
     """Kernel vs plain on the card. Returns (max_abs_err, timings)."""
     import torch
 
     from aznet_tpu_torch.ops import nms as tnms
 
-    cases = [  # name, seed, B, N, extent, tie streams, IoU, timed
-        ("path_1x2048", 0, 1, 2048, 1000.0, 0, 0.7, True),
-        ("cell_16x4096", 3, 16, 4096, 2000.0, 0, 0.5, True),
-        ("ties_4x2048", 5, 4, 2048, 1000.0, 4, 0.7, False),
-        ("ties_2x1000", 6, 2, 1000, 500.0, 2, 0.5, False),
-        # The input of tools/bench_nms_variants.py's kernel-only launch of
-        # _nms_kernel_nosub: already score-sorted (the sort is the identity,
-        # so the keep mask is in sorted order too).
-        ("presorted_16x4096", 3, 16, 4096, 2000.0, 0, 0.5, True),
-        ("path_1x4096", 4, 1, 4096, 1900.0, 0, 0.7, True),  # ResNet-50's CAND_BUF
-    ]
     err = 0.0
     times = {}
-    for name, seed, bsz, n, extent, ties, iou, timed in cases:
-        boxes, scores, valid = nms_inputs(seed, bsz, n, extent, ties, dev,
-                                          presorted=name.startswith("presorted"))
+    for name, _, bsz, n, _, _, _, timed in NMS_CASES:
+        (boxes, scores, valid), iou = nms_case_inputs(name, dev)
         got = tnms.nms_mask_batched(boxes, scores, iou, valid)
         want = tnms.nms_mask_reference(boxes, scores, iou, valid)
         torch.cuda.synchronize()
@@ -252,14 +316,26 @@ def phase1_nms(dev):
         check(diff == 0.0, f"NMS kernel disagrees with the plain version on {name}")
         check(0 < kept < int(valid.sum()), f"{name}: degenerate case, kept {kept}")
         if timed:
-            k_ms = cuda_ms(lambda: tnms.nms_mask_batched(boxes, scores, iou, valid), 20, 3)
-            p_ms = cuda_ms(lambda: tnms.nms_mask_reference(boxes, scores, iou, valid), 3, 1)
-            times[name] = (k_ms, p_ms)
+            t = nms_kernel_times(boxes, scores, iou, valid)
+            t["plain_ms"] = cuda_ms(lambda: tnms.nms_mask_reference(boxes, scores, iou, valid),
+                                    3, 1)
+            times[name] = t
             b_ms, b_by = nms_bound(bsz, n)
-            print(f"phase1 {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-                  f"kernel {bsz * n / k_ms / 1e3:.2f} Mboxes/s, bound {b_ms * 1e3:.3f} us "
+            print(f"phase1 {name}: kernel {nms_times_line(t)}; plain {t['plain_ms']:.4f} ms, "
+                  f"kernel {bsz * n / t['ms'] / 1e3:.2f} Mboxes/s, bound {b_ms * 1e3:.3f} us "
                   f"({b_by})", flush=True)
     return err, times
+
+
+def nms_times(dev, root):
+    """``--nms-times [ROOT]``: the NMS kernel at phase 1's three timed main
+    shapes (1 x 2048 and 1 x 4096 at IoU 0.7, 16 x 4096 at 0.5), each pass's
+    device time, CUDA-event time and host time, with the package found under
+    ROOT (default: this checkout)."""
+    for name in ("path_1x2048", "path_1x4096", "cell_16x4096"):
+        (boxes, scores, valid), iou = nms_case_inputs(name, dev)
+        print(f"nms-times {root} {name}: {nms_times_line(nms_kernel_times(boxes, scores, iou, valid))}",
+              flush=True)
 
 
 def build_net(tag, cfg, dev, state_dict=None):
@@ -892,24 +968,77 @@ def time_roi(feat, rois, tag):
 
     h, w, c = feat.shape
     wf = troi.fused_w_first(h, w, c, feat.element_size())
-    run = lambda: roi_align_kernel.roi_align_cuda(feat, rois, 1 / 16.0, 7, wf)
+    run = lambda: troi.roi_align_fused(feat, rois, 1 / 16.0, 7)
     got, want = run(), troi.roi_align_fused_reference(feat, rois, 1 / 16.0, 7, wf)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
-    k_ms = cuda_ms(run, 50, 3)
+    t = roi_kernel_times(feat, rois)
     p_ms = cuda_ms(lambda: troi.roi_align_fused_reference(feat, rois, 1 / 16.0, 7, wf), 5, 1)
     l_ms = cuda_ms(lambda: troi.roi_align(feat, rois, 1 / 16.0, 7), 20, 2)
-    dev_us = device_us(run, "roi_align_kernel")
     b_ms, b_by = roi_bound(feat, rois, wf)
-    name = (f"{str(feat.dtype)[6:]} {h}x{w}x{c} R={rois.shape[0]} "
-            f"{'W' if wf else 'H'}-first")
+    name = roi_case_name(feat, rois)
     print(f"phase5 roi_align {tag} {name}: max_abs_err {err}, max |out| "
-          f"{want.float().abs().max().item()}; kernel {k_ms:.4f} ms per call "
-          f"(device time {dev_us} us), plain {p_ms:.4f} ms, library (einsum 'align') "
-          f"{l_ms:.4f} ms, bound {b_ms * 1e3:.3f} us ({b_by})", flush=True)
+          f"{want.float().abs().max().item()}; kernel {roi_times_line(t)}; plain {p_ms:.4f} ms, "
+          f"library (einsum 'align') {l_ms:.4f} ms, bound {b_ms * 1e3:.3f} us ({b_by})",
+          flush=True)
     check(err == 0.0, f"ROI-align kernel disagrees with the plain version at {name}")
-    return {"err": err, "ms": k_ms, "device_us": dev_us, "plain_ms": p_ms, "library_ms": l_ms,
-            "bound": (b_ms, b_by), "w_first": wf}
+    return {"err": err, "ms": t["ms"], "device_us": t["device_us"], "plain_ms": p_ms,
+            "library_ms": l_ms, "bound": (b_ms, b_by), "w_first": wf}
+
+
+def roi_case_name(feat, rois):
+    from aznet_tpu_torch.ops import roi_pool as troi
+
+    h, w, c = feat.shape
+    wf = troi.fused_w_first(h, w, c, feat.element_size())
+    return f"{str(feat.dtype)[6:]} {h}x{w}x{c} R={rois.shape[0]} {'W' if wf else 'H'}-first"
+
+
+def roi_kernel_times(feat, rois):
+    """The ``'align_pallas'`` dispatch (``roi_align_fused``) on the card,
+    timed: {"ms": CUDA events per call over back-to-back calls, "device_us",
+    "host_us": the host's time per call}."""
+    from aznet_tpu_torch.ops import roi_pool as troi
+
+    run = lambda: troi.roi_align_fused(feat, rois, 1 / 16.0, 7)
+    return {"ms": cuda_ms(run, 50, 3), "device_us": device_us(run, "roi_align_kernel"),
+            "host_us": host_us(run)}
+
+
+def roi_times_line(t):
+    dev = t["device_us"]
+    return (f"{t['ms']:.4f} ms per call by events, device {dev} us, host {t['host_us']:.2f} "
+            f"us per call, events / device {t['ms'] * 1e3 / dev if dev else float('nan'):.2f}")
+
+
+def roi_cases(dev):
+    """Phase 5's ROI-align inputs, in order: (tag, feat, rois). VGG-16's
+    38x50x512 map at the search's R (8, 32, 64) and the detect head's 300,
+    bf16 (H-first by the order rule), and f32 at 64 (W-first); ResNet-50's
+    68x120x1024 C4 map of a 1088x1920 canvas (W-first, bf16) at its search's
+    frontier capacities 8, 32 and 128."""
+    import torch
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    h, w, c = CANVAS[0] // 16, CANVAS[1] // 16, 512
+    vgg = torch.relu(torch.randn((h, w, c), generator=g, device=dev)) * 20
+    h, w, c = RESNET_CANVAS[0] // 16, RESNET_CANVAS[1] // 16, 1024
+    res = (torch.relu(torch.randn((h, w, c), generator=g, device=dev)) * 20).to(torch.bfloat16)
+    for dtype, r in ((torch.bfloat16, 8), (torch.bfloat16, 32), (torch.bfloat16, 64),
+                     (torch.bfloat16, DETECT_ROIS), (torch.float32, 64)):
+        yield "vgg16", vgg.to(dtype), detect_rois(r, r, dev)
+    for r in (8, 32, 128):
+        yield "resnet50", res, detect_rois(r, 100 + r, dev, RESNET_CANVAS)
+
+
+def roi_times(dev, root):
+    """``--roi-times [ROOT]``: the ROI-align kernel at phase 5's shapes,
+    device time, CUDA-event time and host time per call, with the package
+    found under ROOT (default: this checkout)."""
+    for tag, feat, rois in roi_cases(dev):
+        print(f"roi-times {root} {tag} {roi_case_name(feat, rois)}: "
+              f"{roi_times_line(roi_kernel_times(feat, rois))}", flush=True)
 
 
 def conv1_case(dev):
@@ -940,31 +1069,17 @@ def phase5_kernels(dev):
     from aznet_tpu_torch.ops import conv1_fused as tconv1
     from aznet_tpu_torch.ops.cuda import conv1_kernel
 
-    g = torch.Generator(device=dev)
-    g.manual_seed(5)
     out = {}
     roi = {"err": 0.0}
-    # VGG-16's 38x50x512 map at the search's R (8, 32, 64) and the detect
-    # head's 300, bf16 (H-first by the order rule), and f32 at 64 (W-first).
-    h, w, c = CANVAS[0] // 16, CANVAS[1] // 16, 512
-    base = torch.relu(torch.randn((h, w, c), generator=g, device=dev)) * 20
-    for dtype, r in ((torch.bfloat16, 8), (torch.bfloat16, 32), (torch.bfloat16, 64),
-                     (torch.bfloat16, DETECT_ROIS), (torch.float32, 64)):
-        rec = time_roi(base.to(dtype), detect_rois(r, r, dev), "vgg16")
+    for tag, feat, rois in roi_cases(dev):
+        rec = time_roi(feat, rois, tag)
         roi["err"] = max(roi["err"], rec["err"])
-        check(rec["w_first"] == (dtype == torch.float32), "the order rule picked the other order")
-        if dtype == torch.bfloat16 and r == DETECT_ROIS:  # the record: the detect head's shape
-            roi.update(ms=rec["ms"], plain_ms=rec["plain_ms"], library_ms=rec["library_ms"],
-                       bound=rec["bound"])
-    # ResNet-50's 68x120x1024 C4 map of a 1088x1920 canvas (W-first, bf16) at
-    # its search's frontier capacities.
-    h, w, c = RESNET_CANVAS[0] // 16, RESNET_CANVAS[1] // 16, 1024
-    base = (torch.relu(torch.randn((h, w, c), generator=g, device=dev)) * 20).to(torch.bfloat16)
-    for r in (8, 32, 128):
-        rec = time_roi(base, detect_rois(r, 100 + r, dev, RESNET_CANVAS), "resnet50")
-        roi["err"] = max(roi["err"], rec["err"])
-        check(rec["w_first"], "the 68x120x1024 map did not take the W-first order")
-    del base
+        check(rec["w_first"] == (feat.dtype == torch.float32 or tag == "resnet50"),
+              "the order rule picked the other order")
+        if tag == "vgg16" and feat.dtype == torch.bfloat16 and rois.shape[0] == DETECT_ROIS:
+            # the record: the detect head's shape
+            roi.update(ms=rec["ms"], device_us=rec["device_us"], plain_ms=rec["plain_ms"],
+                       library_ms=rec["library_ms"], bound=rec["bound"])
     out["roi"] = roi
 
     y, w12, b12 = conv1_case(dev)
@@ -1490,12 +1605,13 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    if argv[:1] in (["--conv-times"], ["--conv1-times"]):
+    timers = {"--conv-times": conv_times, "--conv1-times": conv1_times,
+              "--roi-times": roi_times, "--nms-times": nms_times}
+    if argv[:1] and argv[0] in timers:
         root = argv[1] if len(argv) > 1 else "."
         sys.path.insert(0, root)
         torch.cuda.set_device(0)
-        times = conv_times if argv[0] == "--conv-times" else conv1_times
-        times(torch.device("cuda", 0), root)
+        timers[argv[0]](torch.device("cuda", 0), root)
         return 0
     from aznet_tpu_torch import _build
     from aznet_tpu_torch.config import Config
@@ -1546,13 +1662,13 @@ def main(argv) -> int:
               ("resnet50 bf16", "resnet50 int8", "caffenet", "vgg_cnn_m_1024"), paths)),
           flush=True)
 
-    k_ms, p_ms = times["path_1x2048"]
+    nms_t = times["path_1x2048"]
     nms_b = nms_bound(1, 2048)
     records = [{
         "name": "nms_exact_greedy", "route": "cuda", "source": NMS_SOURCE,
         "replaces": NMS_REPLACES, "launches": launches,
         "max_abs_err": max(err1, err2, int8["nms_err"], *(p["nms_err"] for p in paths)),
-        "ms": k_ms, "plain_ms": p_ms,
+        "ms": nms_t["ms"], "device_us": nms_t["device_us"], "plain_ms": nms_t["plain_ms"],
         "bound_ms": nms_b[0], "bound_by": nms_b[1], "library_ms": None}]
     for entry, replaces in (("chain", CHAIN_REPLACES), ("strip", STRIP_REPLACES)):
         b_ms, b_by = int8_conv_bound(entry)

@@ -52,9 +52,7 @@ def iou_inputs(seed, n, k):
 def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card and nvcc (the kernel has no CPU mode)")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    return torch.device("cuda")
+    return torch.device("cuda")  # PyTorch's default precision flags, as chip_smoke.py runs
 
 
 def _case(seed, bsz, n, dev, ties=True):
@@ -77,7 +75,7 @@ def _case(seed, bsz, n, dev, ties=True):
 
 @pytest.mark.parametrize("bsz,n,thresh,offset", [
     (1, 2048, 0.7, 1.0), (4, 1000, 0.5, 1.0), (3, 64, 0.3, 0.0), (1, 1, 0.5, 1.0),
-    (2, 4097, 0.5, 1.0), (1, 8192, 0.7, 1.0),
+    (2, 4097, 0.5, 1.0), (1, 8192, 0.7, 1.0), (1, 4096, 0.5, 1.0), (16, 4096, 0.5, 1.0),
 ])
 def test_kernel_equals_plain(dev, bsz, n, thresh, offset):
     boxes, scores, valid = _case(bsz * 7 + n, bsz, n, dev)
@@ -87,6 +85,30 @@ def test_kernel_equals_plain(dev, bsz, n, thresh, offset):
     want = tnms.nms_mask_reference(boxes, scores, thresh, valid, offset)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n", [300, 2048, 4096])
+def test_kernel_keeps_all_or_one(dev, n):
+    """Two ends of the scan: boxes on a grid that never overlap (every valid
+    box kept), and boxes that all overlap the best one more than the
+    threshold (only it kept), each in shuffled score order."""
+    rng = np.random.RandomState(n)
+    side = int(np.ceil(np.sqrt(n)))
+    xy = np.stack([np.arange(n) % side, np.arange(n) // side], 1) * 20.0
+    apart = np.concatenate([xy, xy + 10.0], 1).astype(np.float32)
+    jitter = rng.uniform(0, 2, (n, 4)).astype(np.float32)
+    piled = (np.array([100.0, 100.0, 400.0, 300.0], np.float32) + jitter).astype(np.float32)
+    scores = torch.from_numpy(rng.permutation(n).astype(np.float32) / n).to(dev)
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    for boxes, want_kept in ((apart, n), (piled, 1)):
+        b = torch.from_numpy(boxes).to(dev)
+        got = tnms.nms_mask_batched(b[None], scores[None], 0.5, valid[None])
+        want = tnms.nms_mask_reference(b[None], scores[None], 0.5, valid[None])
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert int(got.sum()) == want_kept
+        if want_kept == 1:
+            assert bool(got[0, int(scores.argmax())])
 
 
 def test_nms_topk_on_card_equals_cpu(dev):
@@ -221,6 +243,52 @@ def test_roi_align_kernel_equals_plain(dev, h, w, c, r, dtype, w_first):
     want = troi.roi_align_fused_reference(feat, rois, 1 / 16.0, 7, w_first)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == (r, 7, 7, c)
+    assert torch.equal(got, want)
+    assert float(want.float().abs().max()) > 0
+
+
+# (H, W, C, R, dtype, w_first, P, rois): P=6 (CaffeNet, VGG_CNN_M_1024);
+# ResNet-50's 68x120x1024 map W-first at R=128; C=36, not a multiple of 8
+# (element-wise loads and stores), both dtypes; rois partly off the map; one
+# roi that is the whole map; a 16-byte-misaligned map (element-wise path at
+# C=512); P=16 (the tap tables' limit).
+ROI_EDGE_CASES = [
+    (38, 50, 512, 64, torch.bfloat16, False, 6, "random"),
+    (38, 50, 512, 64, torch.float32, True, 6, "random"),
+    (68, 120, 1024, 128, torch.bfloat16, True, 7, "random"),
+    (21, 26, 36, 40, torch.bfloat16, False, 7, "random"),
+    (21, 26, 36, 40, torch.float32, True, 7, "random"),
+    (38, 50, 512, 50, torch.bfloat16, False, 7, "off_map"),
+    (38, 50, 512, 1, torch.bfloat16, False, 7, "whole_map"),
+    (38, 50, 512, 1, torch.float32, True, 7, "whole_map"),
+    (13, 21, 512, 20, torch.bfloat16, True, 7, "misaligned"),
+    (30, 30, 64, 12, torch.bfloat16, False, 16, "random"),
+]
+
+
+@pytest.mark.parametrize("h,w,c,r,dtype,w_first,pool,kind", ROI_EDGE_CASES)
+def test_roi_align_kernel_edge_cases(dev, h, w, c, r, dtype, w_first, pool, kind):
+    feat, rois = _roi_case(h * 5 + c + r, h, w, c, r, dtype, dev)
+    if kind == "off_map":  # every roi reaches past an edge of the map
+        rng = np.random.RandomState(r)
+        x1 = rng.uniform(-400, w * 16 + 200, r)
+        y1 = rng.uniform(-400, h * 16 + 200, r)
+        rois = torch.from_numpy(np.stack([x1, y1, x1 + rng.uniform(300, 900, r),
+                                          y1 + rng.uniform(300, 900, r)], 1)
+                                .astype(np.float32)).to(dev)
+    elif kind == "whole_map":
+        rois = torch.tensor([[0.0, 0.0, w * 16.0 - 1, h * 16.0 - 1]], device=dev)
+    elif kind == "misaligned":  # contiguous, but 2 bytes off 16
+        flat = torch.empty(feat.numel() + 1, dtype=dtype, device=dev)
+        flat[1:] = feat.reshape(-1)
+        feat = flat[1:].view(h, w, c)
+        assert feat.data_ptr() % 16
+    before = roi_align_kernel.LAUNCHES
+    got = roi_align_kernel.roi_align_cuda(feat, rois, 1 / 16.0, pool, w_first)
+    assert roi_align_kernel.LAUNCHES == before + 1
+    want = troi.roi_align_fused_reference(feat, rois, 1 / 16.0, pool, w_first)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (r, pool, pool, c)
     assert torch.equal(got, want)
     assert float(want.float().abs().max()) > 0
 
@@ -403,8 +471,8 @@ def _detect_cfg():
 
 def test_float32_net_under_callers_tf32_equals_cpu(dev):
     """A float32 VGG-16 (WIDTH 0.25) built and run with TF32 turned ON for
-    both cuDNN and cuBLAS, as a caller may leave them (the ``dev`` fixture
-    turns them off; this test turns them on and back): the port scopes its
+    both cuDNN and cuBLAS, as a caller may leave them (this test turns them
+    on and restores them; the other tests run under PyTorch's defaults): the port scopes its
     own precision, so the trunk holds the CPU's to 1e-4 of max |x|
     (``chip_smoke.py``'s ``card_vs_cpu`` bound) and the flags come back."""
     cfg = cfg_from_dict(Config(), {"MODEL": {"WIDTH": 0.25, "FC_DIM": 64,

@@ -36,6 +36,7 @@ from aznet_tpu.ops.pallas.conv1_kernel import fused_conv1_pool as jfused_conv1_p
 from aznet_tpu_torch.models.vgg import VGG16Trunk
 from aznet_tpu_torch.ops import conv1_fused as tconv1
 from aznet_tpu_torch.ops import roi_pool as troi
+from aznet_tpu_torch.ops.cuda import roi_align_kernel
 from aznet_tpu_torch.utils.convert import params_from_flax
 
 jroi = importlib.import_module("aznet_tpu.ops.roi_pool")  # the package re-exports a function
@@ -139,6 +140,32 @@ def test_sample_grid_is_a_true_division(n):
     want = i / np.float32(n)
     assert (want != i * (np.float32(1) / np.float32(n))).any()  # the case matters
     np.testing.assert_array_equal(troi.sample_grid(n, "cpu").numpy(), want)
+
+
+@pytest.mark.parametrize("r,c,pool", [(300, 512, 7), (8, 512, 7), (32, 512, 7), (64, 512, 7),
+                                      (128, 1024, 7), (8, 1024, 7), (33, 40, 7), (1, 200, 7),
+                                      (64, 512, 6), (5, 36, 16), (2, 3, 1)])
+def test_roi_align_plan_covers_every_output_once(r, c, pool):
+    """The CUDA kernel's launch plan and index arithmetic (mirrored by
+    ``block_work``): over the grid's second axis and a block's threads,
+    every (first-axis bin, second-axis bin, channel) of a roi is computed
+    exactly once (every roi is one column of blocks); blocks stay within
+    512 threads; the second axis is split only at small R."""
+    s, per = roi_align_kernel.launch_plan(r, c, pool, sms=132)
+    assert 1 <= s <= roi_align_kernel.MAX_SLAB_THREADS and 1 <= per <= pool
+    assert pool * s <= 512
+    count = np.zeros((pool, pool, c), np.int32)
+    grid_y = -(-c // (8 * s)) * -(-pool // per)  # slabs x second-axis groups
+    for by in range(grid_y):
+        for t in range(pool * s):
+            work = roi_align_kernel.block_work(c, pool, s, per, by, t)
+            if work is not None:
+                i, js, chs = work
+                for j in js:
+                    count[i, j, chs.start:chs.stop] += 1
+    np.testing.assert_array_equal(count, 1)
+    # Enough blocks: all second-axis bins share one block's cells; else split.
+    assert (per == pool) == (r * -(-c // (8 * s)) >= 2 * 132 or pool == 1)
 
 
 def test_roi_pool_modes_dispatch_and_reject():

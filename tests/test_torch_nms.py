@@ -141,3 +141,56 @@ def test_cuda_wrapper_rejects_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         nms_kernel.nms_cuda_batched(torch.from_numpy(boxes), torch.from_numpy(scores), 0.5,
                                     torch.from_numpy(valid))
+
+
+def _simulate_rank_sort(key, n_pad):
+    """The sort pass of ``csrc/nms.cu`` in numpy: row i of the tile starting
+    at i0 (64 rows) counts the rows before the tile with a key <= its own,
+    the tile's rows with a smaller key or an equal key and a lower index,
+    and the rows after the tile with a smaller key; the count is its
+    position."""
+    rank = np.zeros(n_pad, np.int64)
+    for i0 in range(0, n_pad, 64):
+        tile = np.arange(i0, i0 + 64)
+        ki = key[tile][:, None]
+        kj = key[None, i0:i0 + 64]
+        earlier = tile[None, :] < tile[:, None]
+        rank[tile] = ((key[None, :i0] <= ki).sum(1) + ((kj < ki) | ((kj == ki) & earlier)).sum(1)
+                      + (key[None, i0 + 64:] < ki).sum(1))
+    return rank
+
+
+@pytest.mark.parametrize("n,n_pad", [(2048, 2048), (3000, 4096), (5000, 8192), (100, 128),
+                                     (40, 64)])
+def test_rank_sort_is_a_stable_sort(n, n_pad):
+    """The sort pass's counting, simulated, puts every row at its place in a
+    stable sort of the folded keys: ties, +-0, subnormals (folded into one
+    key), -inf and invalid rows (the last key), padding rows after them."""
+    assert nms_kernel.sort_width(n) == n_pad
+    boxes, scores, valid = _case(n + 17, 1, n)
+    scores[0, 5:9] = [np.float32(1e-42), -np.inf, np.float32(-1e-42), 0.0]
+    s = np.where(valid[0], scores[0], -np.inf).astype(np.float32)
+    key = np.full(n_pad, tnms.KEY_NEG_INF, np.int64)
+    key[:n] = tnms.score_keys(torch.from_numpy(s)).numpy()
+    rank = _simulate_rank_sort(key, n_pad)
+    order = np.full(n_pad, -1)
+    order[rank] = np.arange(n_pad)
+    np.testing.assert_array_equal(order, np.argsort(key, kind="stable"))
+
+
+@pytest.mark.parametrize("n_tiles", [1, 2, 32, 64, 128])
+def test_mask_blocks_cover_the_upper_triangle_once(n_tiles):
+    """The mask pass launches one block per tile at or right of the diagonal
+    (n_tiles (n_tiles + 1) / 2 of them): block ``col (col + 1) / 2 + row``
+    takes tile (row, col), as the kernel inverts the index, up to 128 tiles
+    a side (N = 8192)."""
+    tiles = [nms_kernel.triangle_tile(blk) for blk in range(n_tiles * (n_tiles + 1) // 2)]
+    assert tiles == [(rt, ct) for ct in range(n_tiles) for rt in range(ct + 1)]
+
+
+def test_scratch_is_one_buffer_of_the_three_pieces():
+    for bsz, n_pad in [(1, 64), (16, 4096), (3, 8192)]:
+        words = n_pad // nms_kernel.TILE
+        pieces = (bsz * n_pad * words * 8, bsz * n_pad * 16, bsz * n_pad * 4)
+        assert nms_kernel.scratch_bytes(bsz, n_pad) == sum(pieces)
+        assert all(p % 16 == 0 for p in pieces)  # each piece starts 16-byte aligned
