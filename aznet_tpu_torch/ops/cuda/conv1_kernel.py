@@ -21,6 +21,8 @@ import ctypes
 
 import torch
 
+from aznet_tpu_torch.ops.cuda import sm_count
+
 MAX_CHANNELS = 64  # C and Co: the resident weights and the wgmma M
 CHANNEL_MULTIPLE = 8  # C and Co: TMA's 16-byte rows, the 16-byte output stores
 TILE_COLS = 128  # output columns per tile = wgmma N
@@ -108,12 +110,11 @@ def conv1_2_pool_cuda(y: torch.Tensor, w_k: torch.Tensor, bias: torch.Tensor) ->
     out = torch.empty((b, h // 2, w // 2, co), dtype=torch.bfloat16, device=y.device)
     if out.numel() == 0:
         return out
-    sms = torch.cuda.get_device_properties(y.device).multi_processor_count
     fn, err_str = _launcher()
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream(y.device).cuda_stream
         err = fn(y.data_ptr(), w_k.data_ptr(), bias.data_ptr(), b, h, w, c, co,
-                 grid_size(tiles, sms), out.data_ptr(), stream)
+                 grid_size(tiles, sm_count(y.device.index)), out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"fused conv1 kernel launch failed: {err_str(err).decode()} ({err})")
     LAUNCHES += 1

@@ -29,6 +29,8 @@ import ctypes
 
 import torch
 
+from aznet_tpu_torch.ops.cuda import sm_count
+
 K_CHUNK = 32  # input channels per staged chunk: the kernel's Cp is a multiple
 TILE_COLS = 64  # output columns per block (the wgmma M)
 CO_TILE = 128  # output channels per block (the wgmma N)
@@ -85,20 +87,11 @@ def tile_rows(b: int, h: int, w: int, co: int, n_sms: int) -> int:
     return 2 if cost(2) < cost(4) else 4
 
 
-_n_sms = {}
-
-
-def _sms(device) -> int:
-    if device.index not in _n_sms:
-        _n_sms[device.index] = torch.cuda.get_device_properties(device).multi_processor_count
-    return _n_sms[device.index]
-
-
 def tile_config(x: torch.Tensor, co: int) -> dict:
     """The tile the kernel takes for ``x [B, H, W, C]`` on its card and
     ``co`` output channels: rows, columns, channels per block and the grid."""
     b, h, w, _ = x.shape
-    rows = tile_rows(b, h, w, co, _sms(x.device))
+    rows = tile_rows(b, h, w, co, sm_count(x.device.index))
     return {"rows": rows, "cols": TILE_COLS, "co": CO_TILE, "grid": grid(b, h, w, co, rows)}
 
 
@@ -129,7 +122,7 @@ def _check(x, w_k, s_w, bias):
         raise ValueError("the int8 conv kernel needs contiguous tensors")
     if x.data_ptr() % 8 or w_k.data_ptr() % 16:
         raise ValueError("x must be 8-byte and w_k 16-byte aligned")
-    rows = tile_rows(b, h, w, co, _sms(x.device))
+    rows = tile_rows(b, h, w, co, sm_count(x.device.index))
     if max(grid(b, h, w, co, rows)[1:]) > GRID_MAX_YZ:
         raise ValueError(f"grid too large for x {tuple(x.shape)}, Co={co}")
     return b, h, w, c, cp, co, rows

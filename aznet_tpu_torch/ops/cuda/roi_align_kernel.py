@@ -19,6 +19,8 @@ import ctypes
 
 import torch
 
+from aznet_tpu_torch.ops.cuda import sm_count
+
 MAX_POOL = 16  # the kernel's shared tap tables hold up to 16 bins per axis
 VEC = 8  # channels per thread
 MAX_SLAB_THREADS = 32  # threads per first-axis bin of a block
@@ -28,7 +30,6 @@ BLOCKS_PER_SM = 2  # what launch_plan aims for at small R
 LAUNCHES = 0
 
 _fns = None
-_sms = {}  # device index -> streaming multiprocessors
 
 
 def _launcher():
@@ -96,9 +97,7 @@ def roi_align_cuda(feat: torch.Tensor, rois: torch.Tensor, spatial_scale: float,
         return out
     fn, err_str = _launcher()
     idx = dev.index
-    sms = _sms.get(idx) or _sms.setdefault(
-        idx, torch.cuda.get_device_properties(idx).multi_processor_count)
-    s, per = launch_plan(r, c, pool_size, sms)
+    s, per = launch_plan(r, c, pool_size, sm_count(idx))
     args = (feat.data_ptr(), rois.data_ptr(), r, h, w, c, float(spatial_scale), pool_size,
             int(w_first), feat.dtype == torch.bfloat16, s, per, out.data_ptr(),
             torch._C._cuda_getCurrentRawStream(idx))

@@ -75,11 +75,16 @@
 8. Phase 7: the tiled IoU kernel (``csrc/iou.cu``) alone, as the JAX
    package holds ``bbox_overlaps_pallas`` alone (no path calls either), bit
    for bit against its plain version (``ops/iou.py::bbox_overlaps``) at
-   300x200, 50x40, 128x128, 200x300, 2048x2048 and 4096x4096, with
-   degenerate, zero-area and union <= 0 boxes; each timed beside the plain
-   version and its bound. Phase 1 also runs the NMS kernel on score-sorted
-   16 x 4096 input (the input of ``tools/bench_nms_variants.py``'s
-   kernel-only launch) and at ResNet-50's 1 x 4096.
+   offsets 1 and 0 at 300x200, 50x40, 128x128, 200x300, 2048x2048,
+   4096x4096, ragged K (300x201, 50x41, 129x130, 2047x2049, 4096x4095),
+   1x1, 1x4096 and 2,100,000x3 (above the old grid's row cap), with
+   degenerate, zero-area and union <= 0 boxes; each timed (device,
+   CUDA-event and host time) beside the plain version, its bound and the
+   device time of ``zero_()`` on an ``[N, K]`` float32 tensor, a yardstick
+   of the card's write rate that computes no IoU. Phase 1 also runs the NMS
+   kernel on score-sorted 16 x 4096 input (the input of
+   ``tools/bench_nms_variants.py``'s kernel-only launch) and at ResNet-50's
+   1 x 4096.
 9. Phase 8: ResNet-50 at 1080p (``experiments/cfgs/resnet50_1080p.yml``,
    ``POOLING_MODE='align_pallas'``): two raw 1080x1920 images on a
    1088x1920 canvas, bf16, then int8 calibrated on two random canvases at
@@ -118,6 +123,15 @@ do the same for the ROI-align kernel at phase 5's eight shapes and for the
 NMS kernel at phase 1's three timed shapes (1 x 2048, 1 x 4096, 16 x 4096),
 with the host's time per call beside the device and CUDA-event times, and
 each NMS pass's device time (sort, mask, scan).
+
+    python3 chip_smoke.py --iou-times [ROOT]
+
+does the same for the IoU kernel at phase 7's shapes (all but the
+2,100,000-row one), then counts the SASS instructions per pair in the
+kernel's storing loop (``cuobjdump -sass`` of the library built from ROOT;
+the SASS goes to ``build/iou_sass_<ROOT>.txt``), then times 4096 x 4095
+and 4096 x 4096 again in four sessions each, every session's output at a
+new address.
 """
 
 from __future__ import annotations
@@ -1348,9 +1362,17 @@ def iou_inputs(seed, n, k):
         wh[bad] = rng.choice([-1.0, -0.5, -30.0], (int(bad.sum()), 2))
         out.append(np.concatenate([xy, xy + wh], 1).astype(np.float32))
     out[0][0] = [0.0, 500.0, 1000.0, 0.0]
-    out[0][1] = [500.0, 500.0, 499.0, 499.0]
+    if n > 1:
+        out[0][1] = [500.0, 500.0, 499.0, 499.0]
     out[1][0] = [10.0, 10.0, 9.0, 9.0]
     return out
+
+
+# Phase 7's (N, K): check_iou's, test_pallas's, the NMS candidates', 4096 x
+# 4096; K % 4 != 0 (the kernel's element-wise body), one row, one box.
+IOU_SHAPES = ((300, 200), (50, 40), (128, 128), (200, 300), (2048, 2048), (4096, 4096),
+              (300, 201), (50, 41), (129, 130), (2047, 2049), (4096, 4095), (1, 1), (1, 4096))
+IOU_TALL = (2_100_000, 3)  # above the 65,535 x 32 rows the old 2-D grid allowed
 
 
 def iou_bound(n, k):
@@ -1359,38 +1381,150 @@ def iou_bound(n, k):
     return bound((n + k) * 16 + n * k * 4, n * k * IOU_OPS, "f32")
 
 
+def iou_case(dev, n, k):
+    import torch
+
+    return [torch.from_numpy(x).to(dev) for x in iou_inputs(n + k, n, k)]
+
+
+def iou_kernel_times(a, b):
+    """``bbox_overlaps_cuda`` at offset 1 on the card, timed: {"ms": CUDA
+    events per call over back-to-back calls, "device_us", "host_us": the
+    host's time per call}."""
+    from aznet_tpu_torch.ops.cuda import iou_kernel
+
+    run = lambda: iou_kernel.bbox_overlaps_cuda(a, b, 1.0)
+    return {"ms": cuda_ms(run, 50, 3), "device_us": device_us(run, "iou_kernel"),
+            "host_us": host_us(run)}
+
+
+def iou_times_line(t, n, k):
+    dev = t["device_us"]
+    return (f"device {dev} us ({n * k * 4 / dev / 1e6 if dev else float('nan'):.3f} TB/s "
+            f"written), events {t['ms']:.4f} ms, host {t['host_us']:.2f} us per call")
+
+
 def phase7_iou(dev):
     """The IoU kernel alone (``csrc/iou.cu``; no main path calls it, as no
     path of the JAX package calls ``bbox_overlaps_pallas``), bit for bit
-    against its plain version at check_iou's, test_pallas's and the NMS
-    candidates' shapes and at 4096 x 4096, each timed. Returns {"err", "ms",
-    "plain_ms", "bound"} with the times at 4096 x 4096."""
+    against its plain version at offsets 1 and 0 at :data:`IOU_SHAPES` and
+    :data:`IOU_TALL`, each timed beside the plain version, its bound and a
+    yardstick of the card's write rate: ``zero_()`` of an ``[N, K]`` float32
+    tensor, which computes no IoU and which the port never calls. Returns
+    {"err", "ms", "device_us", "plain_ms", "bound"}, times at 4096 x 4096."""
     import torch
 
     from aznet_tpu_torch.ops.cuda import iou_kernel
     from aznet_tpu_torch.ops.iou import bbox_overlaps
 
     err, rec = 0.0, {}
-    for n, k in ((300, 200), (50, 40), (128, 128), (200, 300), (2048, 2048), (4096, 4096)):
-        a, b = (torch.from_numpy(x).to(dev) for x in iou_inputs(n + k, n, k))
-        got = iou_kernel.bbox_overlaps_cuda(a, b, 1.0)
-        want = bbox_overlaps(a, b, 1.0)
-        torch.cuda.synchronize()
-        e = (got - want).abs().max().item()
-        err = max(err, e)
-        k_ms = cuda_ms(lambda: iou_kernel.bbox_overlaps_cuda(a, b, 1.0), 50, 3)
+    for n, k in IOU_SHAPES + (IOU_TALL,):
+        a, b = iou_case(dev, n, k)
+        for offset in (1.0, 0.0):
+            got = iou_kernel.bbox_overlaps_cuda(a, b, offset)
+            want = bbox_overlaps(a, b, offset)
+            torch.cuda.synchronize()
+            e = (got - want).abs().max().item()
+            err = max(err, e)
+            check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                  f"IoU kernel disagrees with the plain version at {n}x{k}, offset {offset}")
+        t = iou_kernel_times(a, b)
         p_ms = cuda_ms(lambda: bbox_overlaps(a, b, 1.0), 10, 2)
-        dev_us = device_us(lambda: iou_kernel.bbox_overlaps_cuda(a, b, 1.0), "iou_kernel")
+        out = torch.empty((n, k), dtype=torch.float32, device=dev)
+        fill = device_times(out.zero_, ["elementwise_kernel", "Memset"])
+        zero_us = fill and sum(fill.values())
         b_ms, b_by = iou_bound(n, k)
         print(f"phase7 iou {n}x{k}: max_abs_err {e}, zeros {(want == 0).float().mean().item():.4f}"
-              f", max {want.max().item():.6f}; kernel {k_ms:.4f} ms (device time {dev_us} us, "
-              f"{n * k * 4 / k_ms / 1e6:.1f} GB/s written), plain {p_ms:.4f} ms, bound "
-              f"{b_ms * 1e3:.3f} us ({b_by})", flush=True)
-        check(e == 0.0, f"IoU kernel disagrees with the plain version at {n}x{k}")
-        check(bool((want[0] == 0).all()) and want.max().item() > 0, f"{n}x{k}: degenerate case")
-        rec = {"ms": k_ms, "plain_ms": p_ms, "bound": (b_ms, b_by)}
+              f", max {want.max().item():.6f}; kernel {iou_times_line(t, n, k)}; plain "
+              f"{p_ms:.4f} ms; bound {b_ms * 1e3:.3f} us ({b_by}), device / bound "
+              f"{t['device_us'] / (b_ms * 1e3) if t['device_us'] else float('nan'):.2f}; "
+              f"yardstick out.zero_() device {zero_us} us", flush=True)
+        check(bool((want[0] == 0).all()), f"{n}x{k}: row 0's union is < 0, its IoUs 0")
+        check(want.max().item() > 0 or min(n, k) == 1, f"{n}x{k}: no overlapping pair")
+        if (n, k) == (4096, 4096):
+            rec = {"ms": t["ms"], "device_us": t["device_us"], "plain_ms": p_ms,
+                   "bound": (b_ms, b_by)}
     rec["err"] = err
     return rec
+
+
+def sass_loop(lib, name):
+    """{function: (instructions, bytes stored)} of the innermost loop that
+    stores to global memory, in each kernel of the library ``lib`` whose
+    name holds ``name``, read from ``cuobjdump -sass``; also the SASS of
+    those kernels as text. A loop is the span from a backward branch's
+    target to the branch."""
+    import re
+    from pathlib import Path
+
+    from aznet_tpu_torch import _build
+
+    tool = Path(_build.find_nvcc()).with_name("cuobjdump")
+    res = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True)
+    check(res.returncode == 0, f"cuobjdump failed: {res.stderr.strip()}")
+    funcs, cur, text = {}, None, []
+    for line in res.stdout.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), []) if name in m.group(1) else None
+        if cur is None:
+            continue
+        text.append(line)
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m:
+            cur.append((int(m.group(1), 16), m.group(2)))
+
+    def stored(ins):
+        op = next(t for t in ins.split() if not t.startswith("@"))
+        return (16 if ".128" in op else 8 if ".64" in op else 4) if op.startswith("STG") else 0
+
+    loops = {}
+    for fn, ins in funcs.items():
+        spans = []
+        for at, op in ins:
+            m = re.search(r"\bBRA\S*\s+(?:.*\s)?(0x[0-9a-f]+)", op)
+            if m and int(m.group(1), 16) <= at:
+                body = [o for a, o in ins if int(m.group(1), 16) <= a <= at]
+                if sum(map(stored, body)):
+                    spans.append((len(body), sum(map(stored, body))))
+        loops[fn] = min(spans) if spans else None
+    return loops, "\n".join(text)
+
+
+def iou_times(dev, root):
+    """``--iou-times [ROOT]``: the IoU kernel at phase 7's shapes
+    (:data:`IOU_SHAPES`), device, CUDA-event and host time per call, with
+    the package found under ROOT (default: this checkout); then its loop's
+    SASS instructions per pair (``cuobjdump``), the SASS itself written to
+    ``build/iou_sass_<ROOT>.txt``; then the two largest shapes again in four
+    sessions each."""
+    from pathlib import Path
+
+    from aznet_tpu_torch import _build
+    from aznet_tpu_torch.ops.cuda import iou_kernel
+
+    for n, k in IOU_SHAPES:
+        print(f"iou-times {root} {n}x{k}: {iou_times_line(iou_kernel_times(*iou_case(dev, n, k)), n, k)}",
+              flush=True)
+    loops, text = sass_loop(_build.build(), "iou_kernel")
+    for fn, loop in loops.items():
+        print(f"iou-times {root} sass {fn}: " + (
+            f"loop of {loop[0]} instructions storing {loop[1]} bytes, "
+            f"{loop[0] / (loop[1] / 4):.2f} instructions per pair" if loop else "no storing loop"))
+    out = Path(__file__).resolve().parent / "build"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / f"iou_sass_{root.strip('./').replace('/', '_') or 'checkout'}.txt").write_text(text)
+    # Whether a large shape's time holds within one process: four sessions
+    # each, every session's outputs at a new address (the last one is held).
+    held = []
+    for n, k in ((4096, 4095), (4096, 4096)):
+        a, b = iou_case(dev, n, k)
+        run = lambda: iou_kernel.bbox_overlaps_cuda(a, b, 1.0)
+        for i in range(4):
+            held.append(run())
+            addr = run().data_ptr()  # freed at once: the session's calls reuse it
+            print(f"iou-times {root} repeat {n}x{k} session {i}: output at {addr:#x}, "
+                  f"device {device_us(run, 'iou_kernel')} us", flush=True)
 
 
 def cfg_file(name, **model):
@@ -1606,7 +1740,7 @@ def main(argv) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     timers = {"--conv-times": conv_times, "--conv1-times": conv1_times,
-              "--roi-times": roi_times, "--nms-times": nms_times}
+              "--roi-times": roi_times, "--nms-times": nms_times, "--iou-times": iou_times}
     if argv[:1] and argv[0] in timers:
         root = argv[1] if len(argv) > 1 else "."
         sys.path.insert(0, root)
@@ -1692,8 +1826,8 @@ def main(argv) -> int:
     records.append({
         "name": "bbox_overlaps_iou", "route": "cuda", "source": IOU_SOURCE,
         "replaces": IOU_REPLACES, "launches": iou_path_launches, "max_abs_err": iou["err"],
-        "ms": iou["ms"], "plain_ms": iou["plain_ms"], "bound_ms": iou["bound"][0],
-        "bound_by": iou["bound"][1], "library_ms": None})
+        "ms": iou["ms"], "device_us": iou["device_us"], "plain_ms": iou["plain_ms"],
+        "bound_ms": iou["bound"][0], "bound_by": iou["bound"][1], "library_ms": None})
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -371,13 +371,16 @@ def test_sample_grid_on_card_is_the_cpus(dev):
         np.testing.assert_array_equal(new.cpu().numpy(), i / np.float32(n))
 
 
-# (N, K): check_iou's, test_pallas's, the NMS candidate shape; ragged tiles.
-IOU_CASES = [(300, 200), (50, 40), (128, 128), (200, 300), (2048, 2048), (7, 129), (33, 1)]
+# (N, K): check_iou's, test_pallas's, the NMS candidate shape; ragged tiles;
+# K % 4 != 0 (the element-wise body), one row, one box.
+IOU_CASES = [(300, 200), (50, 40), (128, 128), (200, 300), (2048, 2048), (7, 129), (33, 1),
+             (300, 201), (50, 41), (129, 130), (2047, 2049), (4096, 4095), (1, 1), (1, 4096)]
 
 
-@pytest.mark.parametrize("n,k", IOU_CASES)
-def test_iou_kernel_equals_plain(dev, n, k):
-    boxes, query = (torch.from_numpy(b).to(dev) for b in iou_inputs(n * 7 + k, n, k))
+def _iou_bit_exact(boxes, query, want_positive=True):
+    """The kernel against the plain version at offsets 1.0 and 0.0, bit for
+    bit (as int32 views, so -0 and +0 differ), one launch a call."""
+    n, k = boxes.shape[0], query.shape[0]
     for offset in (1.0, 0.0):
         before = iou_kernel.LAUNCHES
         got = iou_kernel.bbox_overlaps_cuda(boxes, query, offset)
@@ -385,8 +388,58 @@ def test_iou_kernel_equals_plain(dev, n, k):
         want = bbox_overlaps(boxes, query, offset)
         torch.cuda.synchronize()
         assert got.shape == (n, k) and got.dtype == torch.float32
-        assert float((got - want).abs().max()) == 0.0
-        assert float(want.max()) > 0 or k == 1  # one column: the degenerate one
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        assert float(want.max()) > 0 or not want_positive
+
+
+@pytest.mark.parametrize("n,k", IOU_CASES)
+def test_iou_kernel_equals_plain(dev, n, k):
+    boxes, query = (torch.from_numpy(b).to(dev) for b in iou_inputs(n * 7 + k, n, k))
+    # One column or one row: only the degenerate box, so every IoU is 0.
+    _iou_bit_exact(boxes, query, want_positive=k > 1 and n > 1)
+
+
+@pytest.mark.parametrize("n,k", [(16385, 131072), (131071, 16385)])
+def test_iou_kernel_64bit_indices(dev, n, k):
+    """N * K just above ``INDEX32_MAX`` (8.6 GB of output), where the kernel
+    takes its 64-bit indices, in the vector and the element-wise body; held
+    bit for bit against the plain version a block of rows at a time."""
+    assert n * k > iou_kernel.INDEX32_MAX
+    boxes, query = (torch.from_numpy(b).to(dev) for b in iou_inputs(n + k, n, k))
+    rows = 2**27 // k
+    for offset in (1.0, 0.0):
+        before = iou_kernel.LAUNCHES
+        got = iou_kernel.bbox_overlaps_cuda(boxes, query, offset)
+        assert iou_kernel.LAUNCHES == before + 1 and got.shape == (n, k)
+        for i in range(0, n, rows):
+            want = bbox_overlaps(boxes[i:i + rows], query, offset)
+            assert torch.equal(got[i:i + rows].view(torch.int32), want.view(torch.int32)), i
+        del got, want
+        torch.cuda.empty_cache()
+
+
+def test_iou_kernel_views_and_bf16(dev):
+    """A column slice of an [N, 8] tensor (not contiguous), a contiguous view
+    that starts 4 bytes off 16, and bf16 boxes (cast as the plain version
+    casts them)."""
+    boxes, query = (torch.from_numpy(b).to(dev) for b in iou_inputs(5, 300, 201))
+    wide = torch.zeros((300, 8), device=dev)
+    wide[:, 2:6] = boxes
+    assert not wide[:, 2:6].is_contiguous()
+    _iou_bit_exact(wide[:, 2:6], query)
+    flat = torch.zeros(201 * 4 + 1, device=dev)
+    flat[1:] = query.reshape(-1)
+    shifted = flat[1:].view(201, 4)
+    assert shifted.data_ptr() % 16 == 4
+    _iou_bit_exact(boxes, shifted)
+    _iou_bit_exact(boxes.bfloat16(), query.bfloat16())
+
+
+def test_iou_kernel_above_the_old_row_cap(dev):
+    """N = 2,100,000 > 65,535 x 32 (the old grid's cap), K = 3: 25 MB of
+    output, computed."""
+    boxes, query = (torch.from_numpy(b).to(dev) for b in iou_inputs(8, 2_100_000, 3))
+    _iou_bit_exact(boxes, query)
 
 
 def test_iou_kernel_rejects(dev):
