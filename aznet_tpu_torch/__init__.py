@@ -9,9 +9,16 @@ VGG_CNN_M_1024, smallnet), the int8 propose path on VGG-16 and ResNet-50
 (``api.im_propose``, ``api.make_propose_batch``; calibration in
 ``ops.quant``) and the detection path (``api.im_detect``,
 ``api.make_detect_batch(_padded)``, ``api.make_fused_detect_batch_padded``).
-Nets are built on the card unless ``device="cpu"`` is passed. Five
-hand-written CUDA kernels run on CUDA tensors, each with a plain PyTorch
-version for CPU tensors: exact greedy NMS (``csrc/nms.cu``), the int8 3x3
+Over image sets: the imdbs (``data/``: the factory, PASCAL VOC, COCO, the
+synthetic planted-boxes imdb) and evaluation (``eval/``: proposal recall,
+VOC and COCO AP, and the drivers ``propose_all(_batched)``,
+``evaluate_recall``, ``detect_all(_batched)``, ``detect_all_fused``), with
+``ops.quant.calibrate_net_on_imdb``; their host side (per-class NMS, the
+COCO matcher, image blobs) runs in a C++ host library built at first use
+(``csrc/host.cc``, ``utils/native.py``). Nets are built on the card unless
+``device="cpu"`` is passed. Five hand-written CUDA kernels run on CUDA
+tensors, each with a plain PyTorch version for CPU tensors: exact greedy
+NMS (``csrc/nms.cu``), the int8 3x3
 conv with its fused pool (``csrc/conv_int8.cu``), the fused ROI align
 (``csrc/roi_align.cu``), the fused conv1_2 + ReLU + pool1
 (``csrc/conv1_fused.cu``) and the tiled IoU matrix (``csrc/iou.cu``, called

@@ -1,9 +1,10 @@
 """Box transforms with Caffe/fast-rcnn conventions (``+offset`` widths).
 
-Counterpart of ``aznet_tpu/ops/boxes.py``: ``bbox_transform``,
-``bbox_transform_inv`` (with its no-``-offset`` decode quirk and the
-``clip=BBOX_XFORM_CLIP`` bound on dw/dh) and ``clip_boxes``. Plain tensor
-functions, broadcast over leading dims; ``[x1, y1, x2, y2]`` boxes.
+Counterpart of ``aznet_tpu/ops/boxes.py``: ``box_area``,
+``bbox_transform``, ``bbox_transform_inv`` (with its no-``-offset`` decode
+quirk and the ``clip=BBOX_XFORM_CLIP`` bound on dw/dh), ``clip_boxes``,
+``flip_boxes`` and ``scale_boxes``. Plain tensor functions, broadcast over
+leading dims; ``[x1, y1, x2, y2]`` boxes.
 """
 
 from __future__ import annotations
@@ -14,6 +15,11 @@ import torch
 def box_wh(boxes, offset: float = 1.0):
     """Widths and heights of ``[..., 4]`` boxes."""
     return boxes[..., 2] - boxes[..., 0] + offset, boxes[..., 3] - boxes[..., 1] + offset
+
+
+def box_area(boxes, offset: float = 1.0):
+    w, h = box_wh(boxes, offset)
+    return w * h
 
 
 def box_ctr(boxes, offset: float = 1.0):
@@ -68,3 +74,15 @@ def clip_boxes(boxes, im_shape, offset: float = 1.0):
     x1, y1, x2, y2 = b.unbind(-1)
     return torch.stack([_clip(x1, w - offset), _clip(y1, h - offset),
                         _clip(x2, w - offset), _clip(y2, h - offset)], dim=-1).reshape(shape)
+
+
+def flip_boxes(boxes, width, offset: float = 1.0):
+    """Horizontal flip: ``x1' = W - x2 - offset`` (the reference's
+    ``imdb.append_flipped_images`` convention)."""
+    return torch.stack([width - boxes[..., 2] - offset, boxes[..., 1],
+                        width - boxes[..., 0] - offset, boxes[..., 3]], dim=-1)
+
+
+def scale_boxes(boxes, scale):
+    """Project boxes between image and scaled coordinates."""
+    return boxes * scale

@@ -1,8 +1,13 @@
-"""Exact greedy NMS: plain PyTorch version, CUDA dispatch, and top-k.
+"""Exact greedy NMS: the host NMS, the plain PyTorch version, CUDA dispatch,
+and top-k.
 
-Counterpart of ``aznet_tpu/ops/nms.py`` (``nms_mask``, ``nms_topk``). The
-keep set is exact greedy NMS under the Pallas kernel's contract, which the
-CUDA kernel (``ops/cuda/nms_kernel.py``) follows bit for bit:
+Counterpart of ``aznet_tpu/ops/nms.py`` (``nms``, ``nms_mask``,
+``nms_topk``). :func:`nms` is the host greedy NMS over ``[N, 5]`` NumPy
+detections (per-class NMS in evaluation), through the port's host library
+(``utils/native.py``), with :func:`nms_np`, the NumPy loop, as its plain
+version. The device keep set is exact greedy NMS under the Pallas kernel's
+contract, which the CUDA kernel (``ops/cuda/nms_kernel.py``) follows bit for
+bit:
 
 - order: score descending, ties to the lower index, on a uint32 key that
   folds +-0 and all subnormals into the +0 key (``_intkey_u32`` in
@@ -19,11 +24,46 @@ CUDA tensor launches the kernel for every N, or raises. Nothing falls back.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from aznet_tpu_torch.ops.cuda import nms_kernel
 from aznet_tpu_torch.ops.iou import bbox_overlaps
 from aznet_tpu_torch.ops.topk import top_k
+from aznet_tpu_torch.utils import native
+
+
+def nms(dets: np.ndarray, thresh: float, offset: float = 1.0) -> list:
+    """Greedy NMS over ``dets [N, 5] = [x1, y1, x2, y2, score]`` on the host,
+    through the host library: the kept indices, highest score first (ties to
+    the lower index); suppression at ``IoU > thresh``, ``+offset`` areas."""
+    if dets.size == 0:
+        return []
+    return native.nms(np.asarray(dets), thresh, offset)
+
+
+def nms_np(dets: np.ndarray, thresh: float, offset: float = 1.0) -> list:
+    """Plain NumPy version of :func:`nms` (the reference's NumPy loop)."""
+    if dets.size == 0:
+        return []
+    x1, y1, x2, y2 = dets[:, 0], dets[:, 1], dets[:, 2], dets[:, 3]
+    areas = (x2 - x1 + offset) * (y2 - y1 + offset)
+    order = np.argsort(-dets[:, 4], kind="stable")
+    keep = []
+    while order.size > 0:
+        i = order[0]
+        keep.append(int(i))
+        xx1 = np.maximum(x1[i], x1[order[1:]])
+        yy1 = np.maximum(y1[i], y1[order[1:]])
+        xx2 = np.minimum(x2[i], x2[order[1:]])
+        yy2 = np.minimum(y2[i], y2[order[1:]])
+        w = np.maximum(0.0, xx2 - xx1 + offset)
+        h = np.maximum(0.0, yy2 - yy1 + offset)
+        inter = w * h
+        ovr = inter / (areas[i] + areas[order[1:]] - inter)
+        order = order[1:][ovr <= thresh]
+    return keep
+
 
 # Folded key of a -inf score: the invalid-row sentinel (largest valid key).
 KEY_NEG_INF = 0xFF800000

@@ -6,10 +6,15 @@ resize is two separable triangle-weight matmuls (rows, then columns) in the
 reference's association order, with a dynamic ``scale`` and, for images
 zero-padded to a static raw shape, dynamic true extents ``src_hw``. When the
 blob is bf16 the matmuls run in bf16 with f32 accumulation, as the reference's.
+
+The host functions (NumPy; the reference's ``lib/utils/blob.py``) build
+calibration blobs: :func:`prep_im_for_blob`, :func:`im_list_to_blob`,
+:func:`canvas_shape`.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from aznet_tpu_torch.utils.precision import float32_precision
@@ -80,3 +85,48 @@ def preprocess_image(im, pixel_means, target_size: int, max_size: int,
     out, vh, vw = resize_bilinear_scale(centered, scale, out_h, out_w,
                                         compute_dtype=compute_dtype, src_hw=src_hw)
     return out.to(dtype).contiguous(), scale, (vh, vw)
+
+
+def canvas_shape(target_size: int, max_size: int, multiple: int = 32):
+    """Static canvas large enough for any image at the reference scale rule."""
+    side = int(-(-max(target_size, max_size) // multiple) * multiple)
+    return side, side
+
+
+def prep_im_for_blob(im: np.ndarray, pixel_means, target_size: int, max_size: int):
+    """The reference's host ``prep_im_for_blob``: float32, subtract the means,
+    bilinear resize (half-pixel centres) to the scale rule's size. Returns
+    ``(im, im_scale)``. cv2's resize when cv2 imports, else
+    :func:`_resize_bilinear_np`, as the reference."""
+    im = im.astype(np.float32, copy=False) - np.asarray(pixel_means, np.float32)
+    scale = compute_scale(im.shape[0], im.shape[1], target_size, max_size)
+    out_h = int(round(im.shape[0] * scale))
+    out_w = int(round(im.shape[1] * scale))
+    try:
+        import cv2
+    except ImportError:
+        return _resize_bilinear_np(im, out_h, out_w), scale
+    return cv2.resize(im, (out_w, out_h), interpolation=cv2.INTER_LINEAR), scale
+
+
+def _resize_bilinear_np(im: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+    h, w = im.shape[:2]
+    ys = np.clip((np.arange(out_h) + 0.5) * h / out_h - 0.5, 0, h - 1)
+    xs = np.clip((np.arange(out_w) + 0.5) * w / out_w - 0.5, 0, w - 1)
+    y0 = np.floor(ys).astype(np.int64)
+    x0 = np.floor(xs).astype(np.int64)
+    y1 = np.minimum(y0 + 1, h - 1)
+    x1 = np.minimum(x0 + 1, w - 1)
+    fy = (ys - y0)[:, None, None]
+    fx = (xs - x0)[None, :, None]
+    rows = im[y0] * (1 - fy) + im[y1] * fy
+    return rows[:, x0] * (1 - fx) + rows[:, x1] * fx
+
+
+def im_list_to_blob(ims: list) -> np.ndarray:
+    """Zero-pad HWC float32 images to the batch's largest -> ``[N, H, W, C]``."""
+    max_shape = np.array([im.shape for im in ims]).max(axis=0)
+    blob = np.zeros((len(ims), max_shape[0], max_shape[1], ims[0].shape[2]), np.float32)
+    for i, im in enumerate(ims):
+        blob[i, : im.shape[0], : im.shape[1]] = im
+    return blob

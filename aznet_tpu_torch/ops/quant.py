@@ -1,7 +1,7 @@
 """Post-training int8 calibration of the VGG-16 and ResNet-50 trunks and
 the fc stack (``aznet_tpu/ops/quant.py``: ``calibrate_trunk_int8``,
 ``calibrate_trunk_int8_resnet``, ``calibrate_head_int8``,
-``with_int8_scales``).
+``calibrate_net_on_imdb``, ``with_int8_scales``).
 
 The float (bf16/f32) net runs on calibration images; forward hooks read each
 trunk conv's pre-ReLU output and fc6's, and each scale is the post-ReLU
@@ -22,8 +22,11 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from aznet_tpu_torch import api
 from aznet_tpu_torch.config import Config
+from aznet_tpu_torch.models.aznet import AZNet
 from aznet_tpu_torch.models.vgg import VGG16_LAYOUT
+from aznet_tpu_torch.ops.preprocess import im_list_to_blob, prep_im_for_blob
 from aznet_tpu_torch.search.templates import division_tree_regions
 
 CONV_NAMES = tuple(n for n, ch in VGG16_LAYOUT if ch is not None)
@@ -119,6 +122,29 @@ def calibrate_head_int8(net, images, trunk_scales, batch_size: int = 2):
         for hd in handles:
             hd.remove()
     return (float(trunk_scales[-1]), max(max(seen["fc6"]), 1e-6) / 127.0)
+
+
+def calibrate_net_on_imdb(net, imdb, n_images: int = 8, percentile: float = 100.0,
+                          int8_heads: bool = True):
+    """Calibrate a bf16/f32 vgg16 ``net`` on the first ``n_images`` images of
+    ``imdb`` (TEST-scale blobs from ``ops.preprocess.prep_im_for_blob``,
+    zero-padded to one batch) and return the int8 net, rebuilt with the
+    scale-carrying config from the SAME float32 ``net.params`` on
+    ``net.device``. ``int8_heads`` also quantizes the fc6/fc7 stack."""
+    cfg = net.cfg
+    if cfg.MODEL.BACKBONE != "vgg16":
+        raise ValueError("int8 calibration supports the vgg16 trunk only")
+    ims = []
+    for i in range(min(n_images, imdb.num_images)):
+        im = imdb.image_array(imdb.roidb[i])
+        blob, _ = prep_im_for_blob(im, cfg.PIXEL_MEANS, cfg.TEST.SCALES[0], cfg.TEST.MAX_SIZE)
+        ims.append(blob)
+    images = im_list_to_blob(ims)
+    scales = calibrate_trunk_int8(net, images, percentile=percentile, batch_size=2)
+    head_scales = calibrate_head_int8(net, images, scales) if int8_heads else ()
+    builder = api.build_az_net if isinstance(net.model, AZNet) else api.build_frcnn_net
+    return builder(with_int8_scales(cfg, scales, head_scales), state_dict=net.params,
+                   device=net.device)
 
 
 def with_int8_scales(cfg: Config, scales: Sequence[float],

@@ -100,9 +100,25 @@
    on a 608x800 canvas, as phase 8; each on the card against the CPU at a
    small image.
 
+11. Phase 10: dataset-level evaluation (``aznet_tpu_torch.eval``) on the
+   first 16 images of ``synthetic_hard_test`` (375x500 on the drivers'
+   640x832 canvas, batch 8), VGG-16 bf16 at full width with 4 classes,
+   ``'align_pallas'`` and ``FUSE_CONV1``, seeded weights, the nets joined by
+   ``share_trunk``: the host library's build, then ``evaluate_recall``
+   batched, refined, and per image on 4, ``detect_all_batched`` fused
+   (``fused=None``) and two-program, ``detect_all`` on 4,
+   ``evaluate_detections``, ``calibrate_net_on_imdb`` on 8 and the int8
+   net's batched recall, with every launch count set to 0 just before and
+   read just after; each driver's wall time, ms per image and img/s, the
+   host NMS's time per call. Checks the proposals, the detections, the
+   recalls and APs, fused against two-program detection, every kernel's
+   launches, the kernels on the first batches' inputs against their plain
+   versions, and the drivers on the card against the CPU (VGG-16 at WIDTH
+   0.125, float32, 4 images).
+
 Prints the card's name and power limit, one JSON line of kernel records
-(each with its bound and library yardstick), and, as the last line,
-``{"ok": true, "device": {...}}``. Exits non-zero at the first failure and
+(each with its bound, library yardstick and launches on the eval path), and,
+as the last line, ``{"ok": true, "device": {...}}``. Exits non-zero at the first failure and
 when no CUDA device is present. Imports no JAX and nothing of ``aznet_tpu``.
 
     python3 chip_smoke.py --conv-times [ROOT]
@@ -366,6 +382,38 @@ def build_net(tag, cfg, dev, state_dict=None):
     return net
 
 
+@contextlib.contextmanager
+def recording_nms(recorded):
+    """Copies the arguments of every NMS kernel launch while active (the
+    count is kept by the wrapper itself)."""
+    from aznet_tpu_torch.ops.cuda import nms_kernel
+
+    launch = nms_kernel.nms_cuda_batched
+
+    def record(boxes, scores, thresh, valid, offset=1.0):
+        recorded.append(("nms", (boxes.clone(), scores.clone(), thresh, valid.clone(), offset),
+                         None))
+        return launch(boxes, scores, thresh, valid, offset)
+
+    nms_kernel.nms_cuda_batched = record
+    try:
+        yield
+    finally:
+        nms_kernel.nms_cuda_batched = launch
+
+
+def nms_path_err(recorded):
+    """Max |kernel - plain| over the recorded NMS launches."""
+    from aznet_tpu_torch.ops import nms as tnms
+
+    err = 0.0
+    for kind, args, _ in recorded:
+        if kind == "nms":
+            got, want = tnms.nms_mask_batched(*args), tnms.nms_mask_reference(*args)
+            err = max(err, (got.float() - want.float()).abs().max().item())
+    return err
+
+
 def phase2_propose(dev, net, tag="phase2", recorders=(), counters=(), raw_hw=RAW_HW,
                    canvas=CANVAS):
     """The propose path of ``net`` on two raw ``raw_hw`` images on a
@@ -377,7 +425,6 @@ def phase2_propose(dev, net, tag="phase2", recorders=(), counters=(), raw_hw=RAW
     import torch
 
     from aznet_tpu_torch import api
-    from aznet_tpu_torch.ops import nms as tnms
     from aznet_tpu_torch.ops.cuda import nms_kernel
 
     cfg = net.cfg
@@ -389,27 +436,17 @@ def phase2_propose(dev, net, tag="phase2", recorders=(), counters=(), raw_hw=RAW
     # Record the NMS inputs of the measured run (the kernel's count is kept
     # by the wrapper itself; the recorder only copies its arguments).
     recorded = []
-    launch = nms_kernel.nms_cuda_batched
-
-    def recording(boxes, scores, thresh, valid, offset=1.0):
-        recorded.append((boxes.clone(), scores.clone(), thresh, valid.clone(), offset))
-        return launch(boxes, scores, thresh, valid, offset)
-
-    nms_kernel.nms_cuda_batched = recording
-    try:
-        with contextlib.ExitStack() as stack:
-            for rec in recorders:
-                stack.enter_context(rec)
-            for _, reset, _ in counters:
-                reset()
-            nms_kernel.LAUNCHES = 0
-            boxes, scores, valid = fn(images)
-            dets = api.im_propose(net, ims_np[0])
-            torch.cuda.synchronize()
-            launches = nms_kernel.LAUNCHES
-            counts = {name: read() for name, _, read in counters}
-    finally:
-        nms_kernel.nms_cuda_batched = launch
+    with contextlib.ExitStack() as stack:
+        for rec in [recording_nms(recorded), *recorders]:
+            stack.enter_context(rec)
+        for _, reset, _ in counters:
+            reset()
+        nms_kernel.LAUNCHES = 0
+        boxes, scores, valid = fn(images)
+        dets = api.im_propose(net, ims_np[0])
+        torch.cuda.synchronize()
+        launches = nms_kernel.LAUNCHES
+        counts = {name: read() for name, _, read in counters}
     print(f"{tag} main path: nms launches {launches}"
           + "".join(f", {k} launches {v}" for k, v in counts.items()), flush=True)
     check(launches >= BATCH + 1, f"NMS kernel launched {launches} times, expected >= {BATCH + 1}")
@@ -431,12 +468,8 @@ def phase2_propose(dev, net, tag="phase2", recorders=(), counters=(), raw_hw=RAW
           and np.isfinite(dets).all(), f"im_propose gave {dets.shape}")
     print(f"{tag} im_propose: {dets.shape[0]} proposals", flush=True)
 
-    nms_err = 0.0
-    for rb, rs, th, rv, off in recorded:
-        got = tnms.nms_mask_batched(rb, rs, th, rv, off)
-        want = tnms.nms_mask_reference(rb, rs, th, rv, off)
-        nms_err = max(nms_err, (got.float() - want.float()).abs().max().item())
-    print(f"{tag} NMS on the path's {len(recorded)} inputs ({tuple(recorded[0][1].shape)}): "
+    nms_err = nms_path_err(recorded)
+    print(f"{tag} NMS on the path's {len(recorded)} inputs ({tuple(recorded[0][1][1].shape)}): "
           f"kernel vs plain max_abs_err {nms_err}", flush=True)
     check(nms_err == 0.0, "NMS kernel disagrees with the plain version on the path's inputs")
 
@@ -1733,6 +1766,373 @@ def phase9_small(dev):
     return out
 
 
+EVAL_IMDB = "synthetic_hard_test"  # VOC-sized (375x500) planted boxes, 4 classes
+EVAL_IMAGES, EVAL_BATCH, EVAL_SEQ, EVAL_CALIB = 16, 8, 4, 8
+EVAL_CANVAS = (640, 832)  # 375x500 at scale 1.6 is 600x800, rounded up to 64 (api._canvas_for)
+# tests/test_torch_eval.py's bounds. Float32: scores, boxes (px). Fused
+# against two-program detect in bf16: scores, boxes (px), the share of rows
+# of either side with no counterpart (bf16 rounds the two programs' rois
+# apart, which can move a detection across the per-image cap or an NMS
+# decision).
+S_TOL, B_TOL = 1e-5, 2e-3
+FUSED_S_TOL, FUSED_B_TOL, FUSED_MISS = 1e-2, 1.0, 0.05
+
+
+def eval_config():
+    """:func:`detect_config` with the synthetic imdb's 4 classes."""
+    import dataclasses
+
+    cfg = detect_config()
+    return dataclasses.replace(cfg, MODEL=dataclasses.replace(cfg.MODEL, NUM_CLASSES=4))
+
+
+@contextlib.contextmanager
+def first_batch(builder, recorders):
+    """While active, the function that ``api.<builder>`` builds runs its first
+    call (one batch of a driver) inside the context managers ``recorders``."""
+    from aznet_tpu_torch import api
+
+    real, done = getattr(api, builder), []
+
+    def build(*args, **kwargs):
+        fn = real(*args, **kwargs)
+
+        def call(*a):
+            if done:
+                return fn(*a)
+            done.append(True)
+            with contextlib.ExitStack() as stack:
+                for rec in recorders:
+                    stack.enter_context(rec)
+                return fn(*a)
+        return call
+
+    setattr(api, builder, build)
+    try:
+        yield
+    finally:
+        setattr(api, builder, real)
+    check(done, f"{builder}: no batch ran")
+
+
+@contextlib.contextmanager
+def wrapped(module, name, before=None, after=None):
+    """Wraps ``module.<name>``: ``before(*args)`` then the call, then
+    ``after(result, seconds)``."""
+    real = getattr(module, name)
+
+    def call(*args, **kwargs):
+        if before:
+            before(*args)
+        t0 = time.perf_counter()
+        out = real(*args, **kwargs)
+        if after:
+            after(out, time.perf_counter() - t0)
+        return out
+
+    setattr(module, name, call)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def path_kernel_errs(recorded, recorded_conv=()):
+    """Each recorded launch against its plain version on the same inputs:
+    {kernel: max_abs_err} (conv1 within one bf16 ulp, the others bit for bit,
+    checked by the caller), and the share of conv1 elements that differ."""
+    from aznet_tpu_torch.ops import conv1_fused as tconv1
+    from aznet_tpu_torch.ops import conv_int8 as tconv
+
+    errs, frac = {"roi": roi_path_errs(recorded)[0], "nms": nms_path_err(recorded)}, 0.0
+    for kind, args, out in recorded:
+        if kind == "conv1":
+            y, w_k, bias = args
+            want = tconv1.conv1_2_pool_reference(
+                y, tconv1.unpack_kernel_layout(w_k, y.shape[3], bias.shape[0]), bias)
+            ok, f = tconv1.within_one_bf16_ulp(out, want)
+            check(ok, "conv1 kernel is more than one bf16 ulp from the plain version on the "
+                      "eval path's inputs")
+            frac = max(frac, f)
+            errs["conv1"] = max(errs.get("conv1", 0.0), (out.float() - want.float()).abs().max().item())
+    for entry, x, s_x, w_k, s_w, bias, s_out, out in recorded_conv:
+        want = tconv.conv3x3_int8_reference(x, s_x, tconv.Int8Conv(w_k, s_w, bias), s_out,
+                                            pool=entry == "chain")
+        errs[entry] = max(errs.get(entry, 0.0), (out.float() - want.float()).abs().max().item())
+    return errs, frac
+
+
+def check_proposals(tag, props, imdb, n_max):
+    for i, p in enumerate(props):
+        e = imdb.roidb[i]
+        check(p.ndim == 2 and p.shape[1] == 5 and 1 <= p.shape[0] <= n_max
+              and np.isfinite(p).all(), f"{tag} image {i}: proposals {p.shape}")
+        check(bool((p[:, :4] >= 0).all() and (p[:, 0:4:2] <= e["width"]).all()
+                   and (p[:, 1:4:2] <= e["height"]).all()),
+              f"{tag} image {i}: proposals outside the {e['height']}x{e['width']} image")
+
+
+def check_all_boxes(tag, all_boxes, n_cls, n_img):
+    check(len(all_boxes) == n_cls and all(len(a) == n_img for a in all_boxes),
+          f"{tag}: all_boxes is not {n_cls} x {n_img}")
+    for c in range(n_cls):
+        for d in all_boxes[c]:
+            check(d.ndim == 2 and d.shape[1] == 5 and np.isfinite(d).all(),
+                  f"{tag}: class {c} holds {d.shape}")
+    total = sum(len(d) for a in all_boxes[1:] for d in a)
+    check(total > 0, f"{tag}: no detections")
+    return total
+
+
+def matched(a, b, s_tol, b_tol):
+    """Rows of ``a [N, 5]`` with a row of ``b`` within ``b_tol`` px and
+    ``s_tol`` in score."""
+    if not len(a):
+        return np.zeros(0, bool)
+    if not len(b):
+        return np.zeros(len(a), bool)
+    return ((np.abs(a[:, None, :4] - b[None, :, :4]).max(-1) <= b_tol)
+            & (np.abs(a[:, None, 4] - b[None, :, 4]) <= s_tol)).any(1)
+
+
+def dets_agreement(a, b, s_tol, b_tol):
+    """(images whose per-class counts differ, share of rows of either side
+    with no counterpart in the other, same class, within the tolerances)."""
+    differ, miss, total = 0, 0, 0
+    for c in range(1, len(a)):
+        for x, y in zip(a[c], b[c]):
+            differ += len(x) != len(y)
+            miss += int((~matched(x, y, s_tol, b_tol)).sum() + (~matched(y, x, s_tol, b_tol)).sum())
+            total += len(x) + len(y)
+    return differ, miss / max(total, 1)
+
+
+def check_recall(tag, table):
+    vals = [v for row in table.values() for v in row.values()]
+    check(all(0.0 <= v <= 1.0 for v in vals), f"{tag}: recall outside [0, 1]: {table}")
+    return " ".join(f"@{k}: " + ", ".join(f"{t}={v:.4f}" for t, v in row.items())
+                    for k, row in table.items())
+
+
+def phase10_eval(dev, card):
+    """The dataset drivers on the first 16 images of ``synthetic_hard_test``
+    (375x500 on a 640x832 canvas, batch 8) with VGG-16 bf16 at full width,
+    ``'align_pallas'`` + ``FUSE_CONV1``, the AZ and Fast R-CNN nets joined by
+    ``share_trunk``: evaluate_recall (batched, then refined), evaluate_recall
+    per image on 4, detect_all_batched fused and two-program, detect_all on
+    4, evaluate_detections, calibrate_net_on_imdb on 8, then evaluate_recall
+    with the int8 net. Every launch count is set to 0 just before and read
+    just after; the first batch's kernel inputs are recorded and held against
+    the plain versions. Returns the launches and errors."""
+    import torch
+
+    from aznet_tpu_torch import api
+    from aznet_tpu_torch.data import SyntheticImdb, get_imdb
+    from aznet_tpu_torch.eval import detection as tdet
+    from aznet_tpu_torch.ops.cuda import conv1_kernel, iou_kernel, nms_kernel, roi_align_kernel
+    from aznet_tpu_torch.ops.cuda import conv_int8_kernel as ck
+    from aznet_tpu_torch.ops.quant import calibrate_net_on_imdb
+    from aznet_tpu_torch.utils import native
+
+    t0 = time.perf_counter()
+    lib = native.build()
+    print(f"phase10 host library {lib.relative_to(native.BUILD_ROOT.parent.parent)} built in "
+          f"{time.perf_counter() - t0:.2f} s ({native.CXX} {' '.join(native.CXX_FLAGS)})",
+          flush=True)
+    cfg = eval_config()
+    az = api.build_az_net(cfg, device=dev)
+    fr = api.share_trunk(api.build_frcnn_net(cfg, device=dev, seed=cfg.RNG_SEED + 1), az)
+    # The first 16 images of the registered imdb (each image is made from its
+    # own seed), as an imdb of their own, so that evaluate_detections covers
+    # exactly the images detected.
+    t0 = time.perf_counter()
+    full = get_imdb(EVAL_IMDB)
+    imdb = SyntheticImdb(split="test", seed=full.seed, num_images=EVAL_IMAGES,
+                         image_hw=full.image_hw, hard=full.hard)
+    roidb = imdb.roidb
+    n_gt = sum(int((~e["difficult"]).sum()) for e in roidb)
+    print(f"phase10 the first {EVAL_IMAGES} images of {EVAL_IMDB} made in "
+          f"{time.perf_counter() - t0:.2f} s: {n_gt} gt boxes (not difficult)", flush=True)
+    check(all((e["height"], e["width"]) == RAW_HW for e in roidb)
+          and api._canvas_for(*RAW_HW, cfg) == EVAL_CANVAS, "the eval images' canvas")
+    n_cls, n_props = cfg.MODEL.NUM_CLASSES, cfg.SEAR.NUM_PROPOSALS
+    # Warm-up outside the measured path (cuDNN's first calls at these shapes).
+    tdet.propose_all_batched(az, imdb, batch_size=EVAL_BATCH, max_images=EVAL_BATCH)
+    torch.cuda.synchronize()
+
+    def counts():
+        return {"nms": nms_kernel.LAUNCHES, "roi_align": roi_align_kernel.LAUNCHES,
+                "conv1": conv1_kernel.LAUNCHES, "chain": ck.LAUNCHES["chain"],
+                "strip": ck.LAUNCHES["strip"], "iou": iou_kernel.LAUNCHES}
+
+    host_nms = {"calls": 0, "s": 0.0}
+    props, fused_calls, times = {}, [], {}
+    recorded, recorded8, recorded_conv = [], [], []
+
+    def run(name, n, fn):
+        before = counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        times[name] = (s, n)
+        delta = {k: v - before[k] for k, v in counts().items()}
+        print(f"phase10 {name}: {s * 1e3:.1f} ms for {n} images, {s * 1e3 / n:.2f} ms/image, "
+              f"{n / s:.2f} img/s ({card}); launches {delta}", flush=True)
+        return out
+
+    def keep(name):
+        return lambda out, _s: props.setdefault(name, out)
+
+    def count_nms(out, s):
+        host_nms["calls"] += 1
+        host_nms["s"] += s
+
+    nms_kernel.LAUNCHES = roi_align_kernel.LAUNCHES = conv1_kernel.LAUNCHES = 0
+    iou_kernel.LAUNCHES = ck.LAUNCHES["chain"] = ck.LAUNCHES["strip"] = 0
+    with wrapped(tdet, "nms", after=count_nms):
+        with first_batch("make_propose_batch_padded",
+                         [recording_nms(recorded), recording_detect_kernels(recorded)]), \
+                wrapped(tdet, "propose_all_batched", after=keep("bf16")):
+            rec_bf16 = run("evaluate_recall batched", EVAL_IMAGES, lambda: tdet.evaluate_recall(
+                az, imdb, max_images=EVAL_IMAGES, batched=True, batch_size=EVAL_BATCH))
+        rec_ref = run("evaluate_recall batched + refine", EVAL_IMAGES,
+                      lambda: tdet.evaluate_recall(az, imdb, max_images=EVAL_IMAGES, batched=True,
+                                                   batch_size=EVAL_BATCH, refine_net=fr))
+        with wrapped(tdet, "propose_all", after=keep("seq")):
+            rec_seq = run("evaluate_recall per image", EVAL_SEQ, lambda: tdet.evaluate_recall(
+                az, imdb, max_images=EVAL_SEQ, batched=False))
+        with first_batch("make_fused_detect_batch_padded", [recording_detect_kernels(recorded)]), \
+                wrapped(tdet, "detect_all_fused", before=lambda *a: fused_calls.append(1)):
+            nms0 = dict(host_nms)
+            dets = run("detect_all_batched fused=None", EVAL_IMAGES, lambda: tdet.detect_all_batched(
+                az, fr, imdb, batch_size=EVAL_BATCH, max_images=EVAL_IMAGES))
+            nms_fused = (host_nms["calls"] - nms0["calls"], host_nms["s"] - nms0["s"])
+        check(fused_calls == [1], "detect_all_batched(fused=None) did not take the fused program")
+        dets_two = run("detect_all_batched fused=False", EVAL_IMAGES,
+                       lambda: tdet.detect_all_batched(az, fr, imdb, batch_size=EVAL_BATCH,
+                                                       max_images=EVAL_IMAGES, fused=False))
+        dets_seq = run("detect_all", EVAL_SEQ,
+                       lambda: tdet.detect_all(az, fr, imdb, max_images=EVAL_SEQ))
+    t0 = time.perf_counter()
+    aps = imdb.evaluate_detections(dets, "")
+    print(f"phase10 evaluate_detections: {(time.perf_counter() - t0) * 1e3:.1f} ms; "
+          + ", ".join(f"{k} {v:.4f}" for k, v in aps.items()), flush=True)
+    bf16_counts = counts()
+    check(bf16_counts["chain"] == bf16_counts["strip"] == 0, f"int8 conv ran in bf16: {bf16_counts}")
+    net8 = run("calibrate_net_on_imdb", EVAL_CALIB,
+               lambda: calibrate_net_on_imdb(az, imdb, n_images=EVAL_CALIB))
+    print(f"phase10 int8 scales: trunk {[round(s, 6) for s in net8.cfg.MODEL.INT8_SCALES]}, "
+          f"head {[round(s, 6) for s in net8.cfg.MODEL.INT8_HEAD_SCALES]}", flush=True)
+    with first_batch("make_propose_batch_padded",
+                     [recording_conv(recorded_conv), recording_nms(recorded8),
+                      recording_detect_kernels(recorded8)]), \
+            wrapped(tdet, "propose_all_batched", after=keep("int8")):
+        rec_int8 = run("evaluate_recall batched int8", EVAL_IMAGES, lambda: tdet.evaluate_recall(
+            net8, imdb, max_images=EVAL_IMAGES, batched=True, batch_size=EVAL_BATCH))
+    launches = counts()
+    print(f"phase10 main path: launches {launches}", flush=True)
+    check(all(v > 0 for k, v in launches.items() if k != "iou"),
+          f"a kernel never ran on the eval path: {launches}")
+    # Recall takes its IoU from the host (eval/recall.py): no driver calls the IoU kernel.
+    check(launches["iou"] == 0, f"the IoU kernel ran on the eval path: {launches}")
+    print(f"phase10 host NMS (per class, host library): {host_nms['calls']} calls, "
+          f"{host_nms['s'] * 1e3 / host_nms['calls']:.4f} ms per call; fused detect "
+          f"{nms_fused[1] * 1e3 / EVAL_IMAGES:.3f} ms per image ({nms_fused[0]} calls)", flush=True)
+
+    for tag, table in (("bf16", rec_bf16), ("refined", rec_ref), ("per image", rec_seq),
+                       ("int8", rec_int8)):
+        print(f"phase10 recall {tag}: {check_recall(tag, table)}", flush=True)
+    for tag, p, n in (("bf16", props["bf16"], EVAL_IMAGES), ("per image", props["seq"], EVAL_SEQ),
+                      ("int8", props["int8"], EVAL_IMAGES)):
+        check(len(p) == n, f"{tag}: {len(p)} proposal lists")
+        check_proposals(f"phase10 {tag}", p, imdb, n_props)
+    for tag, a, n in (("fused", dets, EVAL_IMAGES), ("two-program", dets_two, EVAL_IMAGES),
+                      ("detect_all", dets_seq, EVAL_SEQ)):
+        print(f"phase10 {tag}: {check_all_boxes(tag, a, n_cls, n)} detections", flush=True)
+    check(all(0.0 <= v <= 1.0 for v in aps.values()), f"AP outside [0, 1]: {aps}")
+    differ, miss = dets_agreement(dets, dets_two, FUSED_S_TOL, FUSED_B_TOL)
+    print(f"phase10 fused vs two-program: {differ} (class, image) counts differ, {miss:.4f} of "
+          f"rows unmatched within {FUSED_S_TOL} / {FUSED_B_TOL} px", flush=True)
+    check(miss <= FUSED_MISS, "fused and two-program detect_all_batched disagree")
+
+    errs, frac = path_kernel_errs(recorded)
+    errs8, _ = path_kernel_errs(recorded8, recorded_conv)
+    n_rec = {k: sum(r[0] == k for r in recorded + recorded8) for k in ("nms", "roi", "conv1")}
+    n_rec.update({e: sum(r[0] == e for r in recorded_conv) for e in ("chain", "strip")})
+    errs = {k: max(errs.get(k, 0.0), errs8.get(k, 0.0)) for k in ("nms", "roi", "conv1")} | {
+        e: errs8.get(e, 0.0) for e in ("chain", "strip")}
+    print(f"phase10 kernels on the first batches' inputs ({n_rec} launches): max_abs_err {errs}; "
+          f"conv1 within one bf16 ulp, at most {frac:.4%} of elements differ", flush=True)
+    check(all(n_rec.values()), f"a kernel was not recorded on the first batches: {n_rec}")
+    check(all(errs[k] == 0.0 for k in ("nms", "roi", "chain", "strip")),
+          "a kernel disagrees with its plain version on the eval path's inputs")
+    del az, fr, net8, recorded, recorded8, recorded_conv
+    torch.cuda.empty_cache()
+    return {"launches": launches, "err": errs, "times": times}
+
+
+def phase10_reference(dev):
+    """The drivers on the card against the port on the CPU: VGG-16 at WIDTH
+    0.125, float32, ``'align_pallas'``, 4 classes, a small search, the nets
+    joined by ``share_trunk``, on 4 images of the eval imdb at batch 2, with
+    the CPU test's tolerances (tests/test_torch_eval.py): proposals per image
+    the same count, sorted scores to 1e-5, each box within 2e-3 px of a box
+    of the other side; detections the same count per class and image, each
+    row within those bounds of a row of the other side; recall within one
+    gt match."""
+    from aznet_tpu_torch import api
+    from aznet_tpu_torch.config import cfg_from_dict
+    from aznet_tpu_torch.data import get_imdb
+    from aznet_tpu_torch.eval import detection as tdet
+    from aznet_tpu_torch.ops.cuda import nms_kernel, roi_align_kernel
+
+    cfg = cfg_from_dict(eval_config(), {
+        "MODEL": {"WIDTH": 0.125, "FC_DIM": 64, "COMPUTE_DTYPE": "float32", "FUSE_CONV1": False},
+        "SEAR": {"FRONTIER_CAP": 16, "CAND_BUF": 128, "MAX_LEVELS": 2, "NUM_PROPOSALS": 10},
+        "TEST": {"SCALES": (64,), "MAX_SIZE": 128}})
+    imdb = get_imdb(EVAL_IMDB)
+    nets = {}
+    for d in ("cpu", dev):
+        seed = {} if d == "cpu" else {"state_dict": nets["cpu"][0].params}
+        az = api.build_az_net(cfg, device=d, **seed)
+        fr_seed = ({"seed": cfg.RNG_SEED + 1} if d == "cpu"
+                   else {"state_dict": nets["cpu"][1].params})
+        nets[d] = (az, api.share_trunk(api.build_frcnn_net(cfg, device=d, **fr_seed), az))
+    out = {}
+    before = (nms_kernel.LAUNCHES, roi_align_kernel.LAUNCHES)
+    for d, (az, fr) in nets.items():
+        out[d] = {
+            "props": tdet.propose_all_batched(az, imdb, batch_size=2, max_images=EVAL_SEQ),
+            "fused": tdet.detect_all_batched(az, fr, imdb, batch_size=2, max_images=EVAL_SEQ),
+            "two": tdet.detect_all_batched(az, fr, imdb, batch_size=2, max_images=EVAL_SEQ,
+                                           fused=False),
+            "seq": tdet.detect_all(az, fr, imdb, max_images=EVAL_SEQ),
+            "recall": tdet.evaluate_recall(az, imdb, top_ks=(5, 10), max_images=EVAL_SEQ,
+                                           batched=True, batch_size=2)}
+    launched = (nms_kernel.LAUNCHES - before[0], roi_align_kernel.LAUNCHES - before[1])
+    got, want = out[dev], out["cpu"]
+    check(all(launched), f"the small config did not run the kernels: {launched}")
+    d_s, near = 0.0, 1.0
+    for g, w in zip(got["props"], want["props"]):
+        check(g.shape == w.shape and len(g) > 0, f"proposals {g.shape} vs {w.shape}")
+        d_s = max(d_s, float(np.abs(np.sort(g[:, 4]) - np.sort(w[:, 4])).max()))
+        near = min(near, float(matched(g, w, np.inf, B_TOL).mean()),
+                   float(matched(w, g, np.inf, B_TOL).mean()))
+    line = (f"phase10 reference (VGG-16 WIDTH 0.125 f32, card vs CPU, launches (nms, roi_align) "
+            f"{launched}): proposals max |d score| {d_s:.3g}, {near:.3f} of boxes matched")
+    check(d_s <= S_TOL and near == 1.0, "card and CPU proposals disagree")
+    for key in ("fused", "two", "seq"):
+        differ, miss = dets_agreement(got[key], want[key], S_TOL, B_TOL)
+        line += f"; {key}: {differ} counts differ, {miss:.4f} unmatched"
+        check(differ == 0 and miss == 0.0, f"card and CPU detections ({key}) disagree")
+    n_gt = sum(int((~e["difficult"]).sum()) for e in imdb.roidb[:EVAL_SEQ])
+    d_r = max(abs(got["recall"][k][t] - want["recall"][k][t])
+              for k in want["recall"] for t in want["recall"][k])
+    print(line + f"; recall max diff {d_r:.4f} (bound 1/{n_gt})", flush=True)
+    check(d_r <= 1.0 / n_gt, "card and CPU recall differ by more than one gt match")
+
+
 def main(argv) -> int:
     import torch
 
@@ -1755,7 +2155,8 @@ def main(argv) -> int:
     torch.cuda.set_device(dev)
     smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
-    print(smi.stdout.strip() or f"nvidia-smi failed: {smi.stderr.strip()}", flush=True)
+    card = smi.stdout.strip() or f"nvidia-smi failed: {smi.stderr.strip()}"
+    print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
 
@@ -1790,8 +2191,12 @@ def main(argv) -> int:
     res = phase8_resnet(dev)
     small = phase9_small(dev)
     iou_path_launches += iou_kernel.LAUNCHES
+    ev = phase10_eval(dev, card)  # sets the IoU count to 0 and reads it with the others
+    iou_kernel.LAUNCHES = 0
+    phase10_reference(dev)
+    iou_path_launches += ev["launches"]["iou"] + iou_kernel.LAUNCHES
     paths = [res["bf16"], res["int8"], small["caffenet"], small["vgg_cnn_m_1024"]]
-    print(f"phase7-9 launches: IoU kernel {iou_path_launches} on the main paths (no path calls "
+    print(f"phase7-10 launches: IoU kernel {iou_path_launches} on the main paths (no path calls "
           f"it); " + "; ".join(f"{tag} nms {p['nms']}, roi_align {p['roi']}" for tag, p in zip(
               ("resnet50 bf16", "resnet50 int8", "caffenet", "vgg_cnn_m_1024"), paths)),
           flush=True)
@@ -1800,8 +2205,9 @@ def main(argv) -> int:
     nms_b = nms_bound(1, 2048)
     records = [{
         "name": "nms_exact_greedy", "route": "cuda", "source": NMS_SOURCE,
-        "replaces": NMS_REPLACES, "launches": launches,
-        "max_abs_err": max(err1, err2, int8["nms_err"], *(p["nms_err"] for p in paths)),
+        "replaces": NMS_REPLACES, "launches": launches, "eval_launches": ev["launches"]["nms"],
+        "max_abs_err": max(err1, err2, int8["nms_err"], ev["err"]["nms"],
+                           *(p["nms_err"] for p in paths)),
         "ms": nms_t["ms"], "device_us": nms_t["device_us"], "plain_ms": nms_t["plain_ms"],
         "bound_ms": nms_b[0], "bound_by": nms_b[1], "library_ms": None}]
     for entry, replaces in (("chain", CHAIN_REPLACES), ("strip", STRIP_REPLACES)):
@@ -1809,7 +2215,8 @@ def main(argv) -> int:
         records.append({
             "name": f"conv3x3_int8_{entry}", "route": "cuda", "source": CONV_SOURCE,
             "replaces": replaces, "launches": int8["launches"][entry],
-            "max_abs_err": max(conv["err"][entry], int8["conv_err"][entry]),
+            "eval_launches": ev["launches"][entry],
+            "max_abs_err": max(conv["err"][entry], int8["conv_err"][entry], ev["err"][entry]),
             "ms": conv["ms"][entry], "plain_ms": conv["plain_ms"][entry],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": conv["library_ms"][entry]})
     for key, name, source, replaces in (
@@ -1819,13 +2226,16 @@ def main(argv) -> int:
         records.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": det["launches"]["roi_align" if key == "roi" else "conv1"],
-            "max_abs_err": max(rec["err"], det["err"][key],
+            "eval_launches": ev["launches"]["roi_align" if key == "roi" else "conv1"],
+            "max_abs_err": max(rec["err"], det["err"][key], ev["err"][key],
                                *(p["roi_err"] for p in paths if key == "roi")), "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound"][0],
             "bound_by": rec["bound"][1], "library_ms": rec["library_ms"]})
     records.append({
         "name": "bbox_overlaps_iou", "route": "cuda", "source": IOU_SOURCE,
-        "replaces": IOU_REPLACES, "launches": iou_path_launches, "max_abs_err": iou["err"],
+        "replaces": IOU_REPLACES, "launches": iou_path_launches,
+        "eval_launches": ev["launches"]["iou"],
+        "max_abs_err": iou["err"],
         "ms": iou["ms"], "device_us": iou["device_us"], "plain_ms": iou["plain_ms"],
         "bound_ms": iou["bound"][0], "bound_by": iou["bound"][1], "library_ms": None})
     print(json.dumps({"kernels": records}))

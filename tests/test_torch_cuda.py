@@ -564,3 +564,66 @@ def test_detect_on_card_equals_cpu(dev):
     want = tapi.im_detect(cpu_net, im, boxes.astype(np.float32))
     np.testing.assert_allclose(got[0], want[0], atol=1e-2, rtol=0)
     np.testing.assert_allclose(got[1], want[1], atol=0.5, rtol=0)
+
+
+def _matched(a, b, s_tol=1e-5, b_tol=2e-3):
+    """Rows of ``a [N, 5]`` with a row of ``b`` within the bounds."""
+    if not (len(a) and len(b)):
+        return np.zeros(len(a), bool)
+    return ((np.abs(a[:, None, :4] - b[None, :, :4]).max(-1) <= b_tol)
+            & (np.abs(a[:, None, 4] - b[None, :, 4]) <= s_tol)).any(1)
+
+
+def test_eval_drivers_on_card_equal_cpu(dev):
+    """The dataset drivers (``eval/detection.py``) on the card against the
+    port on the CPU at ``tests/test_torch_eval.py``'s size (smallnet f32, 4
+    classes, three 192x256 synthetic images, batch 2, one tail batch), with
+    ``'align_pallas'`` so that the ROI-align kernel runs beside NMS, at that
+    file's bounds: proposals the same count, sorted scores to 1e-5, each box
+    within 2e-3 px of a box of the other side (near-tied scores may swap two
+    rows); detections the same count per class and image, each row within
+    those bounds of a row of the other side; recall within one gt match."""
+    from aznet_tpu_torch.data import SyntheticImdb
+    from aznet_tpu_torch.eval import detection as tdet
+
+    cfg = cfg_from_dict(Config(), {
+        "MODEL": {"BACKBONE": "smallnet", "FC_DIM": 32, "NUM_TEMPLATES": 5, "NUM_CLASSES": 4,
+                  "COMPUTE_DTYPE": "float32", "POOLING_MODE": "align_pallas"},
+        "SEAR": {"FRONTIER_CAP": 16, "CAND_BUF": 128, "MAX_LEVELS": 2, "NUM_PROPOSALS": 10},
+        "TEST": {"SCALES": (64,), "MAX_SIZE": 128}})
+    imdb = SyntheticImdb(split="test", seed=2, num_images=3)
+    cpu_az = tapi.build_az_net(cfg, device="cpu")
+    cpu_fr = tapi.share_trunk(tapi.build_frcnn_net(cfg, device="cpu", seed=1), cpu_az)
+    gpu_az = tapi.build_az_net(cfg, state_dict=cpu_az.params, device=dev)
+    gpu_fr = tapi.share_trunk(tapi.build_frcnn_net(cfg, state_dict=cpu_fr.params, device=dev),
+                              gpu_az)
+    out = {}
+    before = (nms_kernel.LAUNCHES, roi_align_kernel.LAUNCHES)
+    for key, (az, fr) in (("card", (gpu_az, gpu_fr)), ("cpu", (cpu_az, cpu_fr))):
+        out[key] = [tdet.propose_all(az, imdb), tdet.propose_all_batched(az, imdb, batch_size=2),
+                    tdet.detect_all(az, fr, imdb),
+                    tdet.detect_all_batched(az, fr, imdb, batch_size=2),
+                    tdet.detect_all_batched(az, fr, imdb, batch_size=2, fused=False),
+                    tdet.evaluate_recall(az, imdb, top_ks=(5, 10), batched=True, batch_size=2,
+                                         refine_net=fr)]
+        if key == "card":
+            launched = (nms_kernel.LAUNCHES - before[0], roi_align_kernel.LAUNCHES - before[1])
+    assert launched[0] >= 12 and launched[1] >= 12, launched
+    got, want = out["card"], out["cpu"]
+    for g_props, w_props in zip(got[:2], want[:2]):
+        for g, w in zip(g_props, w_props):
+            assert g.shape == w.shape and len(g) > 0
+            np.testing.assert_allclose(np.sort(g[:, 4]), np.sort(w[:, 4]), atol=1e-5, rtol=0)
+            assert _matched(g, w, np.inf).all() and _matched(w, g, np.inf).all()
+    total = 0
+    for g_boxes, w_boxes in zip(got[2:5], want[2:5]):
+        for c in range(1, 4):
+            for g, w in zip(g_boxes[c], w_boxes[c]):
+                assert g.shape == w.shape
+                assert _matched(g, w).all() and _matched(w, g).all()
+                total += len(g)
+    assert total > 0
+    n_gt = sum(int((~e["difficult"]).sum()) for e in imdb.roidb)
+    for k in want[5]:
+        for t in want[5][k]:
+            assert abs(got[5][k][t] - want[5][k][t]) <= 1.0 / n_gt
