@@ -13,7 +13,10 @@ Over image sets: the imdbs (``data/``: the factory, PASCAL VOC, COCO, the
 synthetic planted-boxes imdb) and evaluation (``eval/``: proposal recall,
 VOC and COCO AP, and the drivers ``propose_all(_batched)``,
 ``evaluate_recall``, ``detect_all(_batched)``, ``detect_all_fused``), with
-``ops.quant.calibrate_net_on_imdb``; their host side (per-class NMS, the
+``ops.quant.calibrate_net_on_imdb``. Training (``train/``: losses, SGD,
+the AZ and Fast R-CNN train steps, labels, minibatches and the prefetch
+workers, hard-region mining, snapshots, ``train.loop.train_az_net`` /
+``train_frcnn_net``). The host side (per-class NMS, the
 COCO matcher, image blobs) runs in a C++ host library built at first use
 (``csrc/host.cc``, ``utils/native.py``). Nets are built on the card unless
 ``device="cpu"`` is passed. Five hand-written CUDA kernels run on CUDA

@@ -82,8 +82,10 @@ def _device(device) -> torch.device:
     return device
 
 
-def _build_net(model_cls, cfg: Config, state_dict, device, seed) -> Net:
-    device = _device(device)
+def new_model(model_cls, cfg: Config, device, state_dict=None, seed=None) -> RoiNet:
+    """A float32 ``model_cls`` on ``device`` (no checks of ``device``):
+    weights from ``state_dict``, else the seeded init (``seed``, default
+    ``cfg.RNG_SEED``)."""
     with torch.device("meta"):
         model = model_cls(cfg.MODEL)
     model = model.to_empty(device=device)
@@ -93,12 +95,25 @@ def _build_net(model_cls, cfg: Config, state_dict, device, seed) -> Net:
         init_params(model, gen)
     else:
         model.load_state_dict(state_dict)
-    model.eval()
-    params = {k: v.detach().to("cpu", torch.float32, copy=True)
-              for k, v in model.state_dict().items()}
+    return model
+
+
+def inference_model(model: RoiNet, cfg: Config) -> RoiNet:
+    """``model`` made an inference net in place: eval mode, no gradients, its
+    weights cast as :func:`_cast_inference_params` casts them, int8 layers
+    quantized."""
+    model.eval().requires_grad_(False)
     model = _cast_inference_params(model, cfg)
     model.prepare_int8()
-    return Net(model, cfg, device, params)
+    return model
+
+
+def _build_net(model_cls, cfg: Config, state_dict, device, seed) -> Net:
+    device = _device(device)
+    model = new_model(model_cls, cfg, device, state_dict, seed)
+    params = {k: v.detach().to("cpu", torch.float32, copy=True)
+              for k, v in model.state_dict().items()}
+    return Net(inference_model(model, cfg), cfg, device, params)
 
 
 def build_az_net(cfg: Config, state_dict: dict | None = None, device="cuda",

@@ -11,6 +11,7 @@ called). The tree is immutable: an override returns a new ``Config``.
 from __future__ import annotations
 
 import dataclasses
+import os
 from dataclasses import dataclass, field, fields, is_dataclass
 from typing import Any, Tuple
 
@@ -233,3 +234,12 @@ def cfg_to_dict(cfg: Any) -> dict:
     """Dataclass tree -> plain nested dict."""
     return {f.name: cfg_to_dict(v) if is_dataclass(v := getattr(cfg, f.name)) else v
             for f in fields(cfg)}
+
+
+def get_output_dir(cfg: Config, imdb_name: str, net_name: str | None = None) -> str:
+    """``OUTPUT_DIR/EXP_DIR/imdb_name[/net_name]``, created (the reference's
+    ``get_output_dir``)."""
+    parts = [cfg.OUTPUT_DIR, cfg.EXP_DIR, imdb_name] + ([net_name] if net_name else [])
+    path = os.path.join(*parts)
+    os.makedirs(path, exist_ok=True)
+    return path

@@ -12,11 +12,13 @@ import warnings
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from aznet_tpu_torch.config import ModelConfig
-from aznet_tpu_torch.models.backbones import get_backbone
+from aznet_tpu_torch.models.backbones import compute_dtype, get_backbone
 from aznet_tpu_torch.models.heads import AZHead
 from aznet_tpu_torch.models.resnet import FrozenBN
+from aznet_tpu_torch.models.vgg import VGG16Trunk
 from aznet_tpu_torch.ops.roi_pool import POOLING_MODES, roi_pool
 
 
@@ -45,7 +47,9 @@ class RoiNet(nn.Module):
 
     - ``features(images [B, H, W, 3])`` -> ``[B, H/16, W/16, C]``
     - ``roi_forward(feat [h, w, C], rois [R, 4])`` -> the head's outputs dict
-    """
+
+    ``train=True`` (with a ``torch.Generator`` for the dropout masks) selects
+    the heads' training branch."""
 
     def __init__(self, model_cfg: ModelConfig):
         super().__init__()
@@ -58,8 +62,15 @@ class RoiNet(nn.Module):
                             if model_cfg.COMPUTE_DTYPE != "float32" else ())
         self.pooled_dim = model_cfg.POOL_SIZE ** 2 * self.trunk.out_channels
 
-    def features(self, images: torch.Tensor) -> torch.Tensor:
-        return self.trunk(images)
+    def features(self, images: torch.Tensor, remat: bool = False) -> torch.Tensor:
+        """``remat`` recomputes the trunk's activations in the backward pass
+        instead of keeping them (``TRAIN.REMAT_TRUNK``): VGG-16 layer by
+        layer, the other trunks as one ``torch.utils.checkpoint`` region."""
+        if not remat:
+            return self.trunk(images)
+        if isinstance(self.trunk, VGG16Trunk):
+            return self.trunk(images, remat=True)
+        return checkpoint(self.trunk, images, use_reentrant=False)
 
     def prepare_int8(self) -> None:
         """Quantize the int8 layers' weights once, from the parameters as they
@@ -74,11 +85,19 @@ class RoiNet(nn.Module):
         mc = self.model_cfg
         return roi_pool(feat, rois, 1.0 / mc.FEAT_STRIDE, mc.POOL_SIZE, mode=mc.POOLING_MODE)
 
-    def head_forward(self, pooled: torch.Tensor) -> dict:
-        return self.head(pooled)
+    def head_forward(self, pooled: torch.Tensor, train: bool = False,
+                     generator: torch.Generator | None = None) -> dict:
+        return self.head(pooled, train, generator)
 
-    def roi_forward(self, feat: torch.Tensor, rois: torch.Tensor) -> dict:
-        return self.head(self.roi_pool_only(feat, rois))
+    def roi_forward(self, feat: torch.Tensor, rois: torch.Tensor, train: bool = False,
+                    generator: torch.Generator | None = None) -> dict:
+        return self.head(self.roi_pool_only(feat, rois), train, generator)
+
+    def head_kwargs(self) -> dict:
+        """The head settings of the config that both heads take."""
+        mc = self.model_cfg
+        return {"fc_dim": mc.FC_DIM, "fc7_dim": mc.FC7_DIM, "int8_scales": self.head_scales,
+                "dropout": mc.DROPOUT, "dtype": compute_dtype(mc)}
 
 
 class AZNet(RoiNet):
@@ -87,8 +106,7 @@ class AZNet(RoiNet):
 
     def __init__(self, model_cfg: ModelConfig = ModelConfig()):
         super().__init__(model_cfg)
-        self.head = AZHead(self.pooled_dim, model_cfg.NUM_TEMPLATES, model_cfg.FC_DIM,
-                           model_cfg.FC7_DIM, int8_scales=self.head_scales)
+        self.head = AZHead(self.pooled_dim, model_cfg.NUM_TEMPLATES, **self.head_kwargs())
 
 
 def init_params(model: nn.Module, generator: torch.Generator) -> None:

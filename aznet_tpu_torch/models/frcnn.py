@@ -20,5 +20,4 @@ class FRCNN(RoiNet):
 
     def __init__(self, model_cfg: ModelConfig = ModelConfig()):
         super().__init__(model_cfg)
-        self.head = FRCNNHead(self.pooled_dim, model_cfg.NUM_CLASSES, model_cfg.FC_DIM,
-                              model_cfg.FC7_DIM, int8_scales=self.head_scales)
+        self.head = FRCNNHead(self.pooled_dim, model_cfg.NUM_CLASSES, **self.head_kwargs())

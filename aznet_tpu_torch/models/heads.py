@@ -1,11 +1,20 @@
 """ROI heads: fc6/fc7 plus the AZ outputs or the Fast R-CNN outputs
-(inference path of ``aznet_tpu/models/heads.py``: ``_FCStack``, its int8
-stack, ``_fused_heads``, ``AZHead`` and ``FRCNNHead``).
+(``aznet_tpu/models/heads.py``: ``_FCStack``, its int8 stack,
+``_fused_heads``, ``AZHead`` and ``FRCNNHead``).
 
 Layer names match the reference's parameter tree (``fc.fc6``, ``fc.fc7``,
 ``zoom_score``, ``adj_score``, ``adj_bbox``; ``cls_score``, ``bbox_pred``) so
-converted weights load 1:1. Dropout is identity at inference and is not part
-of this port.
+converted weights load 1:1.
+
+fc6 and fc7 compute in ``dtype`` (weights, bias and input cast inside
+``forward``; a no-op on an inference net, whose weights are cast already, and
+the way gradients reach a training net's float32 masters). Inference
+(``train=False``): no dropout, and ONE f32 dot against the concatenated
+output layers as stored. Training (``train=True``): dropout after fc6 and
+fc7 at ``dropout``, its masks drawn from an explicit ``torch.Generator``, and
+the output layers as separate f32 dots on the f32 masters, as the
+reference's ``train=True`` branch. Rows are independent, so the rois of
+several images may go through as one batch.
 """
 
 from __future__ import annotations
@@ -14,9 +23,20 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from aznet_tpu_torch.ops import refuse_grad
 from aznet_tpu_torch.ops.conv_int8 import (int8_matmul, quantize_acts, quantize_columns,
                                            scalar_f32)
 from aznet_tpu_torch.utils.precision import float32_precision
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """Flax's ``nn.Dropout``: ``where(mask, x / keep, 0)`` with ``mask ~
+    Bernoulli(keep)`` from ``generator``; ``x`` unchanged at rate 0."""
+    if rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.empty(x.shape, device=x.device).bernoulli_(keep, generator=generator)
+    return torch.where(mask.bool(), x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class FCStack(nn.Module):
@@ -28,30 +48,43 @@ class FCStack(nn.Module):
     int32 and dequantizes as ``acc * (s_x * s_w) + bias``; fc7 exits in bf16.
     The weights are quantized per output column ONCE, by :meth:`prepare_int8`,
     from the parameters as they are then (bf16-rounded in int8 mode, as the
-    reference quantizes the already-cast tree)."""
+    reference quantizes the already-cast tree). Training skips the int8
+    stack, as the reference's. ``dtype`` None computes in the weights'
+    dtype."""
 
     def __init__(self, in_dim: int, fc_dim: int = 4096, fc7_dim: int = 0,
-                 int8_scales: tuple = ()):
+                 int8_scales: tuple = (), dropout: float = 0.0, dtype=None):
         super().__init__()
         self.fc6 = nn.Linear(in_dim, fc_dim)
         self.fc7 = nn.Linear(fc_dim, fc7_dim or fc_dim)
         self.int8_scales = tuple(int8_scales)
+        self.dropout = dropout
+        self.dtype = dtype
         self._int8 = None
 
     def prepare_int8(self) -> None:
         self._int8 = {name: (*quantize_columns(fc.weight.detach()), fc.bias.detach().float())
                       for name, fc in (("fc6", self.fc6), ("fc7", self.fc7))}
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         x = x.reshape(x.shape[0], -1)
-        if self.int8_scales:
+        if self.int8_scales and not train:
             return self._int8_stack(x)
         if x.dtype == torch.int8:
             raise ValueError("int8 pooled features reached a non-int8 head "
-                             "(missing INT8_HEAD_SCALES)")
-        x = x.to(self.fc6.weight.dtype)
+                             "(missing INT8_HEAD_SCALES, or train=True)")
+        dt = self.dtype or self.fc6.weight.dtype
+        x = x.to(dt)
         with float32_precision():
-            return F.relu(self.fc7(F.relu(self.fc6(x))))
+            for fc in (self.fc6, self.fc7):
+                # The module itself when no cast is needed: forward hooks fire.
+                y = fc(x) if fc.weight.dtype == dt else F.linear(x, fc.weight.to(dt),
+                                                                  fc.bias.to(dt))
+                x = F.relu(y)
+                if train:
+                    x = dropout(x, self.dropout, generator)
+        return x
 
     def _int8_stack(self, x: torch.Tensor) -> torch.Tensor:
         if self._int8 is None:
@@ -63,6 +96,7 @@ class FCStack(nn.Module):
             acc = int8_matmul(x8, wq)
             return torch.relu(acc.float() * (scalar_f32(s_x, x8.device) * s_w) + bias)
 
+        refuse_grad("the int8 fc stack", x)
         x8 = x if x.dtype == torch.int8 else quantize_acts(x, s_in)
         h8 = quantize_acts(dense(x8, s_in, "fc6"), s_mid)
         return dense(h8, s_mid, "fc7").to(torch.bfloat16)
@@ -78,6 +112,14 @@ def fused_heads(x: torch.Tensor, layers) -> torch.Tensor:
     return x.float() @ w.t() + b
 
 
+@float32_precision()
+def separate_heads(x: torch.Tensor, layers) -> list:
+    """The training branch: one f32 dot per output layer on its float32
+    weights (the reference's f32 ``Dense`` layers on fc7's output)."""
+    x = x.float()
+    return [F.linear(x, m.weight.float(), m.bias.float()) for m in layers]
+
+
 class AZHead(nn.Module):
     """``[R, P, P, C]`` pooled features -> ``zoom [R]``, ``adj_score [R, K]``
     (logits) and ``adj_delta [R, K, 4]``, all float32."""
@@ -85,23 +127,26 @@ class AZHead(nn.Module):
     SCORE_STD = {"zoom_score": 0.01, "adj_score": 0.01, "adj_bbox": 0.001}
 
     def __init__(self, in_dim: int, num_templates: int = 11, fc_dim: int = 4096,
-                 fc7_dim: int = 0, int8_scales: tuple = ()):
+                 fc7_dim: int = 0, int8_scales: tuple = (), dropout: float = 0.0, dtype=None):
         super().__init__()
         self.num_templates = num_templates
-        self.fc = FCStack(in_dim, fc_dim, fc7_dim, int8_scales)
+        self.fc = FCStack(in_dim, fc_dim, fc7_dim, int8_scales, dropout, dtype)
         d = fc7_dim or fc_dim
         self.zoom_score = nn.Linear(d, 1)
         self.adj_score = nn.Linear(d, num_templates)
         self.adj_bbox = nn.Linear(d, 4 * num_templates)
 
-    def forward(self, pooled: torch.Tensor) -> dict:
+    def forward(self, pooled: torch.Tensor, train: bool = False,
+                generator: torch.Generator | None = None) -> dict:
         k = self.num_templates
-        y = fused_heads(self.fc(pooled), (self.zoom_score, self.adj_score, self.adj_bbox))
-        return {
-            "zoom": y[:, 0],
-            "adj_score": y[:, 1:1 + k],
-            "adj_delta": y[:, 1 + k:].reshape(-1, k, 4),
-        }
+        x = self.fc(pooled, train, generator)
+        layers = (self.zoom_score, self.adj_score, self.adj_bbox)
+        if train:
+            zoom, adj, delta = separate_heads(x, layers)
+        else:
+            y = fused_heads(x, layers)
+            zoom, adj, delta = y[:, 0:1], y[:, 1:1 + k], y[:, 1 + k:]
+        return {"zoom": zoom[:, 0], "adj_score": adj, "adj_delta": delta.reshape(-1, k, 4)}
 
 
 class FRCNNHead(nn.Module):
@@ -111,14 +156,21 @@ class FRCNNHead(nn.Module):
     SCORE_STD = {"cls_score": 0.01, "bbox_pred": 0.001}
 
     def __init__(self, in_dim: int, num_classes: int = 21, fc_dim: int = 4096,
-                 fc7_dim: int = 0, int8_scales: tuple = ()):
+                 fc7_dim: int = 0, int8_scales: tuple = (), dropout: float = 0.0, dtype=None):
         super().__init__()
         self.num_classes = num_classes
-        self.fc = FCStack(in_dim, fc_dim, fc7_dim, int8_scales)
+        self.fc = FCStack(in_dim, fc_dim, fc7_dim, int8_scales, dropout, dtype)
         d = fc7_dim or fc_dim
         self.cls_score = nn.Linear(d, num_classes)
         self.bbox_pred = nn.Linear(d, 4 * num_classes)
 
-    def forward(self, pooled: torch.Tensor) -> dict:
-        y = fused_heads(self.fc(pooled), (self.cls_score, self.bbox_pred))
-        return {"cls_score": y[:, :self.num_classes], "bbox_pred": y[:, self.num_classes:]}
+    def forward(self, pooled: torch.Tensor, train: bool = False,
+                generator: torch.Generator | None = None) -> dict:
+        x = self.fc(pooled, train, generator)
+        layers = (self.cls_score, self.bbox_pred)
+        if train:
+            cls, bbox = separate_heads(x, layers)
+        else:
+            y = fused_heads(x, layers)
+            cls, bbox = y[:, :self.num_classes], y[:, self.num_classes:]
+        return {"cls_score": cls, "bbox_pred": bbox}

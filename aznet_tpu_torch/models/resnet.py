@@ -14,9 +14,12 @@ inside, the NHWC tensor is viewed as NCHW in channels-last memory.
   compute dtype (two roundings in bf16, as the reference's).
 - The first block of stages 2 and 3 has a stride-2 3x3 conv with XLA's
   SAME padding: (0, 1) on an even size (``pad_same``), not (1, 1).
-- Compute dtype: the parameters' dtype, except in int8 mode, where the
-  parameters stay float32 (the int8 layers quantize them) and the float
-  layers compute in bf16 from them, as the reference's int8 trunk does.
+- Compute dtype: ``dtype`` (the config's; None: the parameters' dtype),
+  each weight cast to it inside ``forward`` (a no-op on an inference net,
+  whose weights are cast already); in int8 mode bf16, with the parameters
+  kept float32 (the int8 layers quantize them), as the reference's int8
+  trunk does. The int8 path has no gradient: with autograd recording it
+  raises.
   Float32 convolutions run in true float32 whatever the caller's TF32
   flags (``utils/precision.py``).
 
@@ -35,6 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from aznet_tpu_torch.models.small import pad_same
+from aznet_tpu_torch.ops import refuse_grad
 from aznet_tpu_torch.ops.conv_int8 import conv1x1_int8, quantize_acts, quantize_weights_1x1
 from aznet_tpu_torch.utils.precision import float32_precision
 
@@ -141,8 +145,9 @@ class ResNet50Trunk(nn.Module):
     feat_stride = 16
     out_channels = 1024
 
-    def __init__(self, int8_mode: bool = False, int8_scales: tuple = ()):
+    def __init__(self, int8_mode: bool = False, int8_scales: tuple = (), dtype=None):
         super().__init__()
+        self.dtype = dtype
         self.int8_mode = int8_mode
         self.int8_scales = tuple(int8_scales)
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
@@ -176,7 +181,8 @@ class ResNet50Trunk(nn.Module):
                     "bottleneck; run aznet_tpu_torch.ops.quant.calibrate_trunk_int8_resnet "
                     f"first); got {len(self.int8_scales)}")
             scales = self.int8_scales
-        dt = torch.bfloat16 if self.int8_mode else self.conv1.weight.dtype
+            refuse_grad("COMPUTE_DTYPE='int8' (the int8 trunk)", x, *self.parameters())
+        dt = torch.bfloat16 if self.int8_mode else self.dtype or self.conv1.weight.dtype
         x = x.to(dt).permute(0, 3, 1, 2)
         x = F.relu(self.bn1(F.conv2d(x, self.conv1.weight.to(dt), stride=2, padding=3)))
         x = F.max_pool2d(x, 3, 2, padding=1)

@@ -6,8 +6,10 @@ NCHW (channels-last memory, what cuDNN runs fastest) and viewed back. Every
 SAME conv with a stride pads as XLA does, through :func:`pad_same` (11x11/4
 on 608 pads (3, 4); 7x7/2 and 5x5/2 on an even size pad (2, 3) and (1, 2));
 stride-1 SAME convs pad symmetrically, so ``padding=k // 2`` is exact there.
-The compute dtype is the parameters' dtype (the API casts them once); the
-LRN runs in float32, as the reference's. Float32 convolutions run in true
+The compute dtype is ``dtype`` (the config's; None: the parameters'
+dtype), weights and biases cast to it inside ``forward`` (:func:`conv`; a
+no-op on an inference net, whose weights the API casts once); the LRN runs
+in float32, as the reference's. Float32 convolutions run in true
 float32 whatever the caller's TF32 flags (``utils/precision.py``).
 """
 
@@ -31,6 +33,17 @@ def pad_same(x: torch.Tensor, k: int, s: int) -> torch.Tensor:
         total = max((-(-n // s) - 1) * s + k - n, 0)
         pads += [total // 2, total - total // 2]
     return F.pad(x, pads)
+
+
+def conv(layer: nn.Conv2d, x: torch.Tensor, dtype) -> torch.Tensor:
+    """``layer`` applied to NCHW ``x`` with its weight and bias cast to
+    ``dtype``: the module itself (forward hooks fire, as calibration needs)
+    when they are of that dtype already."""
+    if layer.weight.dtype == dtype:
+        return layer(x)
+    bias = None if layer.bias is None else layer.bias.to(dtype)
+    return F.conv2d(x, layer.weight.to(dtype), bias, layer.stride, layer.padding,
+                    layer.dilation, layer.groups)
 
 
 def lrn(x: torch.Tensor, size: int = 5, alpha: float = 1e-4, beta: float = 0.75,
@@ -64,8 +77,9 @@ class CaffeNetTrunk(nn.Module):
     feat_stride = 16
     out_channels = 256
 
-    def __init__(self):
+    def __init__(self, dtype=None):
         super().__init__()
+        self.dtype = dtype
         self.conv1 = nn.Conv2d(3, 96, 11, stride=4)
         self.conv2 = nn.Conv2d(96, 256, 5, padding=2, groups=2)
         self.conv3 = nn.Conv2d(256, 384, 3, padding=1)
@@ -74,13 +88,14 @@ class CaffeNetTrunk(nn.Module):
 
     @float32_precision()
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.conv1.weight.dtype).permute(0, 3, 1, 2)
-        x = F.relu(self.conv1(pad_same(x, 11, 4)))
+        dt = self.dtype or self.conv1.weight.dtype
+        x = x.to(dt).permute(0, 3, 1, 2)
+        x = F.relu(conv(self.conv1, pad_same(x, 11, 4), dt))
         x = lrn(_pool3x2(x), dim=1)
-        x = F.relu(self.conv2(x))
+        x = F.relu(conv(self.conv2, x, dt))
         x = lrn(_pool3x2(x), dim=1)
-        for conv in (self.conv3, self.conv4, self.conv5):
-            x = F.relu(conv(x))
+        for layer in (self.conv3, self.conv4, self.conv5):
+            x = F.relu(conv(layer, x, dt))
         return x.permute(0, 2, 3, 1)
 
 
@@ -92,8 +107,9 @@ class VGGCNNM1024Trunk(nn.Module):
     feat_stride = 16
     out_channels = 512
 
-    def __init__(self):
+    def __init__(self, dtype=None):
         super().__init__()
+        self.dtype = dtype
         self.conv1 = nn.Conv2d(3, 96, 7, stride=2)
         self.conv2 = nn.Conv2d(96, 256, 5, stride=2)
         self.conv3 = nn.Conv2d(256, 512, 3, padding=1)
@@ -102,11 +118,12 @@ class VGGCNNM1024Trunk(nn.Module):
 
     @float32_precision()
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.conv1.weight.dtype).permute(0, 3, 1, 2)
-        x = _pool3x2(lrn(F.relu(self.conv1(pad_same(x, 7, 2))), dim=1))
-        x = _pool3x2(lrn(F.relu(self.conv2(pad_same(x, 5, 2))), dim=1))
-        for conv in (self.conv3, self.conv4, self.conv5):
-            x = F.relu(conv(x))
+        dt = self.dtype or self.conv1.weight.dtype
+        x = x.to(dt).permute(0, 3, 1, 2)
+        x = _pool3x2(lrn(F.relu(conv(self.conv1, pad_same(x, 7, 2), dt)), dim=1))
+        x = _pool3x2(lrn(F.relu(conv(self.conv2, pad_same(x, 5, 2), dt)), dim=1))
+        for layer in (self.conv3, self.conv4, self.conv5):
+            x = F.relu(conv(layer, x, dt))
         return x.permute(0, 2, 3, 1)
 
 
@@ -116,8 +133,9 @@ class SmallTrunk(nn.Module):
 
     feat_stride = 16
 
-    def __init__(self, width: int = 64, out_channels: int = 128):
+    def __init__(self, width: int = 64, out_channels: int = 128, dtype=None):
         super().__init__()
+        self.dtype = dtype
         self.out_channels = out_channels
         self.conv1 = nn.Conv2d(3, width, 5, stride=2)
         self.conv2 = nn.Conv2d(width, width * 2, 3, stride=2)
@@ -126,11 +144,12 @@ class SmallTrunk(nn.Module):
 
     @float32_precision()
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.conv1.weight.dtype).permute(0, 3, 1, 2)
-        x = F.relu(self.conv1(pad_same(x, 5, 2)))
+        dt = self.dtype or self.conv1.weight.dtype
+        x = x.to(dt).permute(0, 3, 1, 2)
+        x = F.relu(conv(self.conv1, pad_same(x, 5, 2), dt))
         x = F.max_pool2d(x, 2, 2)
-        x = F.relu(self.conv2(pad_same(x, 3, 2)))
-        x = F.relu(self.conv3(x))
+        x = F.relu(conv(self.conv2, pad_same(x, 3, 2), dt))
+        x = F.relu(conv(self.conv3, x, dt))
         x = F.max_pool2d(x, 2, 2)
-        x = F.relu(self.conv4(x))
+        x = F.relu(conv(self.conv4, x, dt))
         return x.permute(0, 2, 3, 1)

@@ -5,8 +5,11 @@ NHWC in and out, like the reference. Float path: the NHWC tensor is viewed
 as NCHW in channels-last memory, which is what cuDNN's bf16 convolutions run
 fastest on, and the output is viewed back without a copy. The 3x3/s1 SAME
 padding is symmetric, so ``padding=1`` matches JAX exactly. The compute
-dtype is the parameters' dtype (the API casts them once); float32 runs in
-true float32 whatever the caller's TF32 flags (``utils/precision.py``).
+dtype is ``dtype`` (the config's; None: the parameters' dtype): weights,
+biases and input are cast to it inside ``forward``, a no-op for an inference
+net (the API casts the weights once) and the way gradients reach a training
+net's float32 masters. Float32 runs in true float32 whatever the caller's
+TF32 flags (``utils/precision.py``).
 
 ``fuse_conv1`` (``MODEL.FUSE_CONV1``, float path only): conv1_1, conv1_2 and
 pool1 run through ``ops/conv1_fused.py`` (the CUDA kernel on the card, its
@@ -31,7 +34,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from aznet_tpu_torch.models.small import conv
+from aznet_tpu_torch.ops import refuse_grad
 from aznet_tpu_torch.ops.conv1_fused import fused_conv1_pool
 from aznet_tpu_torch.ops.conv_int8 import (Int8Conv, conv3x3_int8, max_pool_2x2,
                                            quantize_acts)
@@ -62,8 +68,9 @@ class VGG16Trunk(nn.Module):
 
     def __init__(self, width: float = 1.0, int8_mode: bool = False,
                  int8_scales: tuple = (), int8_backend: str = "pallas",
-                 int8_chain_from: str = "conv2_2", fuse_conv1: bool = False):
+                 int8_chain_from: str = "conv2_2", fuse_conv1: bool = False, dtype=None):
         super().__init__()
+        self.dtype = dtype
         c_in = 3
         for name, ch in VGG16_LAYOUT:
             if ch is None:
@@ -90,24 +97,42 @@ class VGG16Trunk(nn.Module):
         self.int8_backend = int8_backend
         self._int8_layers = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, remat: bool = False) -> torch.Tensor:
+        """``remat`` (``TRAIN.REMAT_TRUNK``): each conv (with its ReLU and the
+        pool after it) runs under ``torch.utils.checkpoint``, so that only
+        the layers' inputs are kept for the backward pass, each layer's
+        activations recomputed there one layer at a time."""
         if self.int8_mode:
+            self._int8_walk()
+            refuse_grad("COMPUTE_DTYPE='int8' (the int8 trunk)", x, *self.parameters())
             return self.int8_body(self.int8_prefix(x))
-        return self._float_forward(x.to(self.conv1_1.weight.dtype))
+        return self._float_forward(x, remat)
+
+    def _layer(self, name: str, pool: bool, x: torch.Tensor, dt) -> torch.Tensor:
+        x = F.relu(conv(getattr(self, name), x, dt))
+        return F.max_pool2d(x, 2, 2) if pool else x
 
     @float32_precision()
-    def _float_forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _float_forward(self, x: torch.Tensor, remat: bool = False) -> torch.Tensor:
+        dt = self.dtype or self.conv1_1.weight.dtype
+        x = x.to(dt)
         layout = VGG16_LAYOUT
         if self.fuse_conv1 and x.shape[1] % 32 == 0 and x.shape[2] % 2 == 0:
-            x = fused_conv1_pool(x, self.conv1_1.weight, self.conv1_1.bias,
-                                 self.conv1_2.weight, self.conv1_2.bias)
+            c1, c2 = self.conv1_1, self.conv1_2
+            refuse_grad("MODEL.FUSE_CONV1 (the fused conv1 kernel)", x, *c1.parameters(),
+                        *c2.parameters())
+            x = fused_conv1_pool(x, c1.weight.to(dt), c1.bias.to(dt), c2.weight.to(dt),
+                                 c2.bias.to(dt))
             layout = VGG16_LAYOUT[3:]  # conv1_1, conv1_2 and pool1 are done
         x = x.permute(0, 3, 1, 2)
-        for name, ch in layout:
+        for i, (name, ch) in enumerate(layout):
             if ch is None:
-                x = F.max_pool2d(x, 2, 2)
+                continue
+            pool = i + 1 < len(layout) and layout[i + 1][1] is None
+            if remat:
+                x = checkpoint(self._layer, name, pool, x, dt, use_reentrant=False)
             else:
-                x = F.relu(getattr(self, name)(x))
+                x = self._layer(name, pool, x, dt)
         return x.permute(0, 2, 3, 1)
 
     # -- int8 path ---------------------------------------------------------

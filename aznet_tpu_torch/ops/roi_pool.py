@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from aznet_tpu_torch.ops import refuse_grad
 from aznet_tpu_torch.ops.cuda import roi_align_kernel
 from aznet_tpu_torch.utils.precision import float32_precision
 
@@ -284,6 +285,7 @@ def roi_pool(feat, rois, spatial_scale: float, pool_size: int = 7,
     if not feat.is_floating_point():
         raise ValueError(f"roi_pool needs float or int8 features, got {feat.dtype}")
     if mode == "align_pallas":
+        refuse_grad("POOLING_MODE='align_pallas' (the fused ROI-align kernel)", feat)
         return roi_align_fused(feat, rois, spatial_scale, pool_size)
     if mode == "caffe_max":
         return roi_pool_caffe(feat, rois, spatial_scale, pool_size)

@@ -81,9 +81,14 @@ def az_search(roi_forward: Callable, feat: torch.Tensor, im_hw, scfg: SearchConf
     """Zoom search over ``feat [h, w, C]`` of one image whose valid scaled
     extents are ``im_hw``. ``roi_forward(feat, rois [R, 4])`` returns the
     head's logits dict. Returns ``(boxes [N, 4], scores [N], valid [N])``,
-    N = NUM_PROPOSALS, in the scaled image's coordinates."""
-    if collect_frontier:
-        raise NotImplementedError("collect_frontier (hard-region mining) is not ported")
+    N = NUM_PROPOSALS, in the scaled image's coordinates.
+
+    ``collect_frontier`` (hard-region mining, ``train/mining.py``) also
+    returns every frontier region the head evaluated, ``visited
+    [MAX_LEVELS * FRONTIER_CAP, 4]`` and ``visited_valid``, in the
+    reference's layout: one block of FRONTIER_CAP rows per level (a level of
+    the unrolled prefix padded with zero rows), zero from the level where the
+    frontier emptied."""
     dev = feat.device
     r_cap = scfg.FRONTIER_CAP
     templates = adjacency_templates(num_templates, device=dev)
@@ -119,9 +124,15 @@ def az_search(roi_forward: Callable, feat: torch.Tensor, im_hw, scfg: SearchConf
 
     f_boxes, f_valid = init_frontier(im_h, im_w, scfg, offset, cap=sched[0])
     cand_b, cand_s = [], []
+    if collect_frontier:
+        vis_b = torch.zeros((scfg.MAX_LEVELS, r_cap, 4), dtype=torch.float32, device=dev)
+        vis_v = torch.zeros((scfg.MAX_LEVELS, r_cap), dtype=torch.bool, device=dev)
     lvl = 0
     while lvl < scfg.MAX_LEVELS and sched[lvl] != r_cap:
         next_cap = sched[lvl + 1] if lvl + 1 < scfg.MAX_LEVELS else sched[lvl]
+        if collect_frontier:
+            vis_b[lvl, :f_boxes.shape[0]] = f_boxes
+            vis_v[lvl, :f_boxes.shape[0]] = f_valid
         b, s, f_boxes, f_valid = level_step(f_boxes, f_valid, next_cap)
         cand_b.append(b)
         cand_s.append(s)
@@ -137,6 +148,9 @@ def az_search(roi_forward: Callable, feat: torch.Tensor, im_hw, scfg: SearchConf
         for level in range(rem):
             if not bool(f_valid.any()):
                 break
+            if collect_frontier:
+                vis_b[lvl + level] = f_boxes
+                vis_v[lvl + level] = f_valid
             b, s, f_boxes, f_valid = level_step(f_boxes, f_valid, r_cap)
             tail_b[level * per_level:(level + 1) * per_level] = b
             tail_s[level * per_level:(level + 1) * per_level] = s
@@ -151,5 +165,8 @@ def az_search(roi_forward: Callable, feat: torch.Tensor, im_hw, scfg: SearchConf
 
     final_scores = torch.where(c_scores >= scfg.CONF_THRESH, c_scores, NEG_INF)
     live = final_scores > NEG_INF
-    return nms_topk(c_boxes, final_scores, scfg.NMS_THRESH, scfg.NUM_PROPOSALS,
-                    valid=live, offset=offset)
+    out = nms_topk(c_boxes, final_scores, scfg.NMS_THRESH, scfg.NUM_PROPOSALS,
+                   valid=live, offset=offset)
+    if collect_frontier:
+        return (*out, vis_b.reshape(-1, 4), vis_v.reshape(-1))
+    return out

@@ -116,8 +116,32 @@
    versions, and the drivers on the card against the CPU (VGG-16 at WIDTH
    0.125, float32, 4 images).
 
+12. Phase 11: training at full VGG-16 width (``Config()``: bf16, ``'align'``,
+   no ``FUSE_CONV1``, DROPOUT 0.5) on ``synthetic_hard_train`` (375x500 on a
+   608x800 canvas at TRAIN.SCALES 600, b=2, 128 regions an image), with
+   every launch count set to 0 at its start and read at its end: (a)
+   ``train_az_net`` for 12 steps with mining every 4 steps over 8 images
+   (the NMS kernel in each harvest; the first harvest's NMS inputs held
+   against the plain version bit for bit), checking every step's losses and
+   grad_norm finite, the parameters moved, the snapshot and the ``deploy/``
+   copy; ms per step by CUDA events after 2 warm-up steps, img/s, the
+   loop's wait on the prefetch thread, the card's busy share over steps
+   6-8 and 10-12 (``torch.profiler``; the harvests are outside), peak
+   memory, harvest ms per image; (b) a rerun to 14 steps in the same
+   directory, which resumes at 12; (c) the chain: an inference net from the
+   ``deploy/`` weights with phase 6's detect configuration
+   (``'align_pallas'``, ``FUSE_CONV1``, 4 classes), ``propose_all`` over 8
+   training images (NMS, ROI-align and conv1 kernels), then
+   ``train_frcnn_net`` for 6 steps on those proposals; (d) ``REMAT_TRUNK``
+   on against off (the first step's loss, peak memory), and 4 prefetch
+   workers against the thread (ms per step, wait), the first two batches
+   of 2 and 4 workers equal and no worker on CUDA or JAX; (e) one AZ and one
+   Fast R-CNN step, smallnet float32, on the card against the CPU at the
+   CPU tests' float32 bounds.
+
 Prints the card's name and power limit, one JSON line of kernel records
-(each with its bound, library yardstick and launches on the eval path), and,
+(each with its bound, library yardstick and launches on the eval path and
+in training), and,
 as the last line, ``{"ok": true, "device": {...}}``. Exits non-zero at the first failure and
 when no CUDA device is present. Imports no JAX and nothing of ``aznet_tpu``.
 
@@ -2133,6 +2157,499 @@ def phase10_reference(dev):
     check(d_r <= 1.0 / n_gt, "card and CPU recall differ by more than one gt match")
 
 
+TRAIN_IMDB = "synthetic_hard_train"  # VOC-sized 375x500 planted boxes, 512 images, 4 classes
+TRAIN_STEPS, TRAIN_WARMUP, RESUME_STEPS = 12, 2, 14
+MINE_INTERVAL, MINE_IMAGES = 4, 8
+CHAIN_IMAGES, FRCNN_STEPS, WORKER_STEPS = 8, 6, 10
+PROFILED = ((5, 7), (9, 11))  # step windows between the harvests at steps 4 and 8
+# tests/test_torch_train.py's bounds. Float32: loss and metrics relative,
+# each parameter's update against its largest update. bf16: loss relative.
+F32_TOL, F32_UPDATE_TOL, BF16_TOL = 1e-4, 2e-3, 1e-2
+
+
+def train_config(**train):
+    """``Config()`` (VGG-16 bf16 at full width, ``'align'``, no
+    ``FUSE_CONV1``, TRAIN.SCALES 600, IMS_PER_BATCH 2, REGIONS_PER_IMAGE 128,
+    DROPOUT 0.5) with the synthetic imdb's 4 classes and ``train``."""
+    from aznet_tpu_torch.config import Config, cfg_from_dict
+
+    return cfg_from_dict(Config(), {"MODEL": {"NUM_CLASSES": 4}, "TRAIN": train})
+
+
+def imdb_over(base, roidb):
+    """A new imdb object over ``roidb`` (a train loop appends the flipped
+    entries to the imdb it is given)."""
+    import copy
+
+    out = copy.copy(base)
+    out._roidb = list(roidb)
+    return out
+
+
+class TrainProbe:
+    """While active, every train step that ``train/loop.py`` builds is timed
+    by CUDA events and its metrics kept; the loop's waits on either
+    prefetcher are timed; each harvest is timed (synchronised), its NMS
+    launches counted, and the first one's NMS inputs recorded; the steps of
+    each ``windows`` pair (first, last) run under ``torch.profiler`` for the
+    card's busy share."""
+
+    def __init__(self, windows=()):
+        self.windows = windows
+        self.steps, self.waits, self.harvests, self.nms_inputs = [], [], [], []
+        self.profiles, self.window_s = [], 0.0  # profilers of the windows, their wall s
+        self.first_batches, self.builds = [], []  # the loop's own batch builds, s
+        self.worker_env = {}
+        # Gaps between step i and i + 1 that hold a harvest or a profiler's
+        # start or stop: left out of the loop's rate.
+        self.dirty = set()
+
+    def __enter__(self):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        from aznet_tpu_torch.data import prefetch
+        from aznet_tpu_torch.ops.cuda import nms_kernel
+        from aznet_tpu_torch.train import loop, mining
+
+        probe, self._stack = self, contextlib.ExitStack()
+
+        def timed_step(make):
+            def build(*args, **kwargs):
+                step = make(*args, **kwargs)
+
+                def call(state, batch, seed):
+                    i = len(probe.steps)
+                    if any(i == a for a, _ in probe.windows):
+                        torch.cuda.synchronize()
+                        probe.dirty.add(i - 1)
+                        probe.profiles.append(profile(activities=[ProfilerActivity.CUDA]))
+                        probe.profiles[-1].__enter__()
+                        probe._t0 = time.perf_counter()
+                    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                    t0 = time.perf_counter()
+                    start.record()
+                    metrics = step(state, batch, seed)
+                    end.record()
+                    probe.steps.append((start, end, t0, metrics))
+                    if any(i == b for _, b in probe.windows):
+                        torch.cuda.synchronize()
+                        probe.window_s += time.perf_counter() - probe._t0
+                        probe.profiles[-1].__exit__(None, None, None)
+                        probe.dirty.add(i)
+                    return metrics
+                return call
+            return build
+
+        def timed_next(cls):
+            real = cls.next
+
+            def call(pf):
+                t0 = time.perf_counter()
+                batch = real(pf)
+                probe.waits.append(time.perf_counter() - t0)
+                if cls is prefetch.MPPrefetcher:
+                    probe.worker_env = pf.worker_env
+                    if len(probe.first_batches) < 2:
+                        probe.first_batches.append(batch)
+                return batch
+            return real, call
+
+        real_harvest = mining.RegionMiner.harvest
+
+        def harvest(miner, model):
+            probe.dirty.add(len(probe.steps) - 1)
+            torch.cuda.synchronize()
+            n0, t0 = nms_kernel.LAUNCHES, time.perf_counter()
+            with recording_nms(probe.nms_inputs) if not probe.harvests else contextlib.nullcontext():
+                n = real_harvest(miner, model)
+            torch.cuda.synchronize()
+            probe.harvests.append((time.perf_counter() - t0, n, nms_kernel.LAUNCHES - n0))
+            return n
+
+        for name in ("make_az_train_step", "make_frcnn_train_step"):
+            self._stack.enter_context(wrapped_attr(loop, name, timed_step(getattr(loop, name))))
+        for cls in (loop._Prefetcher, prefetch.MPPrefetcher):
+            self._stack.enter_context(wrapped_attr(cls, "next", timed_next(cls)[1]))
+        self._stack.enter_context(wrapped_attr(mining.RegionMiner, "harvest", harvest))
+        real_build = loop.get_az_minibatch
+
+        def build(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = real_build(*args, **kwargs)
+            probe.builds.append(time.perf_counter() - t0)
+            return out
+
+        self._stack.enter_context(wrapped_attr(loop, "get_az_minibatch", build))
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.cuda.synchronize()
+        self._stack.close()
+
+    def metrics(self):
+        return [{k: float(v) for k, v in m.items()} for *_, m in self.steps]
+
+    def busy(self):
+        """(kernel ms, wall ms, share) over the profiled windows."""
+        kernel_ms = sum(kernel_us(p.key_averages()) for p in self.profiles) / 1e3
+        return kernel_ms, self.window_s * 1e3, kernel_ms / (self.window_s * 1e3)
+
+    def summary(self, ims, warmup):
+        """After ``warmup`` steps: (ms per step by events, img/s at that rate,
+        img/s of the loop: ``ims`` over the mean time from one step's start to
+        the next's by the same events, gaps that hold a harvest or a profiler
+        start or stop left out, mean prefetch wait ms per step)."""
+        steady = self.steps[warmup:]
+        ms = sum(s.elapsed_time(e) for s, e, *_ in steady) / len(steady)
+        gaps = [self.steps[i][0].elapsed_time(self.steps[i + 1][0])
+                for i in range(warmup, len(self.steps) - 1) if i not in self.dirty]
+        wait = sum(self.waits[warmup:]) / len(self.waits[warmup:]) * 1e3
+        return ms, ims * 1e3 / ms, ims * 1e3 * len(gaps) / sum(gaps), wait
+
+
+def kernel_us(events):
+    """Microseconds of the card's own events (kernels, copies) in a profile:
+    a host operator's device time counts its kernels again."""
+    from torch.autograd import DeviceType
+
+    return sum(e.self_device_time_total for e in events if e.device_type == DeviceType.CUDA)
+
+
+@contextlib.contextmanager
+def wrapped_attr(owner, name, value):
+    real = getattr(owner, name)
+    setattr(owner, name, value)
+    try:
+        yield
+    finally:
+        setattr(owner, name, real)
+
+
+def check_metrics(tag, metrics, keys):
+    for i, m in enumerate(metrics):
+        check(set(keys) <= set(m) and all(np.isfinite(m[k]) for k in keys),
+              f"{tag} step {i + 1}: metrics {m}")
+
+
+def train_launch_counts():
+    from aznet_tpu_torch.ops.cuda import conv1_kernel, iou_kernel, nms_kernel, roi_align_kernel
+    from aznet_tpu_torch.ops.cuda import conv_int8_kernel as ck
+
+    return {"nms": nms_kernel.LAUNCHES, "roi_align": roi_align_kernel.LAUNCHES,
+            "conv1": conv1_kernel.LAUNCHES, "chain": ck.LAUNCHES["chain"],
+            "strip": ck.LAUNCHES["strip"], "iou": iou_kernel.LAUNCHES}
+
+
+def phase11_train(dev, card):
+    """Training at full VGG-16 width on ``synthetic_hard_train``: (a) AZ-Net,
+    12 steps with mining every 4 steps over 8 images, timed; (b) a resume to
+    14; (c) the chain: an inference net from the ``deploy/`` weights with the
+    detect configuration, ``propose_all`` over 8 training images, Fast R-CNN
+    trained 6 steps on those proposals; (d) ``REMAT_TRUNK`` on against off,
+    and 4 prefetch workers against the thread; (e) one AZ and one Fast R-CNN
+    step on the card against the CPU (smallnet, float32). Every launch count
+    is set to 0 at the start and read at the end. Returns the launches and
+    the NMS error on the first harvest's inputs."""
+    import shutil
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from aznet_tpu_torch import api
+    from aznet_tpu_torch.data import get_imdb
+    from aznet_tpu_torch.data.minibatch import fixed_canvas, get_az_minibatch
+    from aznet_tpu_torch.data.prefetch import MPPrefetcher, az_batch_builder
+    from aznet_tpu_torch.data.synthetic import SyntheticImdb
+    from aznet_tpu_torch.eval.detection import propose_all
+    from aznet_tpu_torch.ops.cuda import conv1_kernel, iou_kernel, nms_kernel, roi_align_kernel
+    from aznet_tpu_torch.ops.cuda import conv_int8_kernel as ck
+    from aznet_tpu_torch.train import loop
+    from aznet_tpu_torch.train.train_az import make_az_train_state, make_az_train_step
+    from aznet_tpu_torch.utils.checkpoint import Checkpointer
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    base = get_imdb(TRAIN_IMDB)
+    roidb = list(base.roidb)
+    print(f"phase11 {TRAIN_IMDB}: {len(roidb)} images made in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    out_root = tempfile.mkdtemp(prefix="aznet_train_")
+    nms_kernel.LAUNCHES = roi_align_kernel.LAUNCHES = conv1_kernel.LAUNCHES = 0
+    iou_kernel.LAUNCHES = ck.LAUNCHES["chain"] = ck.LAUNCHES["strip"] = 0
+    try:
+        # (a) AZ-Net with mining.
+        cfg = train_config(MINE_INTERVAL=MINE_INTERVAL, MINE_IMAGES=MINE_IMAGES)
+        check(fixed_canvas(imdb_over(base, roidb), cfg) == CANVAS, "the training canvas")
+        state = make_az_train_state(cfg, device=dev)
+        watch = {k: v.detach().clone() for k, v in state.model.state_dict().items()
+                 if k in ("trunk.conv1_1.weight", "trunk.conv5_3.weight", "head.fc.fc6.weight",
+                          "head.adj_bbox.weight")}
+        with profile(activities=[ProfilerActivity.CUDA]):  # CUPTI starts here, not in a window
+            torch.ones(1, device=dev).add_(1)
+            torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with TrainProbe(PROFILED) as probe:
+            state, model, out = loop.train_az_net(cfg, TRAIN_IMDB, max_iters=TRAIN_STEPS,
+                                                  output_dir=f"{out_root}/az", state=state,
+                                                  imdb=imdb_over(base, roidb), device=dev)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        metrics = probe.metrics()
+        check(len(metrics) == TRAIN_STEPS and state.step == TRAIN_STEPS, "11a: step count")
+        check_metrics("11a", metrics, ("loss", "zoom_loss", "adj_loss", "bbox_loss", "grad_norm"))
+        moved = {k: float((state.model.state_dict()[k] - v).abs().max()) for k, v in watch.items()}
+        check(all(v > 0 for v in moved.values()), f"11a: parameters did not move: {moved}")
+        ms, ips_dev, ips, wait = probe.summary(cfg.TRAIN.IMS_PER_BATCH, TRAIN_WARMUP)
+        kernel_ms, window_ms, busy = probe.busy()
+        warm = probe.harvests[1:]  # the first harvest also pays the inference shapes' first calls
+        harvest_ms = sum(h[0] for h in warm) * 1e3 / sum(h[1] for h in warm)
+        harvest_nms = sum(h[2] for h in probe.harvests)
+        print(f"phase11a AZ-Net VGG-16 bf16 full width, {TRAIN_STEPS} steps at b=2 on "
+              f"{CANVAS[0]}x{CANVAS[1]}, mining every {MINE_INTERVAL} over {MINE_IMAGES} images "
+              f"({card}): {wall:.2f} s in train_az_net; after {TRAIN_WARMUP} warm-up steps "
+              f"{ms:.3f} ms/step by events ({ips_dev:.2f} img/s), {ips:.2f} img/s from step "
+              f"start to step start less the harvests, prefetch wait {wait:.3f} ms/step "
+              f"(batch build {np.mean(probe.builds) * 1e3:.1f} ms on the thread); device busy "
+              f"{busy:.4f} of steps {list(PROFILED)} (torch.profiler, {kernel_ms:.1f} ms of "
+              f"kernels in {window_ms:.1f} ms); peak {peak:.2f} GiB", flush=True)
+        print(f"phase11a losses: " + ", ".join(f"{m['loss']:.4f}" for m in metrics)
+              + "; grad_norm: " + ", ".join(f"{m['grad_norm']:.3f}" for m in metrics)
+              + f"; max |update| {moved}", flush=True)
+        print(f"phase11a harvests: {len(probe.harvests)} x {MINE_IMAGES} images, "
+              f"{harvest_ms:.2f} ms/image after the first, NMS launches {harvest_nms} "
+              f"({[round(h[0] * 1e3, 1) for h in probe.harvests]} ms each)", flush=True)
+        check(harvest_nms > 0 and probe.nms_inputs, "11a: the harvests launched no NMS kernel")
+        n0 = nms_kernel.LAUNCHES
+        nms_err = nms_path_err(probe.nms_inputs)
+        nms_kernel.LAUNCHES = n0  # the comparison's own launches are not the path's
+        print(f"phase11a NMS kernel on the first harvest's {len(probe.nms_inputs)} inputs: "
+              f"max_abs_err {nms_err}", flush=True)
+        check(nms_err == 0.0, "11a: NMS kernel disagrees with its plain version on the "
+                              "harvest's inputs")
+        ckpt = Checkpointer(out)
+        check(ckpt.all_steps() == [TRAIN_STEPS], f"11a: snapshots {ckpt.all_steps()}")
+        deploy = Checkpointer(f"{out}/deploy")
+        check(deploy.all_steps() == [TRAIN_STEPS], f"11a: deploy snapshots {deploy.all_steps()}")
+        del state, model
+        torch.cuda.empty_cache()
+
+        # (b) resume.
+        with TrainProbe() as probe:
+            state, _, _ = loop.train_az_net(cfg, TRAIN_IMDB, max_iters=RESUME_STEPS,
+                                            output_dir=out, imdb=imdb_over(base, roidb),
+                                            device=dev)
+        metrics = probe.metrics()
+        check(len(metrics) == RESUME_STEPS - TRAIN_STEPS and state.step == RESUME_STEPS
+              and ckpt.all_steps() == [TRAIN_STEPS, RESUME_STEPS],
+              f"11b: {len(metrics)} steps to {state.step}, snapshots {ckpt.all_steps()}")
+        check_metrics("11b", metrics, ("loss", "grad_norm"))
+        print(f"phase11b resumed at step {TRAIN_STEPS}, ran to {state.step}: losses "
+              + ", ".join(f"{m['loss']:.4f}" for m in metrics), flush=True)
+        del state
+        torch.cuda.empty_cache()
+
+        # (c) the chain: deploy weights -> proposals -> Fast R-CNN.
+        params, _ = deploy.restore({"params": 0})
+        az = api.build_az_net(eval_config(), state_dict=params["params"], device=dev)
+        chain_imdb = SyntheticImdb(split="train", seed=base.seed, num_images=CHAIN_IMAGES,
+                                   image_hw=base.image_hw, hard=base.hard)
+        before = train_launch_counts()
+        t0 = time.perf_counter()
+        props = propose_all(az, chain_imdb)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        delta = {k: v - before[k] for k, v in train_launch_counts().items()}
+        check_proposals("11c", props, chain_imdb, az.cfg.SEAR.NUM_PROPOSALS)
+        check(all(delta[k] > 0 for k in ("nms", "roi_align", "conv1")),
+              f"11c: propose_all did not launch every kernel: {delta}")
+        print(f"phase11c propose_all with the deploy weights ('align_pallas', FUSE_CONV1) over "
+              f"{CHAIN_IMAGES} images: {s * 1e3 / CHAIN_IMAGES:.2f} ms/image, "
+              f"{sum(len(p) for p in props)} proposals, launches {delta}", flush=True)
+        del az
+        cfg_fr = train_config()
+        with TrainProbe() as probe:
+            state, _, out_fr = loop.train_frcnn_net(
+                cfg_fr, TRAIN_IMDB, lambda i: props[i % CHAIN_IMAGES], max_iters=FRCNN_STEPS,
+                output_dir=f"{out_root}/frcnn", imdb=chain_imdb, device=dev)
+        metrics = probe.metrics()
+        check(len(metrics) == FRCNN_STEPS, "11c: Fast R-CNN step count")
+        check_metrics("11c", metrics, ("loss", "cls_loss", "bbox_loss", "acc", "grad_norm"))
+        check(Checkpointer(f"{out_fr}/deploy").all_steps() == [FRCNN_STEPS], "11c: deploy")
+        ms, ips_dev, _, wait = probe.summary(cfg_fr.TRAIN.IMS_PER_BATCH, TRAIN_WARMUP)
+        print(f"phase11c Fast R-CNN {FRCNN_STEPS} steps on the proposals: losses "
+              + ", ".join(f"{m['loss']:.4f}" for m in metrics) + "; acc "
+              + ", ".join(f"{m['acc']:.4f}" for m in metrics)
+              + f"; {ms:.3f} ms/step by events, prefetch wait {wait:.3f} ms/step", flush=True)
+        del state
+        torch.cuda.empty_cache()
+
+        # (d) REMAT_TRUNK, and the prefetch workers.
+        cfg0 = train_config()
+        imdb = imdb_over(base, roidb[:2])
+        batch = get_az_minibatch(imdb, imdb.roidb, cfg0, np.random.RandomState(0),
+                                 fixed_canvas(imdb, cfg0))
+        out_remat = {}
+        for remat in (False, True):
+            st = make_az_train_state(cfg0, device=dev)
+            step = make_az_train_step(st.model, remat_trunk=remat)
+            step(st, batch, cfg0.RNG_SEED + 1)  # warm-up, then the measured first step
+            st = make_az_train_state(cfg0, device=dev)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            loss = float(make_az_train_step(st.model, remat_trunk=remat)(
+                st, batch, cfg0.RNG_SEED)["loss"])
+            out_remat[remat] = (loss, torch.cuda.max_memory_allocated() / 2 ** 30)
+            del st, step
+            torch.cuda.empty_cache()
+        (l_off, p_off), (l_on, p_on) = out_remat[False], out_remat[True]
+        print(f"phase11d REMAT_TRUNK: first-step loss {l_on:.6f} on, {l_off:.6f} off (same "
+              f"dropout generator); peak {p_on:.3f} GiB on, {p_off:.3f} GiB off", flush=True)
+        check(abs(l_on - l_off) <= BF16_TOL * abs(l_off), "11d: REMAT_TRUNK changed the loss")
+        check(p_on < p_off, "11d: REMAT_TRUNK did not lower the peak memory")
+        step_breakdown(dev, cfg0, batch)
+        lines = {}
+        for workers in (1, 4):
+            cfg_w = train_config(NUM_WORKERS=workers)
+            with TrainProbe() as probe:
+                loop.train_az_net(cfg_w, TRAIN_IMDB, max_iters=WORKER_STEPS,
+                                  output_dir=f"{out_root}/workers{workers}",
+                                  imdb=imdb_over(base, roidb), device=dev)
+            check_metrics(f"11d workers {workers}", probe.metrics(), ("loss",))
+            # Warm-up: until every worker has delivered its first batch (their
+            # start-ups end at different times).
+            warmup = max(TRAIN_WARMUP, workers)
+            ms, _, ips, wait = probe.summary(cfg_w.TRAIN.IMS_PER_BATCH, warmup)
+            lines[workers] = (ms, ips, wait, probe.first_batches)
+            built = (f"{np.mean(probe.builds) * 1e3:.1f} ms a batch on the thread" if probe.builds
+                     else "each worker's latest batch in " + ", ".join(
+                         f"{e['batch_s'] * 1e3:.1f}" for e in probe.worker_env.values()) + " ms")
+            print(f"phase11d NUM_WORKERS {workers}: {ms:.3f} ms/step by events, {ips:.2f} img/s "
+                  f"from step start to step start, prefetch wait {wait:.3f} ms/step after "
+                  f"{warmup} warm-up steps ({WORKER_STEPS} steps, no mining; built {built}; "
+                  f"waits {[round(w * 1e3, 1) for w in probe.waits]} ms)", flush=True)
+        cfg2 = train_config(NUM_WORKERS=2)
+        pf = MPPrefetcher(az_batch_builder, {"imdb_name": TRAIN_IMDB, "cfg": cfg2,
+                                             "seed": cfg2.RNG_SEED, "pid": 0, "pcount": 1,
+                                             "ims_local": cfg2.TRAIN.IMS_PER_BATCH}, workers=2)
+        try:
+            two = [pf.next() for _ in range(2)]
+        finally:
+            pf.close()
+        four = lines[4][3]
+        same = len(four) == 2 and all(
+            sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k]) for k in a)
+            for a, b in zip(two, four))
+        print(f"phase11d first 2 batches of NUM_WORKERS 2 and 4 equal: {same}; workers "
+              f"{pf.worker_env} (batch_s: host seconds to build its latest batch)", flush=True)
+        check(same, "11d: the worker stream depends on the worker count")
+        check(all(not e["cuda_initialized"] and not e["jax_imported"]
+                  for e in pf.worker_env.values()), "11d: a prefetch worker touched CUDA or JAX")
+
+        # (e) card against CPU.
+        errs = train_card_vs_cpu(dev)
+    finally:
+        shutil.rmtree(out_root, ignore_errors=True)
+    launches = train_launch_counts()
+    print(f"phase11 launches {launches}; {time.perf_counter() - t_phase:.1f} s", flush=True)
+    check(launches["nms"] > 0, "phase 11 launched no NMS kernel")
+    return {"launches": launches, "nms_err": nms_err, "card_vs_cpu": errs}
+
+
+def step_breakdown(dev, cfg, batch, steps=3):
+    """The AZ train step on one batch under ``torch.profiler`` (host and
+    card): host ms per step, kernel ms per step, and the operators with the
+    most host time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from aznet_tpu_torch.train.train_az import make_az_train_state, make_az_train_step
+
+    state = make_az_train_state(cfg, device=dev)
+    step = make_az_train_step(state.model)
+    for _ in range(2):
+        step(state, batch, cfg.RNG_SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step(state, batch, cfg.RNG_SEED)
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / steps
+    events = prof.key_averages()
+    kernel = kernel_us(events) / 1e3 / steps
+    top = sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)[:10]
+    print(f"phase11d step breakdown (torch.profiler, {steps} steps, host and card traced): "
+          f"{wall:.2f} ms a step on the host clock, {kernel:.2f} ms of kernels a step; most host "
+          "time (self ms a step, calls a step): " + "; ".join(
+              f"{e.key} {e.self_cpu_time_total / 1e3 / steps:.2f} ({e.count // steps})"
+              for e in top), flush=True)
+    del state, step
+    torch.cuda.empty_cache()
+
+
+def _train_batch(kind, seed, b=2, r=8, k=5, c=4):
+    """The CPU tests' batches (tests/test_torch_train.py): 64x64 images."""
+    rng = np.random.RandomState(seed)
+    rois = rng.uniform(0, 40, (b, r, 4)).astype(np.float32)
+    rois[..., 2:] += 16.0
+    batch = {"images": rng.uniform(-1, 1, (b, 64, 64, 3)).astype(np.float32), "rois": rois,
+             "roi_valid": np.ones((b, r), bool)}
+    if kind == "az":
+        batch.update(zoom_labels=rng.randint(0, 2, (b, r)).astype(np.float32),
+                     adj_labels=rng.randint(0, 2, (b, r, k)).astype(np.float32),
+                     adj_targets=rng.normal(0, 0.1, (b, r, k, 4)).astype(np.float32),
+                     adj_inside=np.ones((b, r, k, 4), np.float32))
+    else:
+        labels = rng.randint(0, c, (b, r)).astype(np.int32)
+        inside = np.zeros((b, r, 4 * c), np.float32)
+        for i, j in zip(*np.nonzero(labels)):
+            inside[i, j, 4 * labels[i, j]:4 * labels[i, j] + 4] = 1.0
+        batch.update(labels=labels, bbox_targets=inside * rng.normal(0, 0.1, inside.shape)
+                     .astype(np.float32), bbox_inside=inside)
+    return batch
+
+
+def train_card_vs_cpu(dev):
+    """One AZ and one Fast R-CNN step, smallnet float32 with DROPOUT 0, on the
+    card and on the CPU from the same weights and batch: loss and metrics to
+    1e-4 relative, each parameter's update to 2e-3 of its largest update (the
+    float32 bounds of tests/test_torch_train.py)."""
+    from aznet_tpu_torch.config import Config, cfg_from_dict
+    from aznet_tpu_torch.train import train_az, train_frcnn
+
+    cfg = cfg_from_dict(Config(), {
+        "MODEL": {"BACKBONE": "smallnet", "FC_DIM": 32, "NUM_TEMPLATES": 5, "NUM_CLASSES": 4,
+                  "COMPUTE_DTYPE": "float32", "DROPOUT": 0.0},
+        "TRAIN": {"LEARNING_RATE": 0.03}})
+    out = {}
+    for kind, make, make_step in (
+            ("az", train_az.make_az_train_state, train_az.make_az_train_step),
+            ("frcnn", train_frcnn.make_frcnn_train_state, train_frcnn.make_frcnn_train_step)):
+        cpu = make(cfg, device="cpu")
+        card = make(cfg, device=dev, state_dict=cpu.model.state_dict())
+        before = {k: v.clone() for k, v in cpu.model.state_dict().items()}
+        batch = _train_batch(kind, 11)
+        m_cpu = make_step(cpu.model)(cpu, batch, 0)
+        m_card = make_step(card.model)(card, batch, 0)
+        d_m = max(abs(float(m_card[k]) - float(m_cpu[k])) / max(abs(float(m_cpu[k])), 1e-3)
+                  for k in m_cpu)
+        after = card.model.state_dict()
+        d_u = max(float(((after[k].cpu() - before[k]) - (v - before[k])).abs().max()
+                        / (v - before[k]).abs().max()) for k, v in cpu.model.state_dict().items())
+        print(f"phase11e {kind} step, smallnet f32, card vs CPU: loss {float(m_card['loss']):.6f} "
+              f"vs {float(m_cpu['loss']):.6f}, metrics max rel diff {d_m:.3g} (bound {F32_TOL}), "
+              f"updates max diff {d_u:.3g} of the largest (bound {F32_UPDATE_TOL})", flush=True)
+        check(d_m <= F32_TOL and d_u <= F32_UPDATE_TOL, f"11e: {kind} step on the card is not "
+                                                         "the CPU's")
+        out[kind] = (d_m, d_u)
+    return out
+
+
 def main(argv) -> int:
     import torch
 
@@ -2195,6 +2712,8 @@ def main(argv) -> int:
     iou_kernel.LAUNCHES = 0
     phase10_reference(dev)
     iou_path_launches += ev["launches"]["iou"] + iou_kernel.LAUNCHES
+    tr = phase11_train(dev, card)  # sets every count to 0 and reads them at its end
+    train = tr["launches"]
     paths = [res["bf16"], res["int8"], small["caffenet"], small["vgg_cnn_m_1024"]]
     print(f"phase7-10 launches: IoU kernel {iou_path_launches} on the main paths (no path calls "
           f"it); " + "; ".join(f"{tag} nms {p['nms']}, roi_align {p['roi']}" for tag, p in zip(
@@ -2206,7 +2725,8 @@ def main(argv) -> int:
     records = [{
         "name": "nms_exact_greedy", "route": "cuda", "source": NMS_SOURCE,
         "replaces": NMS_REPLACES, "launches": launches, "eval_launches": ev["launches"]["nms"],
-        "max_abs_err": max(err1, err2, int8["nms_err"], ev["err"]["nms"],
+        "train_launches": train["nms"],
+        "max_abs_err": max(err1, err2, int8["nms_err"], ev["err"]["nms"], tr["nms_err"],
                            *(p["nms_err"] for p in paths)),
         "ms": nms_t["ms"], "device_us": nms_t["device_us"], "plain_ms": nms_t["plain_ms"],
         "bound_ms": nms_b[0], "bound_by": nms_b[1], "library_ms": None}]
@@ -2215,7 +2735,7 @@ def main(argv) -> int:
         records.append({
             "name": f"conv3x3_int8_{entry}", "route": "cuda", "source": CONV_SOURCE,
             "replaces": replaces, "launches": int8["launches"][entry],
-            "eval_launches": ev["launches"][entry],
+            "eval_launches": ev["launches"][entry], "train_launches": train[entry],
             "max_abs_err": max(conv["err"][entry], int8["conv_err"][entry], ev["err"][entry]),
             "ms": conv["ms"][entry], "plain_ms": conv["plain_ms"][entry],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": conv["library_ms"][entry]})
@@ -2227,6 +2747,7 @@ def main(argv) -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": det["launches"]["roi_align" if key == "roi" else "conv1"],
             "eval_launches": ev["launches"]["roi_align" if key == "roi" else "conv1"],
+            "train_launches": train["roi_align" if key == "roi" else "conv1"],
             "max_abs_err": max(rec["err"], det["err"][key], ev["err"][key],
                                *(p["roi_err"] for p in paths if key == "roi")), "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound"][0],
@@ -2234,7 +2755,7 @@ def main(argv) -> int:
     records.append({
         "name": "bbox_overlaps_iou", "route": "cuda", "source": IOU_SOURCE,
         "replaces": IOU_REPLACES, "launches": iou_path_launches,
-        "eval_launches": ev["launches"]["iou"],
+        "eval_launches": ev["launches"]["iou"], "train_launches": train["iou"],
         "max_abs_err": iou["err"],
         "ms": iou["ms"], "device_us": iou["device_us"], "plain_ms": iou["plain_ms"],
         "bound_ms": iou["bound"][0], "bound_by": iou["bound"][1], "library_ms": None})

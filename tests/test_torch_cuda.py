@@ -627,3 +627,89 @@ def test_eval_drivers_on_card_equal_cpu(dev):
     for k in want[5]:
         for t in want[5][k]:
             assert abs(got[5][k][t] - want[5][k][t]) <= 1.0 / n_gt
+
+
+def _train_batch(seed, hw=(64, 96), b=2, r=16, k=11):
+    rng = np.random.RandomState(seed)
+    rois = rng.uniform(0, 40, (b, r, 4)).astype(np.float32)
+    rois[..., 2:] += rng.uniform(16, 40, (b, r, 2)).astype(np.float32)
+    return {
+        "images": rng.uniform(-100, 100, (b,) + hw + (3,)).astype(np.float32),
+        "rois": rois,
+        "roi_valid": np.ones((b, r), bool),
+        "zoom_labels": rng.randint(0, 2, (b, r)).astype(np.float32),
+        "adj_labels": rng.randint(0, 2, (b, r, k)).astype(np.float32),
+        "adj_targets": rng.normal(0, 0.1, (b, r, k, 4)).astype(np.float32),
+        "adj_inside": np.ones((b, r, k, 4), np.float32),
+    }
+
+
+def test_train_step_on_card_equals_cpu(dev):
+    """One bf16 AZ step of VGG-16 at WIDTH 0.25 (DROPOUT 0) on the card and on
+    the CPU from the same weights and batch, at the bf16 bounds of
+    tests/test_torch_train.py: loss and metrics to 1e-2 relative, each
+    parameter's update at a cosine above 0.95 and its norm within 15%."""
+    from aznet_tpu_torch.train import train_az
+
+    cfg = cfg_from_dict(Config(), {"MODEL": {"WIDTH": 0.25, "FC_DIM": 64, "DROPOUT": 0.0}})
+    cpu = train_az.make_az_train_state(cfg, device="cpu")
+    card = train_az.make_az_train_state(cfg, device=dev, state_dict=cpu.model.state_dict())
+    before = {k: v.clone() for k, v in cpu.model.state_dict().items()}
+    batch = _train_batch(0)
+    m_cpu = train_az.make_az_train_step(cpu.model)(cpu, batch, 0)
+    m_card = train_az.make_az_train_step(card.model)(card, batch, 0)
+    for key in m_cpu:
+        a, b = float(m_card[key]), float(m_cpu[key])
+        assert abs(a - b) <= 1e-2 * max(abs(b), 1e-3), (key, a, b)
+    after = card.model.state_dict()
+    for k, p in cpu.model.state_dict().items():
+        want = (p - before[k]).double().ravel()
+        got = (after[k].cpu() - before[k]).double().ravel()
+        cos = float(got @ want / (got.norm() * want.norm()))
+        assert cos > 0.95 and abs(float(got.norm() / want.norm()) - 1) <= 0.15, (k, cos)
+
+
+def test_fuse_conv1_under_grad_raises_on_card(dev):
+    """The fused conv1 kernel has no backward: a training net with
+    FUSE_CONV1 raises where autograd records, and launches it under
+    no_grad."""
+    from aznet_tpu_torch.train import train_az
+
+    cfg = cfg_from_dict(Config(), {"MODEL": {"WIDTH": 0.25, "FC_DIM": 64, "FUSE_CONV1": True}})
+    state = train_az.make_az_train_state(cfg, device=dev)
+    batch = train_az.to_device(_train_batch(1), dev)
+    with pytest.raises(RuntimeError, match="FUSE_CONV1"):
+        train_az.az_loss(state.model, batch)
+    before = conv1_kernel.LAUNCHES
+    with torch.no_grad():
+        loss, _ = train_az.az_loss(state.model, batch)
+    assert conv1_kernel.LAUNCHES == before + 1 and torch.isfinite(loss)
+
+
+def test_prefetch_workers_leave_cuda_uninitialised(dev):
+    """With CUDA live in the parent, two spawned prefetch workers build
+    batches with the card hidden and CUDA never initialised; the parent's
+    environment comes back as it was."""
+    import os
+
+    from aznet_tpu_torch.data.prefetch import MPPrefetcher, az_batch_builder
+
+    torch.zeros(1, device=dev)
+    assert torch.cuda.is_initialized()
+    saved = os.environ.get("CUDA_VISIBLE_DEVICES")
+    cfg = cfg_from_dict(Config(), {
+        "MODEL": {"BACKBONE": "smallnet"},
+        "TRAIN": {"SCALES": [96], "MAX_SIZE": 128, "REGIONS_PER_IMAGE": 32,
+                  "USE_FLIPPED": False}})
+    pf = MPPrefetcher(az_batch_builder, {"imdb_name": "synthetic_train", "cfg": cfg, "seed": 7,
+                                         "pid": 0, "pcount": 1, "ims_local": 2}, workers=2)
+    try:
+        batches = [pf.next() for _ in range(4)]
+    finally:
+        pf.close()
+    assert os.environ.get("CUDA_VISIBLE_DEVICES") == saved
+    assert all(b["images"].shape == (2, 96, 128, 3) for b in batches)
+    assert sorted(pf.worker_env) == [0, 1]
+    for env in pf.worker_env.values():
+        assert (env["jax_imported"], env["cuda_initialized"],
+                env["cuda_visible_devices"]) == (False, False, ""), env

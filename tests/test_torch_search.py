@@ -85,7 +85,29 @@ def test_az_search_matches(small_net, scfg, hw):
 
 
 def test_collect_frontier_is_not_ported(small_net):
-    _, _, feat, tm = small_net
-    with pytest.raises(NotImplementedError):
-        tprop.az_search(tm.roi_forward, torch.from_numpy(np.array(feat)), (96, 128), SCFG,
-                        num_templates=5, collect_frontier=True)
+    """``collect_frontier`` (ported with hard-region mining) against JAX's:
+    the same proposals as without it, and the visited regions in the JAX
+    layout (a FRONTIER_CAP block per level, the unrolled levels padded),
+    boxes to 1e-3 px, validity exact; with SCFG (a level past the unrolled
+    prefix) and TIGHT (every level at capacity)."""
+    jm, params, feat, tm = small_net
+    for scfg, hw in ((SCFG, (96, 128)), (TIGHT, (90, 120))):
+        want = jax.jit(lambda f: jprop.az_search(
+            lambda ff, r: jm.apply(params, ff, r, method="roi_forward"),
+            f, hw, scfg, num_templates=5, collect_frontier=True))(feat)
+        with torch.no_grad():
+            got = tprop.az_search(tm.roi_forward, torch.from_numpy(np.array(feat)),
+                                  (torch.tensor(float(hw[0])), torch.tensor(float(hw[1]))),
+                                  scfg, num_templates=5, collect_frontier=True)
+            plain = tprop.az_search(tm.roi_forward, torch.from_numpy(np.array(feat)),
+                                    (torch.tensor(float(hw[0])), torch.tensor(float(hw[1]))),
+                                    scfg, num_templates=5)
+        assert len(got) == 5
+        for a, b in zip(got[:3], plain):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+        vis_j, ok_j = np.asarray(want[3]), np.asarray(want[4])
+        vis_t, ok_t = got[3].numpy(), got[4].numpy()
+        assert vis_t.shape == (scfg.MAX_LEVELS * scfg.FRONTIER_CAP, 4)
+        np.testing.assert_array_equal(ok_t, ok_j)
+        assert ok_t[scfg.FRONTIER_CAP:].sum() > 0
+        np.testing.assert_allclose(vis_t, vis_j, atol=1e-3, rtol=0)
