@@ -2,7 +2,7 @@
 and top-k.
 
 Counterpart of ``aznet_tpu/ops/nms.py`` (``nms``, ``nms_mask``,
-``nms_topk``). :func:`nms` is the host greedy NMS over ``[N, 5]`` NumPy
+``nms_jax``, ``nms_topk``). :func:`nms` is the host greedy NMS over ``[N, 5]`` NumPy
 detections (per-class NMS in evaluation), through the port's host library
 (``utils/native.py``), with :func:`nms_np`, the NumPy loop, as its plain
 version. The device keep set is exact greedy NMS under the Pallas kernel's
@@ -136,6 +136,13 @@ def nms_mask(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
     ``scores [N]``, in the ORIGINAL box order."""
     return nms_mask_batched(boxes[None], scores[None], iou_threshold,
                             None if valid is None else valid[None], offset)[0]
+
+
+def nms_jax(dets: torch.Tensor, thresh: float, valid: torch.Tensor | None = None,
+            offset: float = 1.0) -> torch.Tensor:
+    """The device form of :func:`nms` (the reference's name): the keep mask
+    ``[N]`` of ``dets [N, 5] = [x1, y1, x2, y2, score]``, in their order."""
+    return nms_mask(dets[:, :4], dets[:, 4], thresh, valid=valid, offset=offset)
 
 
 def nms_topk(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,

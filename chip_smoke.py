@@ -139,9 +139,29 @@
    Fast R-CNN step, smallnet float32, on the card against the CPU at the
    CPU tests' float32 bounds.
 
+13. Phase 12: the command-line tools (``tools_torch/``) in-process through
+   ``main(argv)``, on the card at full VGG-16 width with
+   ``experiments/cfgs/az_vgg_w100_synthetic_hard.yml``, on the first 32
+   images of ``synthetic_hard_train`` and the first 16 of
+   ``synthetic_hard_test`` (registered under names of their own), every
+   launch count set to 0 at its start and read at its end: (a)
+   ``train_net --net az`` 24 steps with mining every 8 over 8 images, then
+   a resume to 28; (b) ``propose_net --batched`` with ``'align_pallas'`` +
+   ``FUSE_CONV1``; (c) ``train_net --net frcnn`` 12 steps on those
+   proposals, then 4 with ``--init-trunk-from`` the AZ run, whose trunk
+   stays byte-identical; (d) ``test_net --mode recall --batched``, with
+   ``--int8`` and with ``--refine``; (e) ``test_net --mode detect
+   --batched --share-trunk`` (the fused program); (f) ``demo``; (g)
+   ``time_net --batch 2 --reps 3`` inside ``utils/profiling.trace``, whose
+   trace must hold CUDA kernel events; (h) ``convert_caffe`` on a random
+   ``.npz`` of VGG-16's full Caffe shapes, then ``test_net`` from that
+   snapshot. Each leg's wall time and launches; NMS, ROI align, conv1,
+   chain and strip must launch, IoU must not; the first launch of each
+   kernel is held against its plain version.
+
 Prints the card's name and power limit, one JSON line of kernel records
-(each with its bound, library yardstick and launches on the eval path and
-in training), and,
+(each with its bound, library yardstick and launches on the eval path, in
+training and in the tools), and,
 as the last line, ``{"ok": true, "device": {...}}``. Exits non-zero at the first failure and
 when no CUDA device is present. Imports no JAX and nothing of ``aznet_tpu``.
 
@@ -2650,6 +2670,260 @@ def train_card_vs_cpu(dev):
     return out
 
 
+TOOLS_CFG = "experiments/cfgs/az_vgg_w100_synthetic_hard.yml"
+# The tools' imdbs: the first 32 images of synthetic_hard_train and the first
+# 16 of synthetic_hard_test (each image is made from its own seed), under
+# names of their own, so that proposals cover every training image and the
+# test set is the whole imdb (test_net's full-run protocol).
+TOOLS_TRAIN, TOOLS_TEST = "synthetic_hard_train_first32", "synthetic_hard_test_first16"
+TOOLS_TRAIN_IMAGES, TOOLS_TEST_IMAGES = 32, 16
+TOOLS_AZ_STEPS, TOOLS_AZ_RESUME, TOOLS_MINE = 24, 28, 8  # mining every 8 steps over 8 images
+TOOLS_FRCNN_STEPS, TOOLS_SHARED_STEPS = 12, 4
+TOOLS_KERNELS = ("nms", "roi_align", "conv1", "chain", "strip")  # launched by the tools' legs
+
+
+def register_tools_imdbs():
+    from aznet_tpu_torch.data.imdb import register_imdb
+    from aznet_tpu_torch.data.synthetic import SyntheticImdb
+
+    for name, split, seed, n in ((TOOLS_TRAIN, "train", 10, TOOLS_TRAIN_IMAGES),
+                                 (TOOLS_TEST, "test", 12, TOOLS_TEST_IMAGES)):
+        register_imdb(name, lambda split=split, seed=seed, n=n: SyntheticImdb(
+            split=split, seed=seed, num_images=n, image_hw=RAW_HW, hard=True))
+
+
+def first_of_each(log):
+    """Keeps, in place, the first record of each kind in ``log``."""
+    seen = set()
+    log[:] = [r for r in log if r[0] not in seen and not seen.add(r[0])]
+
+
+def tool_json(text):
+    """The JSON object a tool printed last (``test_net``'s table, indented)."""
+    lines = text.splitlines()
+    return json.loads("\n".join(lines[max(i for i, line in enumerate(lines) if line == "{"):]))
+
+
+def caffe_npz(path, cfg, seed=0):
+    """A random ``.npz`` of the full Caffe shapes of an AZ-Net over VGG-16
+    (``{layer}_W`` ``(out, in, kh, kw)`` / ``(out, in)``, ``{layer}_b``),
+    from ``cfg``'s head sizes. Returns the number of floats written."""
+    from aznet_tpu_torch.models.vgg import VGG16_LAYOUT
+
+    rng = np.random.default_rng(seed)
+    arrays, c_in = {}, 3
+    for name, ch in VGG16_LAYOUT:
+        if ch is None:
+            continue
+        arrays[f"{name}_W"] = rng.standard_normal((ch, c_in, 3, 3), np.float32) * 0.01
+        arrays[f"{name}_b"] = rng.standard_normal(ch, np.float32) * 0.01
+        c_in = ch
+    fc, p, k = cfg.MODEL.FC_DIM, cfg.MODEL.POOL_SIZE, cfg.MODEL.NUM_TEMPLATES
+    for name, shape in (("fc6", (fc, c_in * p * p)), ("fc7", (fc, fc)), ("zoom_score", (1, fc)),
+                        ("adj_score", (k, fc)), ("adj_bbox", (4 * k, fc))):
+        arrays[f"{name}_W"] = rng.standard_normal(shape, np.float32) * 0.001
+        arrays[f"{name}_b"] = np.zeros(shape[0], np.float32)
+    np.savez(path, **arrays)
+    return sum(a.size for a in arrays.values())
+
+
+def phase12_tools(dev, card):
+    """The port's command-line tools (``tools_torch/``), called in-process
+    through ``main(argv)`` on the card at full VGG-16 width with
+    ``az_vgg_w100_synthetic_hard.yml`` on the first 32 images of
+    ``synthetic_hard_train`` and the first 16 of ``synthetic_hard_test``:
+    (a) ``train_net --net az`` 24 steps, mining every 8 over 8 images, then
+    a resume to 28; (b) ``propose_net --batched`` with ``'align_pallas'`` +
+    ``FUSE_CONV1``; (c) ``train_net --net frcnn --proposals`` 12 steps, then
+    4 with ``--init-trunk-from`` the AZ run (its trunk byte-identical after);
+    (d) ``test_net --mode recall --batched``, with ``--int8``, with
+    ``--refine``; (e) ``test_net --mode detect --batched --share-trunk`` on
+    the shared-trunk Fast R-CNN (the fused program); (f) ``demo``; (g)
+    ``time_net --batch 2 --reps 3`` inside ``utils/profiling.trace``; (h)
+    ``convert_caffe`` on a random ``.npz`` of VGG-16's full Caffe shapes, then
+    ``test_net`` from that snapshot. Every launch count is set to 0 at the
+    start and read at the end; each leg prints its wall time and launches;
+    the first launch of each kernel is held against its plain version.
+    Returns the launches and errors."""
+    import importlib
+    import io
+    import pickle
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from aznet_tpu_torch.eval import detection as tdet
+    from aznet_tpu_torch.ops.cuda import conv1_kernel, iou_kernel, nms_kernel, roi_align_kernel
+    from aznet_tpu_torch.ops.cuda import conv_int8_kernel as ck
+    from aznet_tpu_torch.utils import profiling
+    from aznet_tpu_torch.utils.checkpoint import Checkpointer
+    from tools_torch import _common
+
+    t_phase = time.perf_counter()
+    register_tools_imdbs()
+    cfg_path = str(Path(__file__).resolve().parent / TOOLS_CFG)
+    cfg = _common.load_config(cfg_path)
+    out = tempfile.mkdtemp(prefix="aznet_tools_")
+    base = ["--cfg", cfg_path]
+    fused = ["MODEL.POOLING_MODE", "align_pallas", "MODEL.FUSE_CONV1", "True"]
+    legs, recorded, recorded_conv, fused_calls = {}, [], [], []
+
+    def tool(leg, name, argv):
+        """``tools_torch.<name>.main(argv)``: its wall time, launches and
+        standard output (echoed, the long progress lines left out)."""
+        mod = importlib.import_module(f"tools_torch.{name}")
+        before = train_launch_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = mod.main(argv)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        delta = {k: v - before[k] for k, v in train_launch_counts().items()}
+        text = buf.getvalue()
+        for line in text.splitlines():
+            if not line.startswith(("propose_batched", "refined")):
+                print(f"phase12{leg}   {line}")
+        print(f"phase12{leg} {name} {' '.join(argv)}: {s:.2f} s ({card}); launches {delta}",
+              flush=True)
+        check(rc == 0, f"phase12{leg}: {name} returned {rc}")
+        first_of_each(recorded)
+        first_of_each(recorded_conv)
+        legs.setdefault(leg, []).append((name, s, delta))
+        return text, delta
+
+    nms_kernel.LAUNCHES = roi_align_kernel.LAUNCHES = conv1_kernel.LAUNCHES = 0
+    iou_kernel.LAUNCHES = ck.LAUNCHES["chain"] = ck.LAUNCHES["strip"] = 0
+    try:
+        with recording_nms(recorded), recording_detect_kernels(recorded), \
+                recording_conv(recorded_conv), \
+                wrapped(tdet, "detect_all_fused", before=lambda *a: fused_calls.append(1)):
+            # (a) AZ-Net with mining, then a resume.
+            az = f"{out}/az"
+            mine = ["TRAIN.MINE_INTERVAL", str(TOOLS_MINE), "TRAIN.MINE_IMAGES", str(TOOLS_MINE)]
+            text, d = tool("a", "train_net", ["--net", "az", "--imdb", TOOLS_TRAIN, "--iters",
+                                              str(TOOLS_AZ_STEPS), "--output", az] + base
+                           + ["--set"] + mine)
+            harvests = -(-TOOLS_AZ_STEPS // TOOLS_MINE)  # at steps 0, 8, 16: one NMS an image
+            check(d["nms"] == harvests * TOOLS_MINE and "done; checkpoints in" in text,
+                  f"12a: {d['nms']} NMS launches in {harvests} harvests of {TOOLS_MINE} images")
+            text, _ = tool("a", "train_net", ["--net", "az", "--imdb", TOOLS_TRAIN, "--iters",
+                                              str(TOOLS_AZ_RESUME), "--output", az] + base
+                           + ["--set"] + mine)
+            check(f"resumed from step {TOOLS_AZ_STEPS}" in text
+                  and Checkpointer(az).all_steps() == [TOOLS_AZ_STEPS, TOOLS_AZ_RESUME],
+                  f"12a: the resume ({Checkpointer(az).all_steps()})")
+
+            # (b) proposals with the ROI-align and conv1 kernels.
+            props = f"{out}/proposals.pkl"
+            _, d = tool("b", "propose_net", ["--imdb", TOOLS_TRAIN, "--ckpt", az, "--batched",
+                                             "--out", props] + base + ["--set"] + fused)
+            check(all(d[k] > 0 for k in ("nms", "roi_align", "conv1")), f"12b: launches {d}")
+            from aznet_tpu_torch.data.imdb import get_imdb
+
+            with open(props, "rb") as f:
+                plist = pickle.load(f)
+            check(len(plist) == TOOLS_TRAIN_IMAGES, f"12b: {len(plist)} proposal arrays")
+            check_proposals("12b", plist, get_imdb(TOOLS_TRAIN), cfg.SEAR.NUM_PROPOSALS)
+
+            # (c) Fast R-CNN on those proposals, then one on the AZ trunk (frozen).
+            fr, shared = f"{out}/frcnn", f"{out}/frcnn_shared"
+            tool("c", "train_net", ["--net", "frcnn", "--imdb", TOOLS_TRAIN, "--iters",
+                                    str(TOOLS_FRCNN_STEPS), "--output", fr, "--proposals",
+                                    props] + base)
+            text, _ = tool("c", "train_net", ["--net", "frcnn", "--imdb", TOOLS_TRAIN, "--iters",
+                                              str(TOOLS_SHARED_STEPS), "--output", shared,
+                                              "--proposals", props, "--init-trunk-from", az]
+                           + base)
+            check("trunk frozen" in text, "12c: --init-trunk-from did not freeze the trunk")
+            a_params = Checkpointer(f"{az}/deploy").restore({"params": 0})[0]["params"]
+            s_params = Checkpointer(f"{shared}/deploy").restore({"params": 0})[0]["params"]
+            trunk = [k for k in a_params if k.startswith("trunk.")]
+            same = all(torch.equal(a_params[k], s_params[k]) for k in trunk)
+            print(f"phase12c trunk of the --init-trunk-from run byte-identical to the AZ run's "
+                  f"({len(trunk)} tensors): {same}", flush=True)
+            check(same and trunk, "12c: the shared trunk moved")
+
+            # (d) recall: one-shot, int8, refined.
+            recall = ["--mode", "recall", "--imdb", TOOLS_TEST, "--ckpt", az, "--batched",
+                      "--batch-size", "8"] + base
+            tables = {}
+            for tag, extra in (("bf16", []), ("int8", ["--int8"]),
+                               ("refined", ["--refine", "--frcnn-ckpt", fr])):
+                text, d = tool("d", "test_net", recall + extra)
+                tables[tag] = tool_json(text)
+                print(f"phase12d recall {tag}: {check_recall(tag, tables[tag])}", flush=True)
+                if tag == "int8":
+                    check(d["chain"] > 0 and d["strip"] > 0, f"12d: int8 launches {d}")
+
+            # (e) the fused shared-trunk detect program.
+            text, d = tool("e", "test_net", ["--mode", "detect", "--imdb", TOOLS_TEST, "--ckpt", az,
+                                             "--frcnn-ckpt", shared, "--batched", "--batch-size",
+                                             "8", "--share-trunk", "--output", f"{out}/eval"]
+                           + base + ["--set"] + fused)
+            aps = tool_json(text)
+            check(fused_calls == [1] and all(0.0 <= v <= 1.0 for v in aps.values()),
+                  f"12e: {len(fused_calls)} fused detect calls, {aps}")
+            check(all(d[k] > 0 for k in ("nms", "roi_align", "conv1")), f"12e: launches {d}")
+
+            # (f) demo on one image.
+            text, d = tool("f", "demo", ["--ckpt", az, "--frcnn-ckpt", fr, "--out",
+                                         f"{out}/demo.png"] + base + ["--set"] + fused)
+            check("im_propose:" in text and "im_detect:" in text and d["nms"] > 0, "12f: demo")
+
+            # (g) stage timings under the profiler.
+            with profiling.trace(f"{out}/trace") as prof:
+                text, _ = tool("g", "time_net", ["--batch", "2", "--reps", "3", "--raw-hw",
+                                                  *map(str, RAW_HW), "--canvas",
+                                                  *map(str, CANVAS)] + base)
+            from torch.autograd import DeviceType
+
+            kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+            with open(f"{out}/trace/trace.json") as f:
+                events = json.load(f)["traceEvents"]
+            n_kernel = sum(e.get("cat") == "kernel" for e in events)
+            print(f"phase12g trace: {len(events)} events, {n_kernel} CUDA kernel events, "
+                  f"{sum(e.self_device_time_total for e in kernels) / 1e3:.1f} ms of card time "
+                  f"in {len(kernels)} kinds", flush=True)
+            check(n_kernel > 0 and kernels, "12g: the trace holds no CUDA kernel event")
+            check(all(f"{s:12s}:" in text for s in ("preprocess", "trunk", "search",
+                                                   "end-to-end")), "12g: a stage is missing")
+
+            # (h) Caffe weights at VGG-16's full shapes.
+            npz, conv = f"{out}/vgg16_caffe.npz", f"{out}/converted"
+            t0 = time.perf_counter()
+            n = caffe_npz(npz, cfg)
+            print(f"phase12h random Caffe .npz, {n} floats, written in "
+                  f"{time.perf_counter() - t0:.2f} s", flush=True)
+            tool("h", "convert_caffe", ["--npz", npz, "--net", "az", "--out", conv] + base)
+            text, _ = tool("h", "test_net", ["--mode", "recall", "--imdb", TOOLS_TEST, "--ckpt",
+                                             conv, "--batched", "--batch-size", "8"] + base)
+            print(f"phase12h recall from the converted snapshot: "
+                  f"{check_recall('converted', tool_json(text))}", flush=True)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    launches = train_launch_counts()
+    print(f"phase12 tools launches {launches}; {time.perf_counter() - t_phase:.1f} s", flush=True)
+    check(all(launches[k] > 0 for k in TOOLS_KERNELS), f"a kernel never ran in the tools: "
+                                                       f"{launches}")
+    check(launches["iou"] == 0, f"the IoU kernel ran in the tools: {launches}")
+
+    n0 = train_launch_counts()
+    errs, frac = path_kernel_errs(recorded, recorded_conv)
+    nms_kernel.LAUNCHES, roi_align_kernel.LAUNCHES = n0["nms"], n0["roi_align"]
+    conv1_kernel.LAUNCHES, ck.LAUNCHES["chain"], ck.LAUNCHES["strip"] = (
+        n0["conv1"], n0["chain"], n0["strip"])  # the comparisons' launches are not the path's
+    kinds = sorted({r[0] for r in recorded} | {r[0] for r in recorded_conv})
+    print(f"phase12 kernels on the tools' first inputs ({kinds}): max_abs_err {errs}; conv1 "
+          f"within one bf16 ulp, {frac:.4%} of elements differ", flush=True)
+    check(kinds == ["chain", "conv1", "nms", "roi", "strip"], f"recorded {kinds}")
+    check(all(errs[k] == 0.0 for k in ("nms", "roi", "chain", "strip")),
+          "a kernel disagrees with its plain version on the tools' inputs")
+    return {"launches": launches, "err": errs, "legs": legs}
+
+
 def main(argv) -> int:
     import torch
 
@@ -2714,6 +2988,8 @@ def main(argv) -> int:
     iou_path_launches += ev["launches"]["iou"] + iou_kernel.LAUNCHES
     tr = phase11_train(dev, card)  # sets every count to 0 and reads them at its end
     train = tr["launches"]
+    tl = phase12_tools(dev, card)  # the same
+    tools = tl["launches"]
     paths = [res["bf16"], res["int8"], small["caffenet"], small["vgg_cnn_m_1024"]]
     print(f"phase7-10 launches: IoU kernel {iou_path_launches} on the main paths (no path calls "
           f"it); " + "; ".join(f"{tag} nms {p['nms']}, roi_align {p['roi']}" for tag, p in zip(
@@ -2725,9 +3001,9 @@ def main(argv) -> int:
     records = [{
         "name": "nms_exact_greedy", "route": "cuda", "source": NMS_SOURCE,
         "replaces": NMS_REPLACES, "launches": launches, "eval_launches": ev["launches"]["nms"],
-        "train_launches": train["nms"],
+        "train_launches": train["nms"], "tools_launches": tools["nms"],
         "max_abs_err": max(err1, err2, int8["nms_err"], ev["err"]["nms"], tr["nms_err"],
-                           *(p["nms_err"] for p in paths)),
+                           tl["err"]["nms"], *(p["nms_err"] for p in paths)),
         "ms": nms_t["ms"], "device_us": nms_t["device_us"], "plain_ms": nms_t["plain_ms"],
         "bound_ms": nms_b[0], "bound_by": nms_b[1], "library_ms": None}]
     for entry, replaces in (("chain", CHAIN_REPLACES), ("strip", STRIP_REPLACES)):
@@ -2736,7 +3012,9 @@ def main(argv) -> int:
             "name": f"conv3x3_int8_{entry}", "route": "cuda", "source": CONV_SOURCE,
             "replaces": replaces, "launches": int8["launches"][entry],
             "eval_launches": ev["launches"][entry], "train_launches": train[entry],
-            "max_abs_err": max(conv["err"][entry], int8["conv_err"][entry], ev["err"][entry]),
+            "tools_launches": tools[entry],
+            "max_abs_err": max(conv["err"][entry], int8["conv_err"][entry], ev["err"][entry],
+                               tl["err"][entry]),
             "ms": conv["ms"][entry], "plain_ms": conv["plain_ms"][entry],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": conv["library_ms"][entry]})
     for key, name, source, replaces in (
@@ -2748,7 +3026,8 @@ def main(argv) -> int:
             "launches": det["launches"]["roi_align" if key == "roi" else "conv1"],
             "eval_launches": ev["launches"]["roi_align" if key == "roi" else "conv1"],
             "train_launches": train["roi_align" if key == "roi" else "conv1"],
-            "max_abs_err": max(rec["err"], det["err"][key], ev["err"][key],
+            "tools_launches": tools["roi_align" if key == "roi" else "conv1"],
+            "max_abs_err": max(rec["err"], det["err"][key], ev["err"][key], tl["err"][key],
                                *(p["roi_err"] for p in paths if key == "roi")), "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound"][0],
             "bound_by": rec["bound"][1], "library_ms": rec["library_ms"]})
@@ -2756,7 +3035,7 @@ def main(argv) -> int:
         "name": "bbox_overlaps_iou", "route": "cuda", "source": IOU_SOURCE,
         "replaces": IOU_REPLACES, "launches": iou_path_launches,
         "eval_launches": ev["launches"]["iou"], "train_launches": train["iou"],
-        "max_abs_err": iou["err"],
+        "tools_launches": tools["iou"], "max_abs_err": iou["err"],
         "ms": iou["ms"], "device_us": iou["device_us"], "plain_ms": iou["plain_ms"],
         "bound_ms": iou["bound"][0], "bound_by": iou["bound"][1], "library_ms": None})
     print(json.dumps({"kernels": records}))

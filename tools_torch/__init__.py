@@ -1,0 +1,3 @@
+"""Command-line tools of the PyTorch port, one for each of ``tools/``: each
+has the reference tool's options and output lines, and ``main(argv=None) ->
+int`` so that it can be called in-process."""
