@@ -166,16 +166,20 @@ def _preprocess(cfg: Config, images, canvas_hw, src_hw=None, scales=None):
         scale=None if scales is None else scales[i]) for i in range(images.shape[0])]
 
 
-def _propose_images(model: AZNet, cfg: Config, images, canvas_hw, src_hw=None, scales=None):
+def _propose_images(model: AZNet, cfg: Config, images, canvas_hw, src_hw=None, scales=None,
+                    roi_wrap=None):
     """Raw ``images [B, H, W, 3]`` -> ``(boxes [B, N, 4], scores, valid)`` in
     original coordinates: preprocess each image, ONE trunk call on the batch,
-    then the search per image."""
+    then the search per image. ``roi_wrap``: a decorator of the search's
+    per-level ``roi_forward(feat, rois)`` (the region-parallel path,
+    ``parallel/inference.py::region_roi_wrap``)."""
     preps = _preprocess(cfg, images, canvas_hw, src_hw, scales)
     feats = _maybe_quantize_feat(cfg, model.features(torch.stack([p[0] for p in preps])))
+    roi_forward = model.roi_forward if roi_wrap is None else roi_wrap(model.roi_forward)
     outs = []
     for feat, (_, im_scale, valid_hw) in zip(feats, preps):
         boxes, scores, valid = az_search(
-            model.roi_forward, feat, valid_hw, cfg.SEAR,
+            roi_forward, feat, valid_hw, cfg.SEAR,
             num_templates=cfg.MODEL.NUM_TEMPLATES, offset=cfg.BOX_OFFSET)
         outs.append((boxes / im_scale, scores, valid))
     return tuple(torch.stack(t) for t in zip(*outs))
@@ -221,13 +225,15 @@ def im_propose(net: Net, im: np.ndarray) -> np.ndarray:
     return torch.cat([boxes[:n], scores[:n, None]], dim=1).float().cpu().numpy()
 
 
-def make_propose_batch(model: AZNet, cfg: Config, canvas_hw):
+def make_propose_batch(model: AZNet, cfg: Config, canvas_hw, roi_wrap=None):
     """``fn(images [B, H, W, 3] raw BGR) -> (boxes [B, N, 4], scores [B, N],
-    valid [B, N])`` over a fixed canvas; boxes in original coordinates."""
+    valid [B, N])`` over a fixed canvas; boxes in original coordinates.
+    ``roi_wrap`` wraps the search's per-level head call (the region-parallel
+    path of ``parallel/inference.py``)."""
 
     @torch.inference_mode()
     def fn(images):
-        return _propose_images(model, cfg, images, canvas_hw)
+        return _propose_images(model, cfg, images, canvas_hw, roi_wrap=roi_wrap)
 
     return fn
 

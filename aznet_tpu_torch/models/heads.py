@@ -15,6 +15,16 @@ fc7 at ``dropout``, its masks drawn from an explicit ``torch.Generator``, and
 the output layers as separate f32 dots on the f32 masters, as the
 reference's ``train=True`` branch. Rows are independent, so the rois of
 several images may go through as one batch.
+
+Under a mesh (``parallel/mesh.py::shard_module`` sets ``FCStack.mesh``),
+fc6 and fc7 are column-parallel over ``model``: each rank holds its rows of
+the weight and the bias, its input goes through :class:`CopyToModel`
+(identity forward, all-reduce over ``model`` backward) and its output
+through :class:`GatherFromModel` (all-gather of the features forward, this
+rank's slice backward: what follows the gather is replicated within the
+model group). Dropout follows the gather, and draws the mask of the whole
+global batch (``data`` x its rows) from the one generator, keeping this
+rank's rows: the single-process mask.
 """
 
 from __future__ import annotations
@@ -26,17 +36,54 @@ from torch import nn
 from aznet_tpu_torch.ops import refuse_grad
 from aznet_tpu_torch.ops.conv_int8 import (int8_matmul, quantize_acts, quantize_columns,
                                            scalar_f32)
+from aznet_tpu_torch.parallel.mesh import all_gather, all_reduce
 from aznet_tpu_torch.utils.precision import float32_precision
 
 
-def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator,
+            rows=(0, 1)) -> torch.Tensor:
     """Flax's ``nn.Dropout``: ``where(mask, x / keep, 0)`` with ``mask ~
-    Bernoulli(keep)`` from ``generator``; ``x`` unchanged at rate 0."""
+    Bernoulli(keep)`` from ``generator``; ``x`` unchanged at rate 0.
+    ``rows = (i, n)``: ``x`` is part ``i`` of ``n`` equal row blocks of a
+    batch whose mask is drawn whole."""
     if rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.empty(x.shape, device=x.device).bernoulli_(keep, generator=generator)
+    i, n = rows
+    mask = torch.empty((n * x.shape[0],) + x.shape[1:], device=x.device).bernoulli_(
+        keep, generator=generator)[i * x.shape[0]:(i + 1) * x.shape[0]]
     return torch.where(mask.bool(), x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class CopyToModel(torch.autograd.Function):
+    """Identity forward; backward, the sum of the input's gradient over the
+    ``model`` group (each rank's rows of a column-parallel layer send back
+    their part of dL/dx)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce(grad.clone(memory_format=torch.contiguous_format), ctx.group), None
+
+
+class GatherFromModel(torch.autograd.Function):
+    """Forward, the ``model`` group's outputs concatenated along the last
+    dim; backward, this rank's slice of the gradient (the code after the
+    gather is replicated within the group, so every rank holds the whole
+    gradient: a reduce-scatter would scale it by the group's size)."""
+
+    @staticmethod
+    def forward(ctx, y, group, rank):
+        ctx.rank, ctx.cols = rank, y.shape[-1]
+        return all_gather(y, group, dim=-1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(-1, ctx.rank * ctx.cols, ctx.cols), None, None
 
 
 class FCStack(nn.Module):
@@ -61,6 +108,7 @@ class FCStack(nn.Module):
         self.dropout = dropout
         self.dtype = dtype
         self._int8 = None
+        self.mesh = None  # set by parallel/mesh.py::shard_module
 
     def prepare_int8(self) -> None:
         self._int8 = {name: (*quantize_columns(fc.weight.detach()), fc.bias.detach().float())
@@ -76,14 +124,20 @@ class FCStack(nn.Module):
                              "(missing INT8_HEAD_SCALES, or train=True)")
         dt = self.dtype or self.fc6.weight.dtype
         x = x.to(dt)
+        mesh = self.mesh
+        rows = (0, 1) if mesh is None else (mesh.coords["data"], mesh.shape["data"])
         with float32_precision():
             for fc in (self.fc6, self.fc7):
+                if mesh is not None:
+                    x = CopyToModel.apply(x, mesh.group("model"))
                 # The module itself when no cast is needed: forward hooks fire.
                 y = fc(x) if fc.weight.dtype == dt else F.linear(x, fc.weight.to(dt),
                                                                   fc.bias.to(dt))
+                if mesh is not None:
+                    y = GatherFromModel.apply(y, mesh.group("model"), mesh.coords["model"])
                 x = F.relu(y)
                 if train:
-                    x = dropout(x, self.dropout, generator)
+                    x = dropout(x, self.dropout, generator, rows)
         return x
 
     def _int8_stack(self, x: torch.Tensor) -> torch.Tensor:
@@ -97,6 +151,8 @@ class FCStack(nn.Module):
             return torch.relu(acc.float() * (scalar_f32(s_x, x8.device) * s_w) + bias)
 
         refuse_grad("the int8 fc stack", x)
+        if self.mesh is not None:
+            raise NotImplementedError("the int8 fc stack does not run sharded over a mesh")
         x8 = x if x.dtype == torch.int8 else quantize_acts(x, s_in)
         h8 = quantize_acts(dense(x8, s_in, "fc6"), s_mid)
         return dense(h8, s_mid, "fc7").to(torch.bfloat16)

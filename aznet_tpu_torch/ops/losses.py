@@ -32,21 +32,31 @@ def smooth_l1_loss(pred, target, inside_weights=None, outside_weights=None,
     return loss.sum()
 
 
-def sigmoid_ce_loss(logits, labels, weights=None):
+def _weighted(per, weights, total):
+    den = weights.sum()
+    if total is not None:
+        den = total(den)
+    return (per * weights).sum() / torch.clamp(den, min=1.0)
+
+
+def sigmoid_ce_loss(logits, labels, weights=None, total=None):
     """Sigmoid cross-entropy in the log1p form, the mean over elements, or
-    ``sum(per * weights) / max(sum(weights), 1)``."""
+    ``sum(per * weights) / max(sum(weights), 1)``. ``total`` maps the local
+    sum of the weights to the batch-wide one before the clamp (the sum over
+    the data-parallel ranks; ``train/train_az.py``), so that each rank's
+    loss is its share of the global loss."""
     per = (torch.maximum(logits, torch.zeros_like(logits)) - logits * labels
            + torch.log1p(torch.exp(-_abs(logits))))
     if weights is None:
         return per.mean()
-    return (per * weights).sum() / torch.clamp(weights.sum(), min=1.0)
+    return _weighted(per, weights, total)
 
 
-def softmax_ce_loss(logits, labels, weights=None):
+def softmax_ce_loss(logits, labels, weights=None, total=None):
     """Softmax cross-entropy with integer ``labels``, weighted as
     :func:`sigmoid_ce_loss`."""
     logp = torch.log_softmax(logits, dim=-1)
     per = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
     if weights is None:
         return per.mean()
-    return (per * weights).sum() / torch.clamp(weights.sum(), min=1.0)
+    return _weighted(per, weights, total)

@@ -11,6 +11,11 @@ the API casts an inference net (bf16 in bf16 mode: the fused head dot sees
 bf16-rounded head weights, as the reference's ``_cast_inference_params``
 makes it), under ``torch.no_grad()``. The cache is NumPy on the host, so the
 prefetch thread never touches the card.
+
+Under a mesh each host harvests its own roidb shard. The inference copy is
+made from the whole weights, fc6/fc7 gathered over ``model`` once a harvest
+(a collective every rank calls at the same step); each rank then searches
+its host's images alone, with no collective in the search.
 """
 
 from __future__ import annotations
@@ -62,8 +67,9 @@ class RegionMiner:
     ``max_regions`` (the deepest levels)."""
 
     def __init__(self, cfg: Config, imdb, local_indices: List[int], batch_size: int = 8,
-                 max_regions: int = 96):
+                 max_regions: int = 96, mesh=None):
         self.cfg = cfg
+        self.mesh = mesh
         self.imdb = imdb
         self.indices = list(local_indices)
         self.batch_size = batch_size
@@ -83,13 +89,18 @@ class RegionMiner:
         return out
 
     def harvest(self, model) -> int:
-        """One mining pass with the weights of ``model`` (a training net);
-        returns the number of images refreshed."""
+        """One mining pass with the weights of ``model`` (a training net,
+        split over the miner's mesh if it has one); returns the number of
+        images refreshed."""
         from aznet_tpu_torch.api import inference_model, new_model
+        from aznet_tpu_torch.parallel.mesh import gather_rows, param_sharding
 
         cfg, tcfg = self.cfg, self.cfg.TRAIN
         dev = next(model.parameters()).device
-        net = inference_model(new_model(type(model), cfg, dev, model.state_dict()), cfg)
+        sd = model.state_dict()
+        if self.mesh is not None:
+            sd = gather_rows(sd, self.mesh, param_sharding(self.mesh, sd))
+        net = inference_model(new_model(type(model), cfg, dev, sd), cfg)
         fn = make_harvest_fn(net, cfg, self._canvas)
         roidb = self.imdb.roidb
         chunk = self._next_chunk()

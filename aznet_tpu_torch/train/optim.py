@@ -49,22 +49,42 @@ def frozen(name: str, prefixes) -> bool:
     return any(part.startswith(p) for part in name.split(".") for p in prefixes)
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """``sqrt(sum of squares)`` over all elements of ``tensors``, float32."""
-    return torch.sqrt(sum((t.float() * t.float()).sum() for t in tensors))
+def global_norm(tensors, sharded=(), total=None) -> torch.Tensor:
+    """``sqrt(sum of squares)`` over all elements of ``tensors``, float32.
+    ``sharded[i]`` marks a tensor split over ranks (fc6/fc7 under tensor
+    parallelism): its sum of squares goes through ``total`` (the sum over
+    the ``model`` group) and the replicated ones count once; the terms are
+    added in the order of ``tensors`` either way."""
+    sq = [(t.float() * t.float()).sum() for t in tensors]
+    idx = [i for i, s in enumerate(sharded) if s]
+    if idx:
+        summed = total(torch.stack([sq[i] for i in idx]))
+        for j, i in enumerate(idx):
+            sq[i] = summed[j]
+    return torch.sqrt(sum(sq))
 
 
 class SGD:
     """The optimizer over ``params`` (``{name: Parameter}``, float32).
-    ``state_dict()`` holds the momentum buffers and the update count."""
+    ``state_dict()`` holds the momentum buffers and the update count.
+    ``sharded`` names the parameters split over ranks and ``total`` sums
+    over their group (:func:`global_norm`); each momentum buffer has its
+    parameter's shape, so it is split as its parameter is."""
 
-    def __init__(self, params: dict, tcfg: TrainConfig):
+    def __init__(self, params: dict, tcfg: TrainConfig, sharded=(), total=None):
         self.tcfg = tcfg
         self.params = dict(params)
         self.momentum = {n: torch.zeros_like(p) for n, p in self.params.items()}
         self.count = 0
         self._frozen = {n for n in self.params if frozen(n, tcfg.FREEZE_PREFIXES)}
         self._schedule = lr_schedule(tcfg)
+        self.sharded, self.total = frozenset(sharded), total
+
+    def norm(self, grads: dict) -> torch.Tensor:
+        """The global norm of ``grads`` (``{name: tensor or None}``)."""
+        names = [n for n, t in grads.items() if t is not None]
+        return global_norm([grads[n] for n in names], [n in self.sharded for n in names],
+                           self.total)
 
     def step(self, grads: dict) -> None:
         """One update from ``grads`` (``{name: tensor or None}``; None is a
@@ -77,7 +97,7 @@ class SGD:
             g = {n: None if n in self._frozen else grads.get(n) for n in self.params}
             norm = clip = None
             if tcfg.GRAD_CLIP:
-                norm = global_norm([t for t in g.values() if t is not None])
+                norm = self.norm(g)
                 clip = f32(tcfg.GRAD_CLIP)
             wd, mu = f32(tcfg.WEIGHT_DECAY), f32(tcfg.MOMENTUM)
             neg_lr = -self._schedule(self.count).to(dev)

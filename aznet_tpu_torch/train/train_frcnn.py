@@ -19,17 +19,18 @@ from aznet_tpu_torch.config import Config
 from aznet_tpu_torch.models.aznet import RoiNet
 from aznet_tpu_torch.models.frcnn import FRCNN
 from aznet_tpu_torch.ops.losses import smooth_l1_loss, softmax_ce_loss
-from aznet_tpu_torch.train.train_az import TrainState, head_outputs, make_step, make_train_state
+from aznet_tpu_torch.train.train_az import (TrainState, batch_total, head_outputs, make_step,
+                                            make_train_state)
 
 
-def frcnn_loss(model: RoiNet, batch: dict, generator=None):
+def frcnn_loss(model: RoiNet, batch: dict, generator=None, total=None):
     """The Fast R-CNN loss and its metrics ``loss``, ``cls_loss``,
     ``bbox_loss`` and ``acc`` (the share of valid rois whose argmax class is
-    the label)."""
+    the label); ``total`` as in ``train_az.az_loss``."""
     out = head_outputs(model, batch, generator)
     valid = batch["roi_valid"].float()
-    cls_loss = softmax_ce_loss(out["cls_score"], batch["labels"], weights=valid)
-    n_rois = torch.clamp(valid.sum(), min=1.0)
+    cls_loss = softmax_ce_loss(out["cls_score"], batch["labels"], weights=valid, total=total)
+    n_rois = torch.clamp(batch_total(total, valid.sum()), min=1.0)
     bbox_loss = smooth_l1_loss(out["bbox_pred"], batch["bbox_targets"],
                                inside_weights=batch["bbox_inside"],
                                outside_weights=valid[..., None]) / n_rois
@@ -38,10 +39,11 @@ def frcnn_loss(model: RoiNet, batch: dict, generator=None):
     return loss, {"loss": loss, "cls_loss": cls_loss, "bbox_loss": bbox_loss, "acc": acc}
 
 
-def make_frcnn_train_state(cfg: Config, device="cuda", state_dict=None, seed=None) -> TrainState:
-    return make_train_state(FRCNN, cfg, device, state_dict, seed)
+def make_frcnn_train_state(cfg: Config, device="cuda", state_dict=None, seed=None,
+                           mesh=None) -> TrainState:
+    return make_train_state(FRCNN, cfg, device, state_dict, seed, mesh)
 
 
-def make_frcnn_train_step(model: RoiNet):
+def make_frcnn_train_step(model: RoiNet, mesh=None):
     """The Fast R-CNN step (``train_az.make_step`` over :func:`frcnn_loss`)."""
-    return make_step(model, frcnn_loss)
+    return make_step(model, frcnn_loss, mesh)

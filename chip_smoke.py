@@ -159,9 +159,24 @@
    chain and strip must launch, IoU must not; the first launch of each
    kernel is held against its plain version.
 
+14. Phase 13: the mesh paths (``aznet_tpu_torch.parallel``) at world size 1
+   on NCCL, full VGG-16 width: ``make_mesh(1)`` starts the group; with
+   every launch count and collective count set to 0 just before and read
+   just after: ``make_sharded_propose`` on phase 2's two 375x500 images
+   (bf16), with ``shard_regions=True``, ``make_latency_propose`` on image 0,
+   the int8 net's sharded propose (phase 4's calibration),
+   ``make_sharded_detect`` with the detect configuration on the 300
+   proposals an image, one AZ train step on ``{data 1, model 1}`` (phase
+   11's seeded state, 11d's batch) and ``train_net --mesh 1`` for 2 steps
+   with a harvest. Each is held bit for bit against the plain path on the
+   same inputs, each kernel's first launch against its plain version; the
+   all-gathers and all-reduces must have run; then each call is timed
+   beside its plain path in alternating rounds (one ``mesh`` JSON line).
+   The group is destroyed at the end.
+
 Prints the card's name and power limit, one JSON line of kernel records
 (each with its bound, library yardstick and launches on the eval path, in
-training and in the tools), and,
+training, in the tools and on the mesh paths), and,
 as the last line, ``{"ok": true, "device": {...}}``. Exits non-zero at the first failure and
 when no CUDA device is present. Imports no JAX and nothing of ``aznet_tpu``.
 
@@ -183,6 +198,10 @@ do the same for the ROI-align kernel at phase 5's eight shapes and for the
 NMS kernel at phase 1's three timed shapes (1 x 2048, 1 x 4096, 16 x 4096),
 with the host's time per call beside the device and CUDA-event times, and
 each NMS pass's device time (sort, mask, scan).
+
+    python3 chip_smoke.py --mesh-phase
+
+builds the kernels and runs phase 13 alone.
 
     python3 chip_smoke.py --iou-times [ROOT]
 
@@ -877,16 +896,14 @@ def recording_conv(recorded):
         ck.conv3x3_int8_chain, ck.conv3x3_int8_strip = real["chain"], real["strip"]
 
 
-def phase4_int8(dev, net, blobs, bf16_ips):
-    """Calibrate the bf16 ``net``, rebuild it int8 from its float32
-    parameters, drive the int8 propose path. Returns launches per entry,
-    the conv and NMS errors on the path's inputs, and img/s."""
+def calibrated_int8(tag, net, dev):
+    """The bf16 ``net`` calibrated on two random canvases (``RandomState(7)``
+    minus the pixel means) and rebuilt int8 from its float32 parameters, with
+    ``INT8_ROI``: ``bench.py:145-180``'s settings."""
     import dataclasses
 
     import torch
 
-    from aznet_tpu_torch.ops import conv_int8 as tconv
-    from aznet_tpu_torch.ops.cuda import conv_int8_kernel as ck
     from aznet_tpu_torch.ops.quant import (calibrate_head_int8, calibrate_trunk_int8,
                                            with_int8_scales)
 
@@ -897,12 +914,24 @@ def phase4_int8(dev, net, blobs, bf16_ips):
     scales = calibrate_trunk_int8(net, calib, batch_size=2)
     head_scales = calibrate_head_int8(net, calib, scales)
     torch.cuda.synchronize()
-    print(f"phase4 calibration: {time.perf_counter() - t0:.2f} s; trunk scales "
+    print(f"{tag} calibration: {time.perf_counter() - t0:.2f} s; trunk scales "
           f"{[round(s, 6) for s in scales]}, head scales {[round(s, 6) for s in head_scales]}",
           flush=True)
     cfg8 = with_int8_scales(cfg, scales, head_scales)
     cfg8 = dataclasses.replace(cfg8, MODEL=dataclasses.replace(cfg8.MODEL, INT8_ROI=True))
-    net8 = build_net("phase4", cfg8, dev, state_dict=net.params)
+    return build_net(tag, cfg8, dev, state_dict=net.params)
+
+
+def phase4_int8(dev, net, blobs, bf16_ips):
+    """Calibrate the bf16 ``net``, rebuild it int8 from its float32
+    parameters, drive the int8 propose path. Returns launches per entry,
+    the conv and NMS errors on the path's inputs, and img/s."""
+    import torch
+
+    from aznet_tpu_torch.ops import conv_int8 as tconv
+    from aznet_tpu_torch.ops.cuda import conv_int8_kernel as ck
+
+    net8 = calibrated_int8("phase4", net, dev)
 
     def reset():
         ck.LAUNCHES["chain"] = ck.LAUNCHES["strip"] = 0
@@ -2924,6 +2953,222 @@ def phase12_tools(dev, card):
     return {"launches": launches, "err": errs, "legs": legs}
 
 
+MESH_REPS = 5  # timed calls of each propose and detect function a round, after 1
+MESH_TRAIN_STEPS = 3  # timed train steps of each kind a round, after 1
+MESH_ROUNDS = 3  # alternating rounds (plain, mesh); the medians are reported
+
+
+def same_bits(tag, got, want):
+    """Checks that two tuples of tensors are equal bit for bit."""
+    import torch
+
+    check(len(got) == len(want) and all(
+        g.shape == w.shape and g.dtype == w.dtype and torch.equal(g, w)
+        for g, w in zip(got, want)), f"{tag}: the mesh path is not bit for bit the plain path")
+
+
+def phase13_mesh(dev, card):
+    """The mesh paths at world size 1 on NCCL, full VGG-16 width: ``make_mesh(1)``
+    on the card, then, with every launch count and collective count set to 0
+    just before and read just after: (a) ``make_sharded_propose`` (bf16) on
+    phase 2's two raw 375x500 images on 608x800, again with
+    ``shard_regions=True``, and ``make_latency_propose`` on image 0; (b) the
+    sharded propose of the int8 net (phase 4's calibration); (c)
+    ``make_sharded_detect`` with the detect configuration on (a)'s 300
+    proposals an image; (d) one AZ train step on ``{data 1, model 1}`` from
+    phase 11's seeded state on phase 11d's batch; (e) ``train_net --mesh 1``
+    for 2 steps, mining 2 images at step 0. Each output is held bit for bit
+    against the plain path's on the same inputs (run before the counts are
+    set to 0), each kernel's first launch against its plain version; the
+    collectives must have run; then each mesh call is timed beside its plain
+    path, and the host's time to issue one small collective. The group is
+    destroyed at the end."""
+    import io
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    import torch.distributed as dist
+
+    from aznet_tpu_torch import api
+    from aznet_tpu_torch.config import Config
+    from aznet_tpu_torch.data.imdb import get_imdb
+    from aznet_tpu_torch.data.minibatch import fixed_canvas, get_az_minibatch
+    from aznet_tpu_torch.ops.cuda import conv1_kernel, iou_kernel, nms_kernel, roi_align_kernel
+    from aznet_tpu_torch.ops.cuda import conv_int8_kernel as ck
+    from aznet_tpu_torch.parallel import make_mesh
+    from aznet_tpu_torch.parallel.inference import (make_latency_propose, make_sharded_detect,
+                                                    make_sharded_propose)
+    from aznet_tpu_torch.parallel.mesh import COLLECTIVES, all_gather, all_reduce
+    from aznet_tpu_torch.train.train_az import make_az_train_state, make_az_train_step
+    from aznet_tpu_torch.utils.checkpoint import Checkpointer
+    from tools_torch import train_net
+
+    t_phase = time.perf_counter()
+    register_tools_imdbs()
+    tools_cfg = str(Path(__file__).resolve().parent / TOOLS_CFG)
+    check(not dist.is_initialized(), "phase13: a process group exists before make_mesh(1)")
+    mesh = make_mesh(1, device=dev)
+    out_dir = tempfile.mkdtemp(prefix="aznet_mesh_")
+    try:
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        check(dist.get_backend() == backend and dist.get_world_size() == 1
+              and mesh.shape == {"data": 1, "model": 1} and mesh.device == dev,
+              f"phase13: mesh {mesh.shape} on {mesh.device}, backend {dist.get_backend()}")
+        print(f"phase13 make_mesh(1): {mesh.shape} on {mesh.device}, backend "
+              f"{dist.get_backend()}, world {dist.get_world_size()}", flush=True)
+
+        # The plain paths first, outside the counted window.
+        images = torch.from_numpy(np.random.RandomState(0).randint(
+            0, 256, (BATCH,) + RAW_HW + (3,)).astype(np.uint8)).to(dev)
+        net = build_net("phase13", Config(), dev)
+        net8 = calibrated_int8("phase13", net, dev)
+        fr = api.build_frcnn_net(detect_config(), device=dev)
+        plain = {"propose": api.make_propose_batch(net.model, net.cfg, CANVAS),
+                 "int8": api.make_propose_batch(net8.model, net8.cfg, CANVAS),
+                 "detect": api.make_detect_batch(fr.model, fr.cfg, CANVAS)}
+        want = {"propose": plain["propose"](images), "int8": plain["int8"](images),
+                "latency": tuple(t[0] for t in plain["propose"](images[:1]))}
+        boxes = want["propose"][0].contiguous()
+        want["detect"] = plain["detect"](images, boxes)
+        cfg_t = train_config()
+        imdb = get_imdb(TOOLS_TRAIN)  # its first images are synthetic_hard_train's
+        tb = get_az_minibatch(imdb, imdb.roidb[:2], cfg_t, np.random.RandomState(0),
+                              fixed_canvas(imdb, cfg_t))
+        one = make_az_train_state(cfg_t, device=dev)
+        init = {k: v.clone() for k, v in one.model.state_dict().items()}
+        one_step = make_az_train_step(one.model)
+        want_m = one_step(one, tb, cfg_t.RNG_SEED)
+        torch.cuda.synchronize()
+
+        mesh_fns = {
+            "propose": make_sharded_propose(net.model, net.cfg, CANVAS, mesh),
+            "region": make_sharded_propose(net.model, net.cfg, CANVAS, mesh, shard_regions=True),
+            "latency": make_latency_propose(net.model, net.cfg, CANVAS, mesh),
+            "int8": make_sharded_propose(net8.model, net8.cfg, CANVAS, mesh),
+            "detect": make_sharded_detect(fr.model, fr.cfg, CANVAS, mesh)}
+        mst = make_az_train_state(cfg_t, device=dev, mesh=mesh)
+        mesh_step = make_az_train_step(mst.model, mesh=mesh)
+
+        recorded, recorded_conv = [], []
+        nms_kernel.LAUNCHES = roi_align_kernel.LAUNCHES = conv1_kernel.LAUNCHES = 0
+        iou_kernel.LAUNCHES = ck.LAUNCHES["chain"] = ck.LAUNCHES["strip"] = 0
+        COLLECTIVES.update(all_gather=0, all_reduce=0)
+        got = {}
+        with recording_nms(recorded), recording_detect_kernels(recorded), \
+                recording_conv(recorded_conv):
+            for key in ("propose", "region", "int8"):
+                got[key] = mesh_fns[key](images)
+                first_of_each(recorded)
+                first_of_each(recorded_conv)
+            got["latency"] = mesh_fns["latency"](images[0])
+            got["detect"] = mesh_fns["detect"](images, boxes)
+            first_of_each(recorded)
+            got_m = mesh_step(mst, tb, cfg_t.RNG_SEED)
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = train_net.main(["--net", "az", "--imdb", TOOLS_TRAIN, "--iters", "2",
+                                     "--output", f"{out_dir}/tool", "--mesh", "1", "--cfg",
+                                     tools_cfg, "--set", "TRAIN.MINE_INTERVAL", "2",
+                                     "TRAIN.MINE_IMAGES", "2"])
+            first_of_each(recorded)
+            torch.cuda.synchronize()
+        launches = train_launch_counts()
+        calls = dict(COLLECTIVES)
+        text = buf.getvalue()
+        print(f"phase13 mesh launches {launches}; collectives {calls}", flush=True)
+
+        for key in ("propose", "region", "int8"):
+            same_bits(f"13 {key}", got[key], want["int8" if key == "int8" else "propose"])
+        same_bits("13 latency", got["latency"], want["latency"])
+        same_bits("13 detect", got["detect"], want["detect"])
+        print("phase13 sharded, region and latency propose (bf16), int8 sharded propose and "
+              "sharded detect: bit for bit the plain paths", flush=True)
+        # (d) the train step: metrics and every updated parameter.
+        d_metric = max(abs(float(got_m[k]) - float(want_m[k])) for k in want_m)
+        p_one, p_mesh = one.model.state_dict(), mst.snapshot()["params"]
+        diff = max(float((p_mesh[k] - v).abs().max()) for k, v in p_one.items())
+        scale = max(float((v - init[k]).abs().max()) for k, v in p_one.items())
+        bits = d_metric == 0.0 and diff == 0.0
+        print(f"phase13d train step on {{data 1, model 1}} against the non-mesh step: metrics "
+              f"max diff {d_metric}, parameters max diff {diff} (largest update {scale:.6g}); "
+              f"bit for bit: {bits}; loss {float(got_m['loss']):.6f}", flush=True)
+        # Not bit for bit would be float32 reduction order (PERF.md): within
+        # 1e-3 of the largest update, as the CPU tests hold the mesh step.
+        check(diff <= 1e-3 * scale and d_metric <= 1e-4 * abs(float(want_m["loss"])),
+              "13d: the mesh train step is not the plain step")
+        del init
+        check(rc == 0 and "mesh: {'data': 1, 'model': 1}" in text and "[az 2]" in text
+              and "[az] mined search regions for 2 images at step 0" in text
+              and Checkpointer(f"{out_dir}/tool").all_steps() == [2],
+              f"13e: train_net --mesh 1 returned {rc}:\n{text[-2000:]}")
+        print("phase13e train_net --mesh 1: 2 steps, a harvest of 2 images, snapshot 2",
+              flush=True)
+        check(calls["all_gather"] > 0 and calls["all_reduce"] > 0,
+              f"13f: NCCL collectives {calls}")
+        for k in ("nms", "roi_align", "conv1", "chain", "strip"):
+            check(launches[k] > 0, f"13g: {k} kernel never launched on the mesh paths")
+        check(launches["iou"] == 0, f"13g: the IoU kernel launched: {launches}")
+
+        n0 = train_launch_counts()
+        errs, frac = path_kernel_errs(recorded, recorded_conv)
+        nms_kernel.LAUNCHES, roi_align_kernel.LAUNCHES = n0["nms"], n0["roi_align"]
+        conv1_kernel.LAUNCHES, ck.LAUNCHES["chain"], ck.LAUNCHES["strip"] = (
+            n0["conv1"], n0["chain"], n0["strip"])
+        print(f"phase13g kernels on the mesh paths' first inputs: max_abs_err {errs}; conv1 "
+              f"within one bf16 ulp, {frac:.4%} of elements differ", flush=True)
+        check(all(errs[k] == 0.0 for k in ("nms", "roi", "chain", "strip")),
+              "13g: a kernel disagrees with its plain version on the mesh paths' inputs")
+
+        # Times: each mesh call beside its plain path, in this call, in
+        # alternating rounds (the host-bound search moves between rounds).
+        timed = {}
+        ips = cfg_t.TRAIN.IMS_PER_BATCH
+        for key, p_fn, m_fn, n_img, reps in (
+                ("propose", lambda: plain["propose"](images), lambda: mesh_fns["propose"](images),
+                 BATCH, MESH_REPS),
+                ("region", lambda: plain["propose"](images), lambda: mesh_fns["region"](images),
+                 BATCH, MESH_REPS),
+                ("latency", lambda: plain["propose"](images[:1]),
+                 lambda: mesh_fns["latency"](images[0]), 1, MESH_REPS),
+                ("int8", lambda: plain["int8"](images), lambda: mesh_fns["int8"](images), BATCH,
+                 MESH_REPS),
+                ("detect", lambda: plain["detect"](images, boxes),
+                 lambda: mesh_fns["detect"](images, boxes), BATCH, MESH_REPS),
+                ("train_step", lambda: one_step(one, tb, cfg_t.RNG_SEED),
+                 lambda: mesh_step(mst, tb, cfg_t.RNG_SEED), ips, MESH_TRAIN_STEPS)):
+            rounds = [(cuda_ms(p_fn, reps, 1), cuda_ms(m_fn, reps, 1))
+                      for _ in range(MESH_ROUNDS)]
+            p_ms, m_ms = (float(np.median(v)) for v in zip(*rounds))
+            timed[key] = {"ms": m_ms, "img_s": n_img / m_ms * 1e3, "plain_ms": p_ms,
+                          "plain_img_s": n_img / p_ms * 1e3,
+                          "rounds_ms": [[round(a, 4), round(b, 4)] for a, b in rounds]}
+        # The host's time to issue one collective of 64 floats, back to back:
+        # the counted wrappers, and PyTorch's call alone.
+        x64 = torch.zeros(64, device=dev)
+        out64 = torch.empty(64 * dist.get_world_size(), device=dev)
+        group = mesh.group("model")
+        issue_us = {"all_gather": host_us(lambda: all_gather(x64, group), 200),
+                    "all_reduce": host_us(lambda: all_reduce(x64, group), 200),
+                    "torch_all_gather_into_tensor": host_us(
+                        lambda: dist.all_gather_into_tensor(out64, x64, group=group), 200)}
+        print(json.dumps({"mesh": {"card": card, "world": 1, "backend": dist.get_backend(),
+                                   "calls": timed, "collectives": calls,
+                                   "issue_host_us": issue_us, "launches": launches}}),
+              flush=True)
+        # The timing runs launched again: the path's counts are the window's.
+        for mod, k in ((nms_kernel, "nms"), (roi_align_kernel, "roi_align"),
+                       (conv1_kernel, "conv1"), (iou_kernel, "iou")):
+            mod.LAUNCHES = launches[k]
+        ck.LAUNCHES["chain"], ck.LAUNCHES["strip"] = launches["chain"], launches["strip"]
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    print(f"phase13 {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"launches": launches, "err": errs, "calls": timed}
+
+
 def main(argv) -> int:
     import torch
 
@@ -2956,6 +3201,9 @@ def main(argv) -> int:
     print(f"build: {lib_path.relative_to(_build.BUILD_ROOT.parent.parent)} "
           f"in {time.perf_counter() - t0:.1f} s", flush=True)
     print((lib_path.parent / "nvcc.log").read_text().strip(), flush=True)
+    if argv[:1] == ["--mesh-phase"]:
+        phase13_mesh(dev, card)
+        return 0
 
     err1, times = phase1_nms(dev)
     # VGG-16 at full width, bf16 (Config()'s default), default search.
@@ -2990,6 +3238,8 @@ def main(argv) -> int:
     train = tr["launches"]
     tl = phase12_tools(dev, card)  # the same
     tools = tl["launches"]
+    mp = phase13_mesh(dev, card)  # the same, at world size 1 on NCCL
+    mesh = mp["launches"]
     paths = [res["bf16"], res["int8"], small["caffenet"], small["vgg_cnn_m_1024"]]
     print(f"phase7-10 launches: IoU kernel {iou_path_launches} on the main paths (no path calls "
           f"it); " + "; ".join(f"{tag} nms {p['nms']}, roi_align {p['roi']}" for tag, p in zip(
@@ -3002,8 +3252,9 @@ def main(argv) -> int:
         "name": "nms_exact_greedy", "route": "cuda", "source": NMS_SOURCE,
         "replaces": NMS_REPLACES, "launches": launches, "eval_launches": ev["launches"]["nms"],
         "train_launches": train["nms"], "tools_launches": tools["nms"],
+        "mesh_launches": mesh["nms"],
         "max_abs_err": max(err1, err2, int8["nms_err"], ev["err"]["nms"], tr["nms_err"],
-                           tl["err"]["nms"], *(p["nms_err"] for p in paths)),
+                           tl["err"]["nms"], mp["err"]["nms"], *(p["nms_err"] for p in paths)),
         "ms": nms_t["ms"], "device_us": nms_t["device_us"], "plain_ms": nms_t["plain_ms"],
         "bound_ms": nms_b[0], "bound_by": nms_b[1], "library_ms": None}]
     for entry, replaces in (("chain", CHAIN_REPLACES), ("strip", STRIP_REPLACES)):
@@ -3012,9 +3263,9 @@ def main(argv) -> int:
             "name": f"conv3x3_int8_{entry}", "route": "cuda", "source": CONV_SOURCE,
             "replaces": replaces, "launches": int8["launches"][entry],
             "eval_launches": ev["launches"][entry], "train_launches": train[entry],
-            "tools_launches": tools[entry],
+            "tools_launches": tools[entry], "mesh_launches": mesh[entry],
             "max_abs_err": max(conv["err"][entry], int8["conv_err"][entry], ev["err"][entry],
-                               tl["err"][entry]),
+                               tl["err"][entry], mp["err"][entry]),
             "ms": conv["ms"][entry], "plain_ms": conv["plain_ms"][entry],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": conv["library_ms"][entry]})
     for key, name, source, replaces in (
@@ -3027,15 +3278,17 @@ def main(argv) -> int:
             "eval_launches": ev["launches"]["roi_align" if key == "roi" else "conv1"],
             "train_launches": train["roi_align" if key == "roi" else "conv1"],
             "tools_launches": tools["roi_align" if key == "roi" else "conv1"],
+            "mesh_launches": mesh["roi_align" if key == "roi" else "conv1"],
             "max_abs_err": max(rec["err"], det["err"][key], ev["err"][key], tl["err"][key],
-                               *(p["roi_err"] for p in paths if key == "roi")), "ms": rec["ms"],
+                               mp["err"][key], *(p["roi_err"] for p in paths if key == "roi")),
+            "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound"][0],
             "bound_by": rec["bound"][1], "library_ms": rec["library_ms"]})
     records.append({
         "name": "bbox_overlaps_iou", "route": "cuda", "source": IOU_SOURCE,
         "replaces": IOU_REPLACES, "launches": iou_path_launches,
         "eval_launches": ev["launches"]["iou"], "train_launches": train["iou"],
-        "tools_launches": tools["iou"], "max_abs_err": iou["err"],
+        "tools_launches": tools["iou"], "mesh_launches": mesh["iou"], "max_abs_err": iou["err"],
         "ms": iou["ms"], "device_us": iou["device_us"], "plain_ms": iou["plain_ms"],
         "bound_ms": iou["bound"][0], "bound_by": iou["bound"][1], "library_ms": None})
     print(json.dumps({"kernels": records}))

@@ -97,8 +97,9 @@ def test_make_propose_batch_padded_matches():
 def test_port_runs_without_jax():
     """The card's machine has no JAX: import the port with ``jax`` and
     ``flax`` made unimportable, build a smallnet net from the port's own
-    config with its seeded init on the CPU, and propose; no module of the
-    JAX package was imported."""
+    config with its seeded init on the CPU, and propose, one image through
+    ``im_propose`` and two through ``parallel``'s sharded propose on a
+    world-size-1 gloo mesh; no module of the JAX package was imported."""
     code = textwrap.dedent("""
         import sys
         for name in ("jax", "jaxlib", "flax"):
@@ -113,9 +114,21 @@ def test_port_runs_without_jax():
                      "NUM_PROPOSALS": 10},
             "TEST": {"SCALES": [64], "MAX_SIZE": 128}})
         im = np.random.RandomState(0).randint(0, 256, (100, 150, 3)).astype(np.uint8)
-        dets = im_propose(build_az_net(cfg, device="cpu"), im)
+        net = build_az_net(cfg, device="cpu")
+        dets = im_propose(net, im)
         assert dets.shape[1] == 5 and 0 < dets.shape[0] <= 10, dets.shape
         assert np.isfinite(dets).all()
+        import torch.distributed as dist
+        from aznet_tpu_torch.api import make_propose_batch
+        from aznet_tpu_torch.parallel import make_mesh
+        from aznet_tpu_torch.parallel.inference import make_sharded_propose
+        mesh = make_mesh(1, device="cpu")
+        assert dist.get_backend() == "gloo" and mesh.shape == {"data": 1, "model": 1}
+        ims = torch.from_numpy(np.stack([im[:96, :128], im[4:100, 8:136]]))
+        got = make_sharded_propose(net.model, cfg, (64, 128), mesh)(ims)
+        want = make_propose_batch(net.model, cfg, (64, 128))(ims)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        dist.destroy_process_group()
         assert not any(m.split(".")[0] in ("jax", "flax", "aznet_tpu") for m in sys.modules
                        if sys.modules[m] is not None)
         print("OK", dets.shape[0])

@@ -241,7 +241,8 @@ def test_ingest_weights_writes_a_trunk_snapshot(tmp_path, capsys):
 
 
 def test_mesh_and_resume_are_rejected(tmp_path):
-    with pytest.raises(SystemExit, match="A5"):
+    # One process is a world of one rank: a mesh of 8 needs a launcher.
+    with pytest.raises(ValueError, match="requested 8 devices, have 1"):
         train_net.main(["--cpu", "--mesh", "4x2"] + SMALL_SET)
     with pytest.raises(SystemExit, match="--resume"):
         train_net.main(["--cpu", "--resume", str(tmp_path / "a"), "--output",

@@ -7,9 +7,15 @@ Examples:
   python tools_torch/train_net.py --net frcnn --imdb synthetic_hard_train \
       --cfg experiments/cfgs/az_vgg_w100_synthetic_hard.yml --proposals out/props.pkl
 
-The loop resumes from the latest snapshot in the output directory. Two
-options differ from the reference tool: ``--mesh`` raises (multi-device
-training is not ported), and ``--debug-nans`` turns on autograd's anomaly
+  torchrun --nproc-per-node 4 tools_torch/train_net.py --net az --mesh 2x2
+
+The loop resumes from the latest snapshot in the output directory.
+``--mesh DATA[xMODEL]`` trains data + tensor parallel over a ``('data',
+'model')`` mesh of DATA x MODEL ranks (``parallel/mesh.py``): under
+``torchrun`` (one process a card, NCCL) or any launcher that starts the
+process group first (``parallel/multihost.py::launch``, gloo with
+``--cpu``); ``--mesh 1`` runs in one process, in a group of one rank that
+the tool starts and ends. ``--debug-nans`` turns on autograd's anomaly
 detection with its NaN check for the run.
 """
 
@@ -53,13 +59,32 @@ def parse_args(argv=None):
                         "opposite of --net; the trunk entries are the same)")
     p.add_argument("--cpu", action="store_true", help="run on the CPU")
     p.add_argument("--mesh", default=None,
-                   help="data[xmodel] device mesh: not ported, raises")
+                   help="data[xmodel] device mesh, e.g. 4 (DP) or 4x2 (DP x TP over fc6/fc7)")
     p.add_argument("--debug-nans", action="store_true",
                    help="torch.autograd anomaly detection with its NaN check")
     return p.parse_args(argv)
 
 
-def trunk_init_state(args, cfg, dev):
+def mesh_from_args(args, dev):
+    """The ``--mesh`` mesh, or None; and whether this call started the
+    process group (the tool then ends it)."""
+    if not args.mesh:
+        return None, False
+    import torch.distributed as dist
+
+    from aznet_tpu_torch.parallel import make_mesh
+
+    parts = [int(v) for v in args.mesh.split("x")]
+    data, model = parts[0], parts[1] if len(parts) > 1 else 1
+    started = not dist.is_initialized()
+    mesh = make_mesh(data * model, model_parallel=model, device=dev)
+    if mesh is None:
+        raise SystemExit(f"--mesh {args.mesh}: rank {dist.get_rank()} is outside the mesh")
+    print(f"mesh: {mesh.shape}")
+    return mesh, started and dist.is_initialized()
+
+
+def trunk_init_state(args, cfg, dev, mesh=None):
     """``(cfg', state)`` warm-started from ``--init-trunk-from``, or ``(cfg,
     None)``. Unless ``--trunk-trainable``, ``trunk`` joins
     ``TRAIN.FREEZE_PREFIXES``: no gradient, no weight decay, no update."""
@@ -81,7 +106,7 @@ def trunk_init_state(args, cfg, dev):
     print(f"init trunk from {donor} ckpt {path} (step {step}); "
           f"trunk {'frozen' if frozen else 'trainable (warm start)'}")
     make = make_az_train_state if args.net == "az" else make_frcnn_train_state
-    state = make(cfg, device=dev)
+    state = make(cfg, device=dev, mesh=mesh)
     own = {k: v for k, v in state.model.state_dict().items() if k.startswith("trunk.")}
     if set(own) != {k for k in params if k.startswith("trunk.")}:
         raise KeyError(f"{path}: its trunk entries differ from this net's")
@@ -115,8 +140,6 @@ def frcnn_proposals(args, cfg):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.mesh:
-        raise SystemExit("--mesh: multi-device training is not ported yet (ROADMAP A5)")
     if args.resume and args.output and os.path.abspath(args.resume) != os.path.abspath(
             args.output):
         raise SystemExit("--resume: the loop resumes from the latest snapshot in its output "
@@ -134,17 +157,24 @@ def main(argv=None) -> int:
     print(f"imdb: {args.imdb}  net: {args.net}")
     anomaly = (torch.autograd.set_detect_anomaly(True, check_nan=True) if args.debug_nans
                else contextlib.nullcontext())
-    with anomaly:
-        if args.net == "az":
-            cfg, state = trunk_init_state(args, cfg, dev)
-            _, _, outdir = train_az_net(cfg, args.imdb, max_iters=args.iters,
-                                        output_dir=output, state=state, device=dev)
-        else:
-            proposals_fn = frcnn_proposals(args, cfg)
-            cfg, state = trunk_init_state(args, cfg, dev)
-            _, _, outdir = train_frcnn_net(cfg, args.imdb, proposals_fn, max_iters=args.iters,
-                                           output_dir=output, state=state,
-                                           proposals_path=args.proposals or None, device=dev)
+    mesh, started = mesh_from_args(args, dev)
+    try:
+        with anomaly:
+            if args.net == "az":
+                cfg, state = trunk_init_state(args, cfg, dev, mesh)
+                _, _, outdir = train_az_net(cfg, args.imdb, max_iters=args.iters,
+                                            output_dir=output, state=state, device=dev,
+                                            mesh=mesh)
+            else:
+                proposals_fn = frcnn_proposals(args, cfg)
+                cfg, state = trunk_init_state(args, cfg, dev, mesh)
+                _, _, outdir = train_frcnn_net(cfg, args.imdb, proposals_fn,
+                                               max_iters=args.iters, output_dir=output,
+                                               state=state, proposals_path=args.proposals or None,
+                                               device=dev, mesh=mesh)
+    finally:
+        if started:
+            torch.distributed.destroy_process_group()
     print(f"done; checkpoints in {outdir}")
     return 0
 
