@@ -18,18 +18,35 @@ shape gate; other shapes run the plain layers. The int8 path ignores it, as
 the reference's does.
 
 Int8 path (``VGG16Trunk._int8_forward`` of the reference, inference only):
-conv1_1, conv1_2 and conv2_1 stay bf16 (f32 accumulation and f32 bias);
-conv2_1's f32 result is quantized with its calibrated scale, and every later
-conv runs on int8 activations (``ops/conv_int8.py``: the CUDA kernel on the
-card). A pool after a conv is fused into it when the check of the
-reference's chain holds (every int8 layer's width a multiple of 128,
-``INT8_BACKEND='pallas'``) and the map's h and w are even; otherwise it runs
-as a separate int8 max-pool (the odd-size fallback, and the whole
-``'pallas_strip'`` walk). conv5_3 exits in bf16. Weights are quantized once,
-from the float32 parameters, by :meth:`VGG16Trunk.prepare_int8`.
+the bf16 prefix conv1_1, conv1_2 and conv2_1 (f32 accumulation and f32
+bias); the prefix's last f32 output is quantized with its calibrated scale,
+and every later conv runs on int8 activations. ``int8_backend``:
+
+- ``'pallas'``: the int8 conv kernel (``ops/conv_int8.py::conv3x3_int8``).
+  A pool after a conv is fused into it when the check of the reference's
+  chain holds (every int8 layer's width a multiple of 128) and the map's h
+  and w are even; otherwise it runs as a separate int8 max-pool (the
+  odd-size fallback). With ``int8_chain_from='conv1_2'`` the prefix is
+  conv1_1 alone when the chain check holds and conv1 is 64 wide (the
+  reference's rule): conv1_1's f32 output is quantized, conv1_2 runs
+  through the chain entry with pool1 fused (C = Co = 64) and conv2_1
+  through the strip entry (C = 64). The reference pads those 64 channels
+  to 128 lanes with zero weights and zero bias; the padded lanes stay zero
+  through the ReLU, the pool and requantization and meet zero weight rows
+  in conv2_1, so the compact 64-channel layout gives the same codes.
+  Otherwise the setting has no effect, and the trunk warns once.
+- ``'pallas_strip'``: the same kernel, every pool separate.
+- ``'xla'``: the reference's portable trunk, each conv as three dx-packed
+  int8 GEMMs (``ops/conv_int8.py::conv3x3_int8_dx``, ``torch._int_mm``)
+  requantized by a true division, every pool separate.
+
+conv5_3 exits in bf16. Weights are quantized once, from the float32
+parameters, by :meth:`VGG16Trunk.prepare_int8`.
 """
 
 from __future__ import annotations
+
+import warnings
 
 import torch
 import torch.nn.functional as F
@@ -39,8 +56,8 @@ from torch.utils.checkpoint import checkpoint
 from aznet_tpu_torch.models.small import conv
 from aznet_tpu_torch.ops import refuse_grad
 from aznet_tpu_torch.ops.conv1_fused import fused_conv1_pool
-from aznet_tpu_torch.ops.conv_int8 import (Int8Conv, conv3x3_int8, max_pool_2x2,
-                                           quantize_acts)
+from aznet_tpu_torch.ops.conv_int8 import (Int8Conv, conv3x3_int8, conv3x3_int8_dx,
+                                           max_pool_2x2, quantize_acts, quantize_weights)
 from aznet_tpu_torch.utils.precision import float32_precision
 
 # (name, channels) per conv; None entries are 2x2/2 max pools.
@@ -52,18 +69,20 @@ VGG16_LAYOUT = (
     ("conv5_1", 512), ("conv5_2", 512), ("conv5_3", 512),
 )
 
-INT8_BACKENDS = ("pallas", "pallas_strip")
+INT8_BACKENDS = ("pallas", "pallas_strip", "xla")
+INT8_CHAIN_FROM = ("conv2_2", "conv1_2")
 
 
 class VGG16Trunk(nn.Module):
     """``[B, H, W, 3]`` -> ``[B, H/16, W/16, max(int(512*width), 8)]``.
 
     ``int8_mode`` selects the int8 path with ``int8_scales`` (conv1_1 ..
-    conv5_2, or all 13) and ``int8_backend`` ``'pallas'`` (fused pools) or
-    ``'pallas_strip'`` (separate pools)."""
+    conv5_2, or all 13), ``int8_backend`` (``INT8_BACKENDS``) and
+    ``int8_chain_from`` (``INT8_CHAIN_FROM``); ``int8_bf16_prefix`` is the
+    prefix this trunk keeps in bf16 (module docstring)."""
 
     feat_stride = 16
-    # Layers kept in bf16 in int8 mode; the last one's output is quantized.
+    # The default bf16 prefix of the int8 path; its last output is quantized.
     _INT8_BF16_PREFIX = ("conv1_1", "conv1_2", "conv2_1")
 
     def __init__(self, width: float = 1.0, int8_mode: bool = False,
@@ -83,18 +102,28 @@ class VGG16Trunk(nn.Module):
         self.int8_mode = int8_mode
         self.fuse_conv1 = fuse_conv1
         if int8_mode:
-            if int8_chain_from == "conv1_2":
-                raise NotImplementedError(
-                    "int8 with INT8_CHAIN_FROM='conv1_2' (int8 conv1_2/conv2_1) is not ported")
-            if int8_chain_from != "conv2_2":
-                raise ValueError(f"MODEL.INT8_CHAIN_FROM must be 'conv2_2' or 'conv1_2', "
-                                 f"got {int8_chain_from!r}")
+            if int8_chain_from not in INT8_CHAIN_FROM:
+                raise ValueError(f"int8 trunk: MODEL.INT8_CHAIN_FROM must be one of "
+                                 f"{INT8_CHAIN_FROM}, got {int8_chain_from!r}")
             if int8_backend not in INT8_BACKENDS:
-                raise NotImplementedError(
-                    f"COMPUTE_DTYPE='int8' with INT8_BACKEND={int8_backend!r} is not ported "
-                    f"(only {INT8_BACKENDS}; 'xla' requantizes by division)")
+                raise ValueError(f"COMPUTE_DTYPE='int8' takes MODEL.INT8_BACKEND in "
+                                 f"{INT8_BACKENDS}, got {int8_backend!r}")
         self.int8_scales = tuple(int8_scales)
         self.int8_backend = int8_backend
+        # The reference's chain check, on the default prefix's int8 layers.
+        self.int8_chain = int8_backend == "pallas" and all(
+            max(int(ch * width), 8) % 128 == 0
+            for n, ch in VGG16_LAYOUT
+            if ch is not None and n not in self._INT8_BF16_PREFIX[:-1])
+        self.int8_bf16_prefix = self._INT8_BF16_PREFIX
+        if int8_mode and int8_chain_from == "conv1_2":
+            if self.int8_chain and max(int(64 * width), 8) == 64:
+                self.int8_bf16_prefix = ("conv1_1",)
+            else:
+                warnings.warn("MODEL.INT8_CHAIN_FROM='conv1_2' has no effect: it needs "
+                              "INT8_BACKEND='pallas', int8 widths that are multiples of 128 "
+                              "and a 64-wide conv1; the int8 trunk starts at conv2_2",
+                              stacklevel=2)
         self._int8_layers = None
 
     def forward(self, x: torch.Tensor, remat: bool = False) -> torch.Tensor:
@@ -145,17 +174,22 @@ class VGG16Trunk(nn.Module):
                 "int8 trunk needs MODEL.INT8_SCALES for conv1_1..conv5_2 "
                 "(run aznet_tpu_torch.ops.quant.calibrate_trunk_int8 first); got "
                 f"{len(self.int8_scales)} scales")
-        split = [n for n, _ in VGG16_LAYOUT].index(self._INT8_BF16_PREFIX[-1]) + 1
+        split = [n for n, _ in VGG16_LAYOUT].index(self.int8_bf16_prefix[-1]) + 1
         return conv_names, dict(zip(conv_names, self.int8_scales)), split
 
     def prepare_int8(self) -> None:
         """Quantize the int8 layers' weights once, from their float32 values
-        (call after loading weights; the trunk's parameters stay float32)."""
-        self._int8_layers = {
-            name: Int8Conv.from_float(getattr(self, name).weight.detach(),
-                                      getattr(self, name).bias.detach())
-            for name, ch in VGG16_LAYOUT
-            if ch is not None and name not in self._INT8_BF16_PREFIX}
+        (call after loading weights; the trunk's parameters stay float32):
+        the kernel's layout (:class:`Int8Conv`), or under ``'xla'`` the
+        dy-major pack of ``quantize_weights`` with its scales and bias."""
+        layers = {}
+        for name, ch in VGG16_LAYOUT:
+            if ch is None or name in self.int8_bf16_prefix:
+                continue
+            w, b = getattr(self, name).weight.detach(), getattr(self, name).bias.detach()
+            layers[name] = ((*quantize_weights(w), b.float().contiguous())
+                            if self.int8_backend == "xla" else Int8Conv.from_float(w, b))
+        self._int8_layers = layers
 
     def int8_prefix(self, x: torch.Tensor) -> torch.Tensor:
         """Images ``[B, H, W, 3]`` -> int8 codes of the last bf16 prefix
@@ -163,6 +197,7 @@ class VGG16Trunk(nn.Module):
         with f32 accumulation and adds the f32 bias before any rounding (TF32
         is exact on bf16 values, so it is allowed here)."""
         _, scales, split = self._int8_walk()
+        last = self.int8_bf16_prefix[-1]
         x = x.to(torch.bfloat16)
         with float32_precision(tf32=True):
             for name, ch in VGG16_LAYOUT[:split]:
@@ -173,8 +208,7 @@ class VGG16Trunk(nn.Module):
                 y = F.conv2d(x.float().permute(0, 3, 1, 2),
                              conv.weight.detach().to(torch.bfloat16).float(), padding=1)
                 y = torch.relu(y.permute(0, 2, 3, 1) + conv.bias.float())
-                x = (quantize_acts(y, scales[name]) if name == self._INT8_BF16_PREFIX[-1]
-                     else y.to(torch.bfloat16))
+                x = quantize_acts(y, scales[name]) if name == last else y.to(torch.bfloat16)
         return x
 
     def int8_body(self, x: torch.Tensor) -> torch.Tensor:
@@ -183,11 +217,7 @@ class VGG16Trunk(nn.Module):
         if self._int8_layers is None:
             raise RuntimeError("int8 weights are not quantized: call prepare_int8() "
                                "after loading the trunk's weights")
-        chain = self.int8_backend == "pallas" and all(
-            max(int(ch * self.width), 8) % 128 == 0
-            for n, ch in VGG16_LAYOUT
-            if ch is not None and n not in self._INT8_BF16_PREFIX[:-1])
-        s_x = scales[self._INT8_BF16_PREFIX[-1]]
+        s_x = scales[self.int8_bf16_prefix[-1]]
         entries = VGG16_LAYOUT[split:]
         i = 0
         while i < len(entries):
@@ -197,13 +227,16 @@ class VGG16Trunk(nn.Module):
                 x = max_pool_2x2(x)
                 continue
             layer = self._int8_layers[name]
-            if name == conv_names[-1]:  # the trunk's output: bf16, never requantized
+            # conv5_3 is the trunk's output: bf16, never requantized.
+            s_out = None if name == conv_names[-1] else scales[name]
+            if self.int8_backend == "xla":
+                x = conv3x3_int8_dx(x, s_x, *layer, s_out)
+            elif s_out is None:
                 x = conv3x3_int8(x, s_x, layer, None, out_dtype=torch.bfloat16)
-                continue
-            s_out = scales[name]
-            fuse = (chain and i < len(entries) and entries[i][1] is None
-                    and x.shape[1] % 2 == 0 and x.shape[2] % 2 == 0)
-            x = conv3x3_int8(x, s_x, layer, s_out, pool=fuse)
-            i += fuse
+            else:
+                fuse = (self.int8_chain and i < len(entries) and entries[i][1] is None
+                        and x.shape[1] % 2 == 0 and x.shape[2] % 2 == 0)
+                x = conv3x3_int8(x, s_x, layer, s_out, pool=fuse)
+                i += fuse
             s_x = s_out
         return x

@@ -20,6 +20,12 @@ layout and row strips are TPU alignment devices and have no counterpart.
 :func:`conv3x3_int8` dispatches on the device only: a CUDA tensor launches
 the kernel (``ops/cuda/conv_int8_kernel.py``) and a CPU tensor takes
 :func:`conv3x3_int8_reference`. Nothing falls back.
+
+:func:`conv3x3_int8_dx` is the reference's portable form
+(``INT8_BACKEND='xla'``): three dx-packed int8 GEMMs through
+:func:`int8_matmul`, the same code on the CPU and on the card, and
+requantization by a true division (:func:`quantize_acts`) where the kernel
+multiplies by the reciprocal.
 """
 
 from __future__ import annotations
@@ -56,6 +62,26 @@ def pack_weights_9(w: torch.Tensor):
     s = torch.clamp(w.abs().amax(dim=(0, 1, 2)) / scalar_f32(INT8_MAX, w.device), min=1e-12)
     q = torch.round(w / s).clamp_(-INT8_MAX, INT8_MAX).to(torch.int8)
     return q.reshape(9, w.shape[2], w.shape[3]), s
+
+
+def quantize_weights(w: torch.Tensor):
+    """OIHW float ``[Co, C, 3, 3]`` -> (int8 ``[3, 3C, Co]``, scales ``[Co]``
+    f32): the reference's dy-major pack for :func:`conv3x3_int8_dx`, row
+    ``dx * C + c`` of slab ``dy`` (the channel order of :func:`dx_pack`),
+    quantized per output channel from the float32 values. Each slab is
+    stored column-major (``w_q[dy].t()`` is a contiguous ``[Co, 3C]``): the
+    card's int8 GEMM takes its second operand so at every shape, and refuses
+    some shapes of a row-major one."""
+    q9, s = pack_weights_9(w)
+    q = q9.reshape(3, 3 * q9.shape[1], q9.shape[2])
+    return q.transpose(1, 2).contiguous().transpose(1, 2), s
+
+
+def dx_pack(xp: torch.Tensor) -> torch.Tensor:
+    """Zero-padded ``[B, H+2, W+2, C]`` -> ``[B, H+2, W, 3C]``: the three
+    dx-shifted copies side by side along the channels."""
+    w = xp.shape[2] - 2
+    return torch.cat([xp[:, :, 0:w], xp[:, :, 1:w + 1], xp[:, :, 2:w + 2]], dim=-1)
 
 
 # torch._int_mm on CUDA takes more than 16 rows; the search's first level has 8.
@@ -157,6 +183,36 @@ def conv3x3_int8_reference(x: torch.Tensor, s_x: float, layer: Int8Conv,
         return y.to(out_dtype)
     q = torch.round(y * scalar_f32(1.0 / s_out, x.device))
     return q.clamp_(-INT8_MAX, INT8_MAX).to(torch.int8)
+
+
+def conv3x3_int8_dx(x8: torch.Tensor, s_x: float, w_q: torch.Tensor, s_w: torch.Tensor,
+                    bias: torch.Tensor, s_out: float | None = None,
+                    out_dtype=torch.bfloat16) -> torch.Tensor:
+    """3x3/SAME conv + ReLU on int8 NHWC ``x8`` at scale ``s_x`` as three
+    dx-packed GEMMs (``aznet_tpu/ops/conv_int8.py::conv3x3_int8``), with
+    ``(w_q [3, 3C, Co], s_w)`` from :func:`quantize_weights` and ``bias [Co]``
+    f32: for each dy, rows dy..dy+H of :func:`dx_pack` of the padded input
+    times ``w_q[dy]`` (K = 3C) in exact int32, summed in dy order; then
+    ``float(acc) * (f32(s_x) * s_w)``, ``+ bias`` (two roundings), ReLU.
+    Returns int8 codes at ``s_out`` (:func:`quantize_acts`, a true
+    division) or ``out_dtype`` when ``s_out`` is None. On the card
+    ``_int_mm`` needs C and Co multiples of 8 (K = 3C)."""
+    b, h, w, c = x8.shape
+    if x8.dtype != torch.int8 or w_q.dtype != torch.int8:
+        raise TypeError(f"conv3x3_int8_dx takes int8 operands, got {x8.dtype} and {w_q.dtype}")
+    if w_q.shape[:2] != (3, 3 * c):
+        raise ValueError(f"weights {tuple(w_q.shape)} for {c} input channels")
+    if x8.is_cuda and (c % 8 or w_q.shape[2] % 8):
+        raise ValueError(f"the card's int8 GEMM takes C and Co multiples of 8, got "
+                         f"{c} -> {w_q.shape[2]}")
+    xc = dx_pack(F.pad(x8, (0, 0, 1, 1, 1, 1)))
+    acc = None
+    for dy in range(3):
+        d = int8_matmul(xc[:, dy:dy + h].reshape(-1, 3 * c), w_q[dy].t().contiguous())
+        acc = d if acc is None else acc + d
+    y = acc.float() * (scalar_f32(s_x, x8.device) * s_w) + bias
+    y = torch.relu(y).reshape(b, h, w, -1)
+    return y.to(out_dtype) if s_out is None else quantize_acts(y, s_out)
 
 
 def quantize_weights_1x1(w: torch.Tensor):

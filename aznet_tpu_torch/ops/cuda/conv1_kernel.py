@@ -1,18 +1,23 @@
-"""Fused conv1_2 + ReLU + pool1 on the card: wrapper of
-``aznet_tpu_torch/csrc/conv1_fused.cu``.
+"""Fused conv1_2 + ReLU + pool1 on the card: wrappers of
+``aznet_tpu_torch/csrc/conv1_fused.cu`` (bf16) and
+``aznet_tpu_torch/csrc/conv1_fused_f32.cu`` (float32).
 
-Replaces ``aznet_tpu/ops/pallas/conv1_kernel.py::fused_conv1_pool`` (its
-Pallas part; conv1_1 runs outside, as there). An implicit GEMM on the bf16
-tensor cores (``wgmma`` m64n128k16, f32 accumulation) with the output
-channels as M and 128 pixels of a row as N, the weights resident in shared
-memory, the halo patch brought by TMA into a ring of stages, and persistent
-blocks that walk tiles of 2 rows x 128 columns; bias, ReLU and the 2x2/2
-max-pool close in registers (see the source's header). Bound by compute at
-VGG-16's shape.
+Both replace ``aznet_tpu/ops/pallas/conv1_kernel.py::fused_conv1_pool`` (its
+Pallas part, which runs in the input's dtype; conv1_1 runs outside, as
+there). :func:`conv1_2_pool_cuda`, bf16: an implicit GEMM on the bf16 tensor
+cores (``wgmma`` m64n128k16, f32 accumulation) with the output channels as M
+and 128 pixels of a row as N, the weights resident in shared memory, the
+halo patch brought by TMA into a ring of stages, and persistent blocks that
+walk tiles of 2 rows x 128 columns; bias, ReLU and the 2x2/2 max-pool close
+in registers (see the source's header). Bound by compute at VGG-16's shape.
+:func:`conv1_2_pool_cuda_f32`, float32: a direct convolution on the CUDA
+cores in true float32 (``__fmaf_rn``, no TF32), weights and a halo patch in
+shared memory, persistent blocks over tiles of 2 rows x 64 columns, summed
+in the plain version's order (a partial sum per tap, then the taps in order).
 
 Only CUDA tensors are accepted; the plain PyTorch version is
 ``aznet_tpu_torch.ops.conv1_fused.conv1_2_pool_reference`` and the dispatch
-is ``aznet_tpu_torch.ops.conv1_fused.fused_conv1_pool``.
+(by ``y``'s dtype) is ``aznet_tpu_torch.ops.conv1_fused.fused_conv1_pool``.
 """
 
 from __future__ import annotations
@@ -28,8 +33,9 @@ CHANNEL_MULTIPLE = 8  # C and Co: TMA's 16-byte rows, the 16-byte output stores
 TILE_COLS = 128  # output columns per tile = wgmma N
 CONSUMERS = 2  # consumer warpgroups per block; the block's k-th tile goes to k % 2
 
-# Launches of the kernel (one per call that reaches the card).
+# Launches of the bf16 and the float32 kernel (one per call that reaches the card).
 LAUNCHES = 0
+LAUNCHES_F32 = 0
 
 _fns = None
 
@@ -44,9 +50,12 @@ def _launcher():
         fn = lib.aznet_conv1_fused
         fn.argtypes = [p, p, p, i, i, i, i, i, i, p, p]
         fn.restype = i
+        fn32 = lib.aznet_conv1_fused_f32
+        fn32.argtypes = [p, p, p, i, i, i, i, i, p, p]
+        fn32.restype = i
         lib.aznet_cuda_error_string.argtypes = [i]
         lib.aznet_cuda_error_string.restype = ctypes.c_char_p
-        _fns = (fn, lib.aznet_cuda_error_string)
+        _fns = (fn, fn32, lib.aznet_cuda_error_string)
     return _fns
 
 
@@ -74,6 +83,46 @@ def tile_walk(b: int, h: int, w: int, grid: int):
     return walk
 
 
+def _check(y: torch.Tensor, w_k: torch.Tensor, bias: torch.Tensor, dtype, w_shape):
+    """Validate the operands for the kernel of ``dtype``, whose weight layout
+    for C input channels has shape ``w_shape(C)``; returns (B, H, W, C, Co)."""
+    tensors = (y, w_k, bias)
+    if not all(t.is_cuda for t in tensors) or len({t.device for t in tensors}) != 1:
+        raise ValueError("the fused conv1 kernel takes CUDA tensors on one device")
+    name = {torch.bfloat16: "bf16", torch.float32: "float32"}[dtype]
+    if y.dtype != dtype or w_k.dtype != dtype:
+        raise TypeError(f"the {name} fused conv1 kernel takes {name} y and w_k, "
+                        f"got {y.dtype}/{w_k.dtype}")
+    if bias.dtype != torch.float32:
+        raise TypeError(f"bias must be float32, got {bias.dtype}")
+    if y.ndim != 4 or bias.ndim != 1:
+        raise ValueError(f"shapes y {tuple(y.shape)}, bias {tuple(bias.shape)}")
+    b, h, w, c = y.shape
+    co = bias.shape[0]
+    for label, n in (("C", c), ("Co", co)):
+        if n % CHANNEL_MULTIPLE or not 0 < n <= MAX_CHANNELS:
+            raise ValueError(f"the fused conv1 kernel takes {label} a multiple of "
+                             f"{CHANNEL_MULTIPLE} up to {MAX_CHANNELS}, got {n}")
+    if w_k.shape != w_shape(c):
+        raise ValueError(f"w_k {tuple(w_k.shape)} is not the {name} kernel's tiled layout "
+                         f"for C={c}")
+    if h % 2 or w % 2:
+        raise ValueError(f"the fused 2x2 pool needs even H and W, got {h}x{w}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("the fused conv1 kernel needs contiguous tensors")
+    if y.data_ptr() % 16 or w_k.data_ptr() % 16:
+        raise ValueError("y and w_k must be 16-byte aligned")
+    if num_tiles(b, h, w) >= 2**31:
+        raise ValueError(f"too many tiles for y {tuple(y.shape)}")
+    return b, h, w, c, co
+
+
+def _raise_on(err: int):
+    if err != 0:
+        raise RuntimeError(f"fused conv1 kernel launch failed: "
+                           f"{_launcher()[2](err).decode()} ({err})")
+
+
 def conv1_2_pool_cuda(y: torch.Tensor, w_k: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """``y [B, H, W, C]`` bf16 (H, W even), ``w_k`` the tiled bf16 weights
     ``[ceil(C/16), 9, 2, 64, 8]`` (``ops/conv1_fused.py::kernel_layout``),
@@ -81,41 +130,38 @@ def conv1_2_pool_cuda(y: torch.Tensor, w_k: torch.Tensor, bias: torch.Tensor) ->
     Co]``: 3x3 SAME conv, + bias, ReLU, 2x2/2 max-pool. C and Co must be
     multiples of 8 and at most 64. Raises on anything else."""
     global LAUNCHES
-    tensors = (y, w_k, bias)
-    if not all(t.is_cuda for t in tensors) or len({t.device for t in tensors}) != 1:
-        raise ValueError("conv1_2_pool_cuda takes CUDA tensors on one device")
-    if y.dtype != torch.bfloat16 or w_k.dtype != torch.bfloat16:
-        raise TypeError(f"the fused conv1 kernel takes bf16 y and w_k, got {y.dtype}/{w_k.dtype}")
-    if bias.dtype != torch.float32:
-        raise TypeError(f"bias must be float32, got {bias.dtype}")
-    if y.ndim != 4 or bias.ndim != 1:
-        raise ValueError(f"shapes y {tuple(y.shape)}, bias {tuple(bias.shape)}")
-    b, h, w, c = y.shape
-    co = bias.shape[0]
-    for name, n in (("C", c), ("Co", co)):
-        if n % CHANNEL_MULTIPLE or not 0 < n <= MAX_CHANNELS:
-            raise ValueError(f"the fused conv1 kernel takes {name} a multiple of "
-                             f"{CHANNEL_MULTIPLE} up to {MAX_CHANNELS}, got {n}")
-    if w_k.shape != (-(-c // 16), 9, 2, MAX_CHANNELS, 8):
-        raise ValueError(f"w_k {tuple(w_k.shape)} is not the tiled layout for C={c}")
-    if h % 2 or w % 2:
-        raise ValueError(f"the fused 2x2 pool needs even H and W, got {h}x{w}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("the fused conv1 kernel needs contiguous tensors")
-    if y.data_ptr() % 16 or w_k.data_ptr() % 16:
-        raise ValueError("y and w_k must be 16-byte aligned")
-    tiles = num_tiles(b, h, w)
-    if tiles >= 2**31:
-        raise ValueError(f"too many tiles for y {tuple(y.shape)}")
+    b, h, w, c, co = _check(y, w_k, bias, torch.bfloat16,
+                            lambda c: (-(-c // 16), 9, 2, MAX_CHANNELS, 8))
     out = torch.empty((b, h // 2, w // 2, co), dtype=torch.bfloat16, device=y.device)
     if out.numel() == 0:
         return out
-    fn, err_str = _launcher()
+    fn = _launcher()[0]
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream(y.device).cuda_stream
         err = fn(y.data_ptr(), w_k.data_ptr(), bias.data_ptr(), b, h, w, c, co,
-                 grid_size(tiles, sm_count(y.device.index)), out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"fused conv1 kernel launch failed: {err_str(err).decode()} ({err})")
+                 grid_size(num_tiles(b, h, w), sm_count(y.device.index)), out.data_ptr(),
+                 stream)
+    _raise_on(err)
     LAUNCHES += 1
+    return out
+
+
+def conv1_2_pool_cuda_f32(y: torch.Tensor, w_k: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """``y [B, H, W, C]`` float32 (H, W even), ``w_k`` the float32 weights
+    ``[9, C, 64]`` (``ops/conv1_fused.py::kernel_layout_f32``), ``bias [Co]``
+    f32, contiguous on one CUDA device -> float32 ``[B, H/2, W/2, Co]``: 3x3
+    SAME conv, + bias, ReLU, 2x2/2 max-pool, in true float32. C and Co must be
+    multiples of 8 and at most 64. Raises on anything else."""
+    global LAUNCHES_F32
+    b, h, w, c, co = _check(y, w_k, bias, torch.float32, lambda c: (9, c, MAX_CHANNELS))
+    out = torch.empty((b, h // 2, w // 2, co), dtype=torch.float32, device=y.device)
+    if out.numel() == 0:
+        return out
+    fn = _launcher()[1]
+    with torch.cuda.device(y.device):
+        stream = torch.cuda.current_stream(y.device).cuda_stream
+        err = fn(y.data_ptr(), w_k.data_ptr(), bias.data_ptr(), b, h, w, c, co,
+                 out.data_ptr(), stream)
+    _raise_on(err)
+    LAUNCHES_F32 += 1
     return out

@@ -4,8 +4,8 @@
     python3 chip_smoke.py        # from the repository root; needs one card and nvcc
 
 1. Builds the CUDA kernels from ``aznet_tpu_torch/csrc`` (into the
-   git-ignored ``build/``): NMS, the int8 conv, ROI align, fused conv1,
-   IoU.
+   git-ignored ``build/``): NMS, the int8 conv, ROI align, fused conv1
+   (bf16 and float32), IoU.
 2. Phase 1: holds the kernel's keep masks against its plain PyTorch version
    on the card, bit for bit: the search's shape (1 x 2048, IoU 0.7), the
    16 x 4096 stream shape (boxes uniform in [0, 2000] plus wh in [5, 300],
@@ -174,22 +174,51 @@
    beside its plain path in alternating rounds (one ``mesh`` JSON line).
    The group is destroyed at the end.
 
+15. Phase 14: the last settings. (a) Phase 4's calibrated net rebuilt with
+   ``INT8_CHAIN_FROM='conv1_2'`` from the same scales (only conv1_1 in bf16;
+   conv1_2 through the chain entry with pool1 fused at C=64, conv2_1
+   through the strip entry at C=64): ``make_propose_batch`` (b=2) and one
+   ``im_propose`` with the conv counts set to 0 just before (chain 8,
+   strip 16), every conv input against the plain version bit for bit (the
+   C=64 shapes among them), the proposals checked as in phase 4, cosine >
+   0.98 against the bf16 trunk; the trunk and its prefix timed against the
+   trunk from conv2_2 in alternating rounds (medians of 3). Phase 3 times
+   the kernel alone at those two C=64 layers. (b) The same net with
+   ``INT8_BACKEND='xla'``: the propose path with the chain and strip
+   counts at 0, 30 ``torch._int_mm`` calls a trunk call, the share of
+   conv2_2's codes that differ from the chain kernel's, cosine > 0.999
+   against the ``'pallas'`` trunk, both trunks timed in alternating rounds.
+   (c) The float32 fused conv1 kernel (``csrc/conv1_fused_f32.cu``) alone at
+   b=2 608x800x64 against a float64 product of the same operands (at most
+   twice the plain version's error, within 1e-5 of max|plain|), timed
+   beside the plain version and cuDNN's float32 conv2d + relu + max_pool2d
+   with TF32 off; then a float32 VGG-16 net at full width with
+   ``FUSE_CONV1`` and ``'align_pallas'`` through the propose path (one f32
+   conv1 launch a trunk call; the first launch's input held against
+   float64), its trunk against the same net unfused (relative 1e-5). (d)
+   ``'xla'`` at WIDTH 0.125 and the trunk from conv1_2 at full width on two
+   64x64 images, on the card against the CPU at phase 4's bounds.
+
 Prints the card's name and power limit, one JSON line of kernel records
 (each with its bound, library yardstick and launches on the eval path, in
-training, in the tools and on the mesh paths), and,
+training, in the tools and on the mesh paths; the int8 conv's with its C=64
+layer and its launches from conv1_2, and the float32 conv1's), and,
 as the last line, ``{"ok": true, "device": {...}}``. Exits non-zero at the first failure and
 when no CUDA device is present. Imports no JAX and nothing of ``aznet_tpu``.
 
     python3 chip_smoke.py --conv-times [ROOT]
 
-times the int8 conv alone at phase 3's 10 layers (device and CUDA-event
-time) with the package under ROOT (default: this checkout), so that two
+times the int8 conv alone at phase 3's 10 layers and its two C=64 layers
+(device and CUDA-event time, each beside its bound) with the package under
+ROOT (default: this checkout), so that two
 checkouts run in turn in one call compare two versions of the kernel.
 
     python3 chip_smoke.py --conv1-times [ROOT]
 
-does the same for the fused conv1 kernel at phase 5's b=2 608x800x64 input
-(device time, TFLOP/s and share of the bf16 peak, CUDA-event time).
+does the same for the fused conv1 kernels at phase 5's b=2 608x800x64 input,
+the bf16 one and (where the checkout has it) the float32 one on the same
+values in float32 (device time, TFLOP/s and share of the bf16 or f32 peak,
+CUDA-event time).
 
     python3 chip_smoke.py --roi-times [ROOT]
     python3 chip_smoke.py --nms-times [ROOT]
@@ -202,6 +231,11 @@ each NMS pass's device time (sort, mask, scan).
     python3 chip_smoke.py --mesh-phase
 
 builds the kernels and runs phase 13 alone.
+
+    python3 chip_smoke.py --settings-phase
+
+builds the kernels and runs phases 2 and 4 (the bf16 and int8 propose
+paths, whose nets and calibration it needs) and phase 14.
 
     python3 chip_smoke.py --iou-times [ROOT]
 
@@ -231,6 +265,7 @@ STRIP_REPLACES = "aznet_tpu/ops/pallas/conv_int8_kernel.py:87"
 ROI_SOURCE = "aznet_tpu_torch/csrc/roi_align.cu"
 ROI_REPLACES = "aznet_tpu/ops/pallas/roi_kernel.py:289"
 CONV1_SOURCE = "aznet_tpu_torch/csrc/conv1_fused.cu"
+CONV1_F32_SOURCE = "aznet_tpu_torch/csrc/conv1_fused_f32.cu"
 CONV1_REPLACES = "aznet_tpu/ops/pallas/conv1_kernel.py:132"
 IOU_SOURCE = "aznet_tpu_torch/csrc/iou.cu"
 IOU_REPLACES = "aznet_tpu/ops/pallas/iou_kernel.py:43"
@@ -304,6 +339,25 @@ def device_us(fn, name, iters=20, attempts=3):
     whose name holds ``name`` (:func:`device_times`); None when not seen."""
     out = device_times(fn, [name], iters, attempts)
     return out and out[name]
+
+
+def launch_us(fn, name, iters=20):
+    """(mean device time in microseconds of one launch of the kernel whose
+    name holds ``name``, launched once a call of ``fn``, over the launches
+    ``torch.profiler`` saw; their count): unlike :func:`device_us`, a
+    session that loses some of the card's events still gives the mean."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if name in e.key]
+    n = sum(e.count for e in events)
+    return (sum(e.self_device_time_total for e in events) / n if n else None), n
 
 
 def host_us(fn, iters=50):
@@ -738,6 +792,14 @@ def main_path_int8_layers():
     return out
 
 
+def c64_int8_layers():
+    """conv1_2 and conv2_1 of the int8 trunk from conv1_2 (``INT8_CHAIN_FROM
+    'conv1_2'``), at b=2 on the canvas: (name, H, W, C, Co, pool, exit)."""
+    h, w = CANVAS
+    return [("conv1_2", h, w, 64, 64, True, False),
+            ("conv2_1", h // 2, w // 2, 64, 128, False, False)]
+
+
 def conv_case(seed, h, w, c, co, dev):
     """Post-ReLU-like int8 activations and a quantized random-normal layer."""
     import torch
@@ -772,9 +834,11 @@ def im2col_gemm(x, layer):
 
 
 def phase3_conv(dev):
-    """The int8 conv kernel alone at the main path's shapes. Returns
-    {"err": {entry: max_abs_err}, "ms"/"plain_ms"/"library_ms": {entry:
-    summed over the main-path layers that entry runs}}."""
+    """The int8 conv kernel alone at the main path's shapes and at the two
+    C=64 layers of the trunk from conv1_2. Returns {"err": {entry:
+    max_abs_err}, "ms"/"plain_ms"/"library_ms": {entry: summed over the
+    main-path layers that entry runs}, "c64": {entry: that entry's C=64
+    layer's record}}."""
     import torch
 
     from aznet_tpu_torch.ops import conv_int8 as tconv
@@ -784,10 +848,12 @@ def phase3_conv(dev):
     entries = ("chain", "strip")
     err = {e: 0.0 for e in entries}
     ms, plain_ms, library_ms, dev_us = ({e: 0.0 for e in entries} for _ in range(4))
+    c64 = {}
     cases = [(*layer, True) for layer in main_path_int8_layers()]
     h0, w0 = cases[0][1:3]  # conv2_2's map: the strip entry there, and at C=64
     cases += [("conv2_2_nopool", h0, w0, 128, 128, False, False, False),
               ("c64_input", h0, w0, 64, 128, False, False, False)]
+    cases += [(f"{name}_c64", *rest, True) for name, *rest in c64_int8_layers()]
     for k, (name, h, w, c, co, pool, last, timed) in enumerate(cases):
         x, layer = conv_case(100 + k, h, w, c, co, dev)
         s_out = None if last else 0.3717 + 0.01 * k
@@ -814,16 +880,23 @@ def phase3_conv(dev):
             check(k_us is not None, f"{name}: the profiler saw no conv kernel")
             gemm = im2col_gemm(x, layer)
             l_ms, l_us = cuda_ms(gemm, 20, 3), device_us(gemm, "")
-            ms[entry] += k_ms
-            plain_ms[entry] += p_ms
-            library_ms[entry] += l_ms
-            dev_us[entry] += k_us
+            b_ms, b_by = int8_layer_bound(h, w, c, co, pool, last)
+            if name.endswith("_c64"):
+                c64[entry] = {"layer": name[:-4], "shape": f"{BATCH}x{h}x{w}x{c}->{co}",
+                              "max_abs_err": diff, "ms": k_ms, "device_us": k_us,
+                              "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms,
+                              "bound_by": b_by}
+            else:
+                ms[entry] += k_ms
+                plain_ms[entry] += p_ms
+                library_ms[entry] += l_ms
+                dev_us[entry] += k_us
             ops = 2.0 * BATCH * h * w * 9 * c * co
             line += (f"; kernel {k_ms:.4f} ms by events, device {k_us:.2f} us "
                      f"({ops / k_us / 1e6:.1f} TOP/s), plain {p_ms:.4f} ms; int8 GEMM core, "
                      f"no im2col, no epilogue (torch._int_mm {BATCH * h * w}x{9 * c}x{co}): "
                      f"{l_ms:.4f} ms by events, device {l_us:.2f} us "
-                     f"({ops / l_us / 1e6:.1f} TOP/s)")
+                     f"({ops / l_us / 1e6:.1f} TOP/s); bound {b_ms * 1e3:.2f} us ({b_by})")
         print(line, flush=True)
     # The one main-path shape where the host picks 2-row tiles: conv5 at b=1
     # (im_propose's trunk call); both tiles timed, each held against plain.
@@ -850,7 +923,7 @@ def phase3_conv(dev):
               f"{int8_conv_bound(entry)[0]:.4f} ms (operations)", flush=True)
     print(f"phase3 the 10 int8 layers per trunk call (b={BATCH}): device "
           f"{sum(dev_us.values()):.2f} us, events {sum(ms.values()):.4f} ms", flush=True)
-    return {"err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms}
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "c64": c64}
 
 
 def conv_times(dev, root):
@@ -861,15 +934,18 @@ def conv_times(dev, root):
     from aznet_tpu_torch.ops import conv_int8 as tconv
 
     total_us = total_ms = 0.0
-    for k, (name, h, w, c, co, pool, last) in enumerate(main_path_int8_layers()):
+    layers = main_path_int8_layers()
+    for k, (name, h, w, c, co, pool, last) in enumerate(layers + c64_int8_layers()):
         x, layer = conv_case(100 + k, h, w, c, co, dev)
         s_out = None if last else 0.3717 + 0.01 * k
         run = lambda: tconv.conv3x3_int8(x, 0.0419, layer, s_out, pool=pool)
         k_us, k_ms = device_us(run, "conv3x3_int8"), cuda_ms(run, 20, 3)
         check(k_us is not None, f"{name}: the profiler saw no conv kernel")
-        total_us, total_ms = total_us + k_us, total_ms + k_ms
+        b_ms, b_by = int8_layer_bound(h, w, c, co, pool, last)
         print(f"conv-times {root} {name} {BATCH}x{h}x{w}x{c}->{co}: device {k_us:.2f} us, "
-              f"events {k_ms:.4f} ms", flush=True)
+              f"events {k_ms:.4f} ms; bound {b_ms * 1e3:.2f} us ({b_by})", flush=True)
+        if k < len(layers):
+            total_us, total_ms = total_us + k_us, total_ms + k_ms
     print(f"conv-times {root}: 10 layers device {total_us:.2f} us, events {total_ms:.4f} ms",
           flush=True)
 
@@ -946,68 +1022,99 @@ def phase4_int8(dev, net, blobs, bf16_ips):
     check(counts["chain"] > 0 and counts["strip"] > 0, f"an int8 conv entry never ran: {counts}")
     check(nms_launches >= BATCH + 1, f"NMS launched {nms_launches} times")
 
+    conv_err, _ = conv_path_err("phase4", recorded)
+
+    with torch.inference_mode():
+        f16 = net.model.features(blobs).float()
+        f8 = net8.model.features(blobs).float()
+    cos = cosine(f16, f8)
+    print(f"phase4 int8 vs bf16 trunk features: cosine {cos:.6f}", flush=True)
+    check(cos > 0.98, f"int8 trunk features drift from the bf16 trunk: cosine {cos}")
+    print(f"phase4 img/s at b={BATCH}: int8 {ips:.2f} vs bf16 {bf16_ips:.2f} (same call)",
+          flush=True)
+    return {"launches": counts, "conv_err": conv_err, "nms_err": nms_err, "ips": ips,
+            "net": net8, "bf16_feat": f16, "blobs": blobs}
+
+
+def cosine(a, b):
+    return (a * b).sum().item() / max(a.norm().item() * b.norm().item(), 1e-9)
+
+
+def conv_path_err(tag, recorded):
+    """Every recorded int8 conv launch against the plain version on its
+    inputs, bit for bit. Returns ({entry: max_abs_err}, the (entry, input
+    shape) pairs seen)."""
+    from aznet_tpu_torch.ops import conv_int8 as tconv
+
     conv_err = {"chain": 0.0, "strip": 0.0}
     for entry, x, s_x, w_k, s_w, bias, s_out, out in recorded:
         want = tconv.conv3x3_int8_reference(x, s_x, tconv.Int8Conv(w_k, s_w, bias), s_out,
                                             pool=entry == "chain")
         conv_err[entry] = max(conv_err[entry], (out.float() - want.float()).abs().max().item())
     shapes = sorted({(e, tuple(x.shape)) for e, x, *_ in recorded})
-    print(f"phase4 conv on the path's {len(recorded)} inputs {shapes}: kernel vs plain "
+    print(f"{tag} conv on the path's {len(recorded)} inputs {shapes}: kernel vs plain "
           f"max_abs_err {conv_err}", flush=True)
     check(max(conv_err.values()) == 0.0,
           "int8 conv kernel disagrees with the plain version on the path's inputs")
-
-    with torch.inference_mode():
-        f16 = net.model.features(blobs).float()
-        f8 = net8.model.features(blobs).float()
-    cos = (f16 * f8).sum().item() / max(f16.norm().item() * f8.norm().item(), 1e-9)
-    print(f"phase4 int8 vs bf16 trunk features: cosine {cos:.6f}", flush=True)
-    check(cos > 0.98, f"int8 trunk features drift from the bf16 trunk: cosine {cos}")
-    print(f"phase4 img/s at b={BATCH}: int8 {ips:.2f} vs bf16 {bf16_ips:.2f} (same call)",
-          flush=True)
-    return {"launches": counts, "conv_err": conv_err, "nms_err": nms_err, "ips": ips}
+    return conv_err, shapes
 
 
-def phase4_reference(dev):
+def phase4_reference(dev, backend="pallas"):
     """The int8 port on the card against the port on the CPU: VGG-16 at WIDTH
-    0.125 (the strip entry), fixed scales, seeded weights. The int8 codes
-    that enter conv2_2 may differ where the two devices' float convs of the
-    bf16 prefix round a value at a quantization boundary (<= 1 code on
-    <= 0.1%); from the same codes the int8 layers agree bit for bit."""
+    0.125 (the strip entry under ``'pallas'``; ``_int_mm`` under ``'xla'``),
+    fixed scales, seeded weights (:func:`int8_card_vs_cpu`)."""
     import torch
 
     from aznet_tpu_torch.config import Config, cfg_from_dict
     from aznet_tpu_torch import api
-    from aznet_tpu_torch.ops.cuda import conv_int8_kernel as ck
     from aznet_tpu_torch.ops.quant import with_int8_scales
 
-    cfg = cfg_from_dict(Config(), {"MODEL": {"WIDTH": 0.125, "FC_DIM": 64}})
+    cfg = cfg_from_dict(Config(), {"MODEL": {"WIDTH": 0.125, "FC_DIM": 64,
+                                             "INT8_BACKEND": backend}})
     cfg = with_int8_scales(cfg, [2.0, 1.5, 1.2, 0.8, 0.6, 0.4, 0.3, 0.2, 0.15, 0.1,
                                  0.08, 0.06, 0.05])
     cpu_net = api.build_az_net(cfg, device="cpu")
     gpu_net = api.build_az_net(cfg, state_dict=cpu_net.params, device=dev)
     rng = np.random.RandomState(2)
     x = torch.from_numpy(rng.uniform(-120, 120, (2, 96, 128, 3)).astype(np.float32))
+    tag = "phase4 reference" if backend == "pallas" else f"phase14d {backend}"
+    int8_card_vs_cpu(f"{tag} (int8 VGG-16 WIDTH 0.125, INT8_BACKEND {backend!r}, card vs CPU)",
+                     cpu_net.model.trunk, gpu_net.model.trunk, x, dev,
+                     {"chain": 0, "strip": 10 if backend == "pallas" else 0})
+
+
+def int8_card_vs_cpu(tag, cpu_trunk, gpu_trunk, x, dev, launches):
+    """An int8 VGG-16 trunk on the card against the same trunk on the CPU. The
+    int8 codes that leave the bf16 prefix may differ where the two devices'
+    float convs round a value at a quantization boundary (<= 1 code on <=
+    0.1%); from the same codes the int8 layers agree bit for bit, with
+    ``launches`` of each conv entry; the whole trunk within 2% of its
+    largest value."""
+    import torch
+
+    from aznet_tpu_torch.ops.cuda import conv_int8_kernel as ck
+
     with torch.inference_mode():
-        codes_cpu = cpu_net.model.trunk.int8_prefix(x)
-        codes_gpu = gpu_net.model.trunk.int8_prefix(x.to(dev))
+        codes_cpu = cpu_trunk.int8_prefix(x)
+        codes_gpu = gpu_trunk.int8_prefix(x.to(dev))
         before = dict(ck.LAUNCHES)
-        got = gpu_net.model.trunk.int8_body(codes_gpu).cpu()
+        got = gpu_trunk.int8_body(codes_gpu).cpu()
         launched = {e: ck.LAUNCHES[e] - before[e] for e in before}
-        want = cpu_net.model.trunk.int8_body(codes_gpu.cpu())
-        full_gpu = gpu_net.model.features(x.to(dev)).float().cpu()
-        full_cpu = cpu_net.model.features(x).float()
+        want = cpu_trunk.int8_body(codes_gpu.cpu())
+        full_gpu = gpu_trunk(x.to(dev)).float().cpu()
+        full_cpu = cpu_trunk(x).float()
     d = (codes_gpu.cpu().int() - codes_cpu.int()).abs()
     frac = (d > 0).float().mean().item()
     body_err = (got.float() - want.float()).abs().max().item()
     rel = ((full_gpu - full_cpu).abs().max() / full_cpu.abs().max()).item()
-    print(f"phase4 reference (int8 VGG-16 WIDTH 0.125, card vs CPU): prefix codes differ "
-          f"on {frac:.2e} (max {d.max().item()}), trunk body from the same codes max_abs_err "
-          f"{body_err} ({launched}), whole trunk max rel err {rel:.3g}", flush=True)
-    check(d.max().item() <= 1 and frac <= 1e-3, "card and CPU int8 prefix codes disagree")
-    check(body_err == 0.0 and launched["strip"] == 10 and launched["chain"] == 0,
-          "card and CPU int8 trunk bodies disagree (or the strip entry did not run)")
-    check(rel <= 2e-2, "card and CPU int8 trunks disagree")
+    print(f"{tag}: prefix codes differ on {frac:.2e} (max {d.max().item()}), trunk body from "
+          f"the same codes max_abs_err {body_err} ({launched}), whole trunk max rel err "
+          f"{rel:.3g}", flush=True)
+    check(d.max().item() <= 1 and frac <= 1e-3, f"{tag}: card and CPU int8 prefix codes disagree")
+    check(body_err == 0.0 and launched == launches,
+          f"{tag}: card and CPU int8 trunk bodies disagree (or launched {launched}, not "
+          f"{launches})")
+    check(rel <= 2e-2, f"{tag}: card and CPU int8 trunks disagree")
 
 
 def bound(nbytes, ops, peak):
@@ -1024,16 +1131,19 @@ def nms_bound(bsz, n):
     return bound(bsz * n * (16 + 4 + 1 + 1), bsz * n * (n - 1) // 2 * IOU_OPS, "f32")
 
 
+def int8_layer_bound(h, w, c, co, pool, last):
+    """One int8 conv layer at b=2: int8 input, int8 weights, scales and bias
+    read once, the output written once (bf16 at the exit)."""
+    out_px = BATCH * h * w // (4 if pool else 1)
+    nbytes = BATCH * h * w * c + 9 * c * co + 8 * co + out_px * co * (2 if last else 1)
+    return bound(nbytes, 2.0 * BATCH * h * w * 9 * c * co, "int8")
+
+
 def int8_conv_bound(entry):
-    """Summed over the main-path layers the entry runs (b=2): int8 input,
-    int8 weights, scales and bias read once, the output written once."""
-    ms = 0.0
-    for _, h, w, c, co, pool, last in main_path_int8_layers():
-        if pool != (entry == "chain"):
-            continue
-        out_px = BATCH * h * w // (4 if pool else 1)
-        nbytes = BATCH * h * w * c + 9 * c * co + 8 * co + out_px * co * (2 if last else 1)
-        ms += bound(nbytes, 2.0 * BATCH * h * w * 9 * c * co, "int8")[0]
+    """Summed over the main-path layers the entry runs (b=2)."""
+    ms = sum(int8_layer_bound(h, w, c, co, pool, last)[0]
+             for _, h, w, c, co, pool, last in main_path_int8_layers()
+             if pool == (entry == "chain"))
     return ms, "operations"
 
 
@@ -1252,13 +1362,18 @@ def conv1_times(dev, root):
     y, w12, b12 = conv1_case(dev)
     pack = getattr(tconv1, "kernel_layout", None) or tconv1.kernel_weights  # older checkouts
     w_k, bias = pack(w12), b12.float()
-    run = lambda: conv1_kernel.conv1_2_pool_cuda(y, w_k, bias)
-    k_us, k_ms = device_us(run, "conv1_fused_kernel"), cuda_ms(run, 20, 3)
-    check(k_us is not None, "the profiler saw no conv1 kernel")
-    tf = CONV1_FLOP / k_us / 1e6
-    print(f"conv1-times {root} {BATCH}x{CANVAS[0]}x{CANVAS[1]}x64: device {k_us:.2f} us "
-          f"({tf:.1f} TFLOP/s, {tf / (PEAK_OPS['bf16'] / 1e12):.1%} of the bf16 peak), "
-          f"events {k_ms:.4f} ms", flush=True)
+    runs = [("bf16", lambda: conv1_kernel.conv1_2_pool_cuda(y, w_k, bias), "conv1_fused_kernel")]
+    if hasattr(conv1_kernel, "conv1_2_pool_cuda_f32"):  # checkouts with the float32 kernel
+        y32, w32 = y.float(), tconv1.kernel_layout_f32(w12.float())
+        runs.append(("f32", lambda: conv1_kernel.conv1_2_pool_cuda_f32(y32, w32, bias),
+                     "conv1_fused_f32_kernel"))
+    for dtype, run, kernel in runs:
+        (k_us, _), k_ms = launch_us(run, kernel), cuda_ms(run, 20, 3)
+        check(k_us is not None, f"the profiler saw no {dtype} conv1 kernel")
+        tf = CONV1_FLOP / k_us / 1e6
+        print(f"conv1-times {root} {dtype} {BATCH}x{CANVAS[0]}x{CANVAS[1]}x64: device "
+              f"{k_us:.2f} us ({tf:.1f} TFLOP/s, {tf / (PEAK_OPS[dtype] / 1e12):.1%} of the "
+              f"{dtype} peak), events {k_ms:.4f} ms", flush=True)
 
 
 @contextlib.contextmanager
@@ -3169,6 +3284,241 @@ def phase13_mesh(dev, card):
     return {"launches": launches, "err": errs, "calls": timed}
 
 
+def alternating_ms(fns, rounds=3):
+    """{name: median over ``rounds`` of the CUDA-event ms a call}, the
+    functions timed in turn within each round."""
+    times = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            times[name].append(cuda_ms(fn, 5, 2))
+    return {name: float(np.median(t)) for name, t in times.items()}
+
+
+def int8_variant(tag, net8, dev, **model):
+    """Phase 4's calibrated int8 net rebuilt from the same float32
+    parameters and scales with other MODEL settings."""
+    import dataclasses
+
+    cfg = dataclasses.replace(net8.cfg, MODEL=dataclasses.replace(net8.cfg.MODEL, **model))
+    return build_net(tag, cfg, dev, state_dict=net8.params)
+
+
+def phase14a_chain_from_conv1_2(dev, int8):
+    """The int8 VGG-16 propose path with the trunk from conv1_2: launches,
+    every conv input against the plain version, proposals, cosine against the
+    bf16 trunk, and the trunk timed against the trunk from conv2_2."""
+    import torch
+
+    from aznet_tpu_torch.ops.cuda import conv_int8_kernel as ck
+
+    net8, blobs = int8["net"], int8["blobs"]
+    net12 = int8_variant("phase14a", net8, dev, INT8_CHAIN_FROM="conv1_2")
+    trunk = net12.model.trunk
+    check(trunk.int8_bf16_prefix == ("conv1_1",), f"the trunk from conv1_2 kept the prefix "
+                                                  f"{trunk.int8_bf16_prefix}")
+
+    def reset():
+        ck.LAUNCHES["chain"] = ck.LAUNCHES["strip"] = 0
+
+    recorded = []
+    counters = [(e, reset, lambda e=e: ck.LAUNCHES[e]) for e in ("chain", "strip")]
+    nms_launches, ips, nms_err, counts, _ = phase2_propose(
+        dev, net12, "phase14a", recorders=[recording_conv(recorded)], counters=counters)
+    check(counts == {"chain": 8, "strip": 16},
+          f"trunk from conv1_2: launches {counts}, expected chain 8 and strip 16 in 2 trunk calls")
+    conv_err, shapes = conv_path_err("phase14a", recorded)
+    for entry, shape in (("chain", (BATCH,) + CANVAS + (64,)),
+                         ("strip", (BATCH, CANVAS[0] // 2, CANVAS[1] // 2, 64))):
+        check((entry, shape) in shapes, f"no {entry} launch at {shape} on the path")
+    with torch.inference_mode():
+        f12 = net12.model.features(blobs).float()
+        cos = cosine(int8["bf16_feat"], f12)
+        t = alternating_ms({
+            "from conv1_2": lambda: net12.model.features(blobs),
+            "from conv2_2": lambda: net8.model.features(blobs),
+            "prefix conv1_1": lambda: trunk.int8_prefix(blobs),
+            "prefix conv1_1..conv2_1": lambda: net8.model.trunk.int8_prefix(blobs)})
+    print(f"phase14a int8 from conv1_2 vs bf16 trunk features: cosine {cos:.6f}", flush=True)
+    check(cos > 0.98, f"the int8 trunk from conv1_2 drifts from the bf16 trunk: cosine {cos}")
+    print(f"phase14a int8 trunk at b={BATCH}, medians of 3 alternating rounds (events): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items())
+          + f"; propose {ips:.2f} img/s vs {int8['ips']:.2f} from conv2_2", flush=True)
+    return {"launches": counts, "conv_err": conv_err, "nms_err": nms_err}
+
+
+def phase14b_xla(dev, int8):
+    """The int8 propose path under ``INT8_BACKEND='xla'``: no conv kernel, 30
+    ``_int_mm`` calls a trunk call; the first int8 layer's codes and the
+    trunk's output against the ``'pallas'`` trunk's."""
+    import torch
+
+    from aznet_tpu_torch.models.vgg import VGG16_LAYOUT
+    from aznet_tpu_torch.ops import conv_int8 as tconv
+    from aznet_tpu_torch.ops.cuda import conv_int8_kernel as ck
+
+    net8, blobs = int8["net"], int8["blobs"]
+    netx = int8_variant("phase14b", net8, dev, INT8_BACKEND="xla")
+    int_mm = [0]
+
+    def tick(*_):
+        int_mm[0] += 1
+
+    def reset():
+        ck.LAUNCHES["chain"] = ck.LAUNCHES["strip"] = int_mm[0] = 0
+
+    counters = [("chain", reset, lambda: ck.LAUNCHES["chain"]),
+                ("strip", lambda: None, lambda: ck.LAUNCHES["strip"]),
+                ("_int_mm", lambda: None, lambda: int_mm[0])]
+    _, ips, nms_err, counts, _ = phase2_propose(
+        dev, netx, "phase14b", recorders=[wrapped(torch, "_int_mm", before=tick)],
+        counters=counters)
+    check(counts["chain"] == 0 and counts["strip"] == 0, f"'xla' launched conv kernels: {counts}")
+    with torch.inference_mode(), wrapped(torch, "_int_mm", before=tick):
+        int_mm[0] = 0
+        fx = netx.model.features(blobs).float()
+        trunk_mm = int_mm[0]
+    check(trunk_mm == 30, f"'xla' trunk made {trunk_mm} _int_mm calls, expected 30")
+    tr8, trx = net8.model.trunk, netx.model.trunk
+    scales = dict(zip([n for n, ch in VGG16_LAYOUT if ch is not None], tr8.int8_scales))
+    with torch.inference_mode():
+        codes = tr8.int8_prefix(blobs)
+        check(torch.equal(codes, trx.int8_prefix(blobs)), "'xla' and 'pallas' prefixes differ")
+        s_x, s_out = scales["conv2_1"], scales["conv2_2"]
+        a = tconv.conv3x3_int8(codes, s_x, tr8._int8_layers["conv2_2"], s_out, pool=True)
+        b = tconv.max_pool_2x2(tconv.conv3x3_int8_dx(codes, s_x, *trx._int8_layers["conv2_2"],
+                                                     s_out))
+        d = (a.int() - b.int()).abs()
+        f8 = net8.model.features(blobs).float()
+        cos = cosine(f8, fx)
+        t = alternating_ms({"'xla'": lambda: netx.model.features(blobs),
+                            "'pallas'": lambda: net8.model.features(blobs)})
+    share = (d > 0).float().mean().item()
+    print(f"phase14b 'xla': _int_mm {trunk_mm} a trunk call, {counts['_int_mm']} on the propose "
+          f"path with the int8 heads; conv2_2 (first int8 layer, pooled) codes differ from the "
+          f"'pallas' chain on {share:.3e} of {d.numel()} (max {d.max().item()}); trunk cosine "
+          f"against 'pallas' {cos:.7f}; trunk medians of 3 alternating rounds (events) "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items())
+          + f"; propose {ips:.2f} img/s vs 'pallas' {int8['ips']:.2f}", flush=True)
+    check(cos > 0.999, f"'xla' trunk drifts from the 'pallas' trunk: cosine {cos}")
+    return {"nms_err": nms_err}
+
+
+def phase14c_conv1_f32(dev):
+    """The float32 fused conv1 kernel alone at b=2 608x800x64, then a float32
+    VGG-16 net with ``FUSE_CONV1`` and ``'align_pallas'`` through the propose
+    path, against the same net unfused."""
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+
+    from aznet_tpu_torch.config import Config, cfg_from_dict
+    from aznet_tpu_torch.ops import conv1_fused as tconv1
+    from aznet_tpu_torch.ops.cuda import conv1_kernel
+    from aznet_tpu_torch.utils.precision import float32_precision
+
+    y, w12, b12 = (t.float() for t in conv1_case(dev))
+    w_k = tconv1.kernel_layout_f32(w12)
+    run = lambda: conv1_kernel.conv1_2_pool_cuda_f32(y, w_k, b12)
+    plain = lambda: tconv1.conv1_2_pool_reference(y, w12, b12)
+    got = run()
+    torch.cuda.synchronize()
+    ok, errs = tconv1.float64_errors(got, y, w12, b12)
+    err = (got - plain()).abs().max().item()
+    y_nchw, w_cl = y.permute(0, 3, 1, 2), w12.contiguous(memory_format=torch.channels_last)
+
+    def library():
+        with float32_precision():
+            return F.max_pool2d(torch.relu(F.conv2d(y_nchw, w_cl, b12, padding=1)), 2)
+
+    k_ms, p_ms, l_ms = cuda_ms(run, 10, 2), cuda_ms(plain, 3, 1), cuda_ms(library, 10, 2)
+    (k_us, seen), l_us = launch_us(run, "conv1_fused_f32_kernel"), device_us(library, "")
+    check(k_us is not None, "the profiler saw no float32 conv1 kernel")
+    nbytes = (y.numel() + w12.numel() + 64 + got.numel()) * 4
+    b_ms, b_by = bound(nbytes, CONV1_FLOP, "f32")
+    tf = CONV1_FLOP / k_us / 1e6
+    print(f"phase14c conv1_fused_f32 {BATCH}x{CANVAS[0]}x{CANVAS[1]}x64 f32: against float64 "
+          f"kernel {errs['kernel']:.4e}, plain {errs['plain']:.4e} (ratio "
+          f"{errs['kernel'] / errs['plain']:.3f}), max|kernel - plain| / max|plain| "
+          f"{errs['rel']:.3e}, max_abs_err {err}; kernel {k_ms:.4f} ms by events, device "
+          f"{k_us:.2f} us a launch over the {seen} of 20 the profiler saw "
+          f"({tf:.1f} TFLOP/s, {tf / (PEAK_OPS['f32'] / 1e12):.1%} of the f32 "
+          f"peak), plain {p_ms:.4f} ms, library (cuDNN f32 conv2d + relu + max_pool2d, TF32 "
+          f"off) {l_ms:.4f} ms (device {l_us} us), bound {b_ms * 1e3:.2f} us ({b_by})",
+          flush=True)
+    check(ok, f"float32 conv1 kernel outside its float64 bound: {errs}")
+
+    cfg = cfg_from_dict(Config(), {"MODEL": {"COMPUTE_DTYPE": "float32",
+                                             "POOLING_MODE": "align_pallas", "FUSE_CONV1": True}})
+    netf = build_net("phase14c", cfg, dev)
+    first = []
+
+    def reset():
+        conv1_kernel.LAUNCHES_F32 = 0
+
+    def record(y, w_k, bias):
+        if not first:
+            first.append((y.clone(), w_k, bias))
+
+    counters = [("conv1_f32", reset, lambda: conv1_kernel.LAUNCHES_F32)]
+    _, ips, nms_err, counts, blobs = phase2_propose(
+        dev, netf, "phase14c", counters=counters,
+        recorders=[wrapped(conv1_kernel, "conv1_2_pool_cuda_f32", before=record)])
+    check(counts["conv1_f32"] == 2, f"float32 conv1 launched {counts} times in 2 trunk calls")
+    y0, w0, bias0 = first[0]
+    w12_0 = tconv1.unpack_kernel_layout_f32(w0, bias0.shape[0])
+    out0 = conv1_kernel.conv1_2_pool_cuda_f32(y0, w0, bias0)
+    ok0, errs0 = tconv1.float64_errors(out0, y0, w12_0, bias0)
+    check(ok0, f"float32 conv1 kernel outside its float64 bound on the path's input: {errs0}")
+    err = max(err, (out0 - tconv1.conv1_2_pool_reference(y0, w12_0, bias0)).abs().max().item())
+    netu = build_net("phase14c unfused", dataclasses.replace(
+        cfg, MODEL=dataclasses.replace(cfg.MODEL, FUSE_CONV1=False)), dev,
+        state_dict=netf.params)
+    with torch.inference_mode():
+        ff, fu = netf.model.features(blobs), netu.model.features(blobs)
+    rel = ((ff - fu).abs().max() / fu.abs().max()).item()
+    print(f"phase14c float32 FUSE_CONV1 net: {counts['conv1_f32']} launches on the propose path "
+          f"({ips:.2f} img/s); the path's first input against float64 {errs0}; trunk features "
+          f"fused vs unfused max rel err {rel:.3e}", flush=True)
+    check(rel <= 1e-5, f"float32 FUSE_CONV1 trunk disagrees with the unfused trunk: {rel}")
+    return {"err": err, "errs": errs, "ms": k_ms, "device_us": k_us, "plain_ms": p_ms,
+            "library_ms": l_ms, "bound": (b_ms, b_by), "launches": counts["conv1_f32"],
+            "nms_err": nms_err}
+
+
+def phase14d_card_vs_cpu(dev, int8):
+    """The two int8 walks on the card against the CPU: ``'xla'`` at WIDTH
+    0.125 (phase 4's reference), and the trunk from conv1_2 at full width on
+    two 64x64 images with phase 4's calibrated weights and scales."""
+    import torch
+
+    from aznet_tpu_torch.models.vgg import VGG16Trunk
+
+    phase4_reference(dev, backend="xla")
+    tr8 = int8["net"].model.trunk
+    trunks = []
+    for d in ("cpu", dev):
+        t = VGG16Trunk(int8_mode=True, int8_scales=tr8.int8_scales, int8_chain_from="conv1_2")
+        t.load_state_dict({k: v.float() for k, v in tr8.state_dict().items()})
+        t.to(d).eval().prepare_int8()
+        trunks.append(t)
+    x = torch.from_numpy(np.random.RandomState(2).uniform(-120, 120, (2, 64, 64, 3))
+                         .astype(np.float32))
+    int8_card_vs_cpu("phase14d trunk from conv1_2 (VGG-16 full width, 2x64x64, card vs CPU)",
+                     trunks[0], trunks[1], x, dev, {"chain": 4, "strip": 8})
+
+
+def phase14_settings(dev, int8):
+    """Phase 14: the last settings the port took up: the int8 trunk from
+    conv1_2, ``INT8_BACKEND='xla'`` and float32 ``FUSE_CONV1``."""
+    t0 = time.perf_counter()
+    out = {"c12": phase14a_chain_from_conv1_2(dev, int8), "xla": phase14b_xla(dev, int8),
+           "conv1_f32": phase14c_conv1_f32(dev)}
+    phase14d_card_vs_cpu(dev, int8)
+    print(f"phase14 {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main(argv) -> int:
     import torch
 
@@ -3203,6 +3553,13 @@ def main(argv) -> int:
     print((lib_path.parent / "nvcc.log").read_text().strip(), flush=True)
     if argv[:1] == ["--mesh-phase"]:
         phase13_mesh(dev, card)
+        return 0
+    if argv[:1] == ["--settings-phase"]:
+        net = build_net("phase2", Config(), dev)
+        _, ips, _, _, blobs = phase2_propose(dev, net)
+        int8 = phase4_int8(dev, net, blobs, ips)
+        del net
+        phase14_settings(dev, int8)
         return 0
 
     err1, times = phase1_nms(dev)
@@ -3240,6 +3597,7 @@ def main(argv) -> int:
     tools = tl["launches"]
     mp = phase13_mesh(dev, card)  # the same, at world size 1 on NCCL
     mesh = mp["launches"]
+    last = phase14_settings(dev, int8)  # sets the counts it reads to 0 just before each path
     paths = [res["bf16"], res["int8"], small["caffenet"], small["vgg_cnn_m_1024"]]
     print(f"phase7-10 launches: IoU kernel {iou_path_launches} on the main paths (no path calls "
           f"it); " + "; ".join(f"{tag} nms {p['nms']}, roi_align {p['roi']}" for tag, p in zip(
@@ -3254,7 +3612,8 @@ def main(argv) -> int:
         "train_launches": train["nms"], "tools_launches": tools["nms"],
         "mesh_launches": mesh["nms"],
         "max_abs_err": max(err1, err2, int8["nms_err"], ev["err"]["nms"], tr["nms_err"],
-                           tl["err"]["nms"], mp["err"]["nms"], *(p["nms_err"] for p in paths)),
+                           tl["err"]["nms"], mp["err"]["nms"], *(p["nms_err"] for p in paths),
+                           *(last[k]["nms_err"] for k in ("c12", "xla", "conv1_f32"))),
         "ms": nms_t["ms"], "device_us": nms_t["device_us"], "plain_ms": nms_t["plain_ms"],
         "bound_ms": nms_b[0], "bound_by": nms_b[1], "library_ms": None}]
     for entry, replaces in (("chain", CHAIN_REPLACES), ("strip", STRIP_REPLACES)):
@@ -3264,10 +3623,13 @@ def main(argv) -> int:
             "replaces": replaces, "launches": int8["launches"][entry],
             "eval_launches": ev["launches"][entry], "train_launches": train[entry],
             "tools_launches": tools[entry], "mesh_launches": mesh[entry],
+            "conv1_2_launches": last["c12"]["launches"][entry],
             "max_abs_err": max(conv["err"][entry], int8["conv_err"][entry], ev["err"][entry],
-                               tl["err"][entry], mp["err"][entry]),
+                               tl["err"][entry], mp["err"][entry],
+                               last["c12"]["conv_err"][entry]),
             "ms": conv["ms"][entry], "plain_ms": conv["plain_ms"][entry],
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": conv["library_ms"][entry]})
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": conv["library_ms"][entry],
+            "c64": conv["c64"][entry]})
     for key, name, source, replaces in (
             ("roi", "roi_align_fused", ROI_SOURCE, ROI_REPLACES),
             ("conv1", "conv1_fused_pool", CONV1_SOURCE, CONV1_REPLACES)):
@@ -3284,6 +3646,13 @@ def main(argv) -> int:
             "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound"][0],
             "bound_by": rec["bound"][1], "library_ms": rec["library_ms"]})
+    rec = last["conv1_f32"]
+    records.append({
+        "name": "conv1_fused_pool_f32", "route": "cuda", "source": CONV1_F32_SOURCE,
+        "replaces": CONV1_REPLACES, "launches": rec["launches"], "max_abs_err": rec["err"],
+        "float64_err": rec["errs"], "ms": rec["ms"], "device_us": rec["device_us"],
+        "plain_ms": rec["plain_ms"], "bound_ms": rec["bound"][0], "bound_by": rec["bound"][1],
+        "library_ms": rec["library_ms"]})
     records.append({
         "name": "bbox_overlaps_iou", "route": "cuda", "source": IOU_SOURCE,
         "replaces": IOU_REPLACES, "launches": iou_path_launches,

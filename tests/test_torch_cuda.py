@@ -1,7 +1,8 @@
 """On a card: the CUDA kernels against their plain PyTorch versions, bit for
 bit (NMS keep masks; int8 conv codes and bf16 exits; the fused ROI align),
-or within one bf16 ulp (the fused conv1 block, whose f32 sums run in another
-order inside ``wgmma``). Imports no JAX, so it runs where JAX is absent:
+within one bf16 ulp (the bf16 fused conv1 block, whose f32 sums run in
+another order inside ``wgmma``), or within twice the plain version's error
+against float64 (the float32 fused conv1 block). Imports no JAX, so it runs where JAX is absent:
 
     python -m pytest -p no:cacheprovider --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -24,6 +25,7 @@ from aznet_tpu_torch.ops import roi_pool as troi
 from aznet_tpu_torch.ops.cuda import (conv1_kernel, conv_int8_kernel, iou_kernel, nms_kernel,
                                       roi_align_kernel)
 from aznet_tpu_torch.ops.iou import bbox_overlaps
+from aznet_tpu_torch.utils.precision import float32_precision
 
 pytestmark = pytest.mark.cuda
 
@@ -141,7 +143,9 @@ def _conv_case(seed, bsz, h, w, c, co, dev):
 # channels cut raggedly: W not a multiple of 64, odd H on the strip entry,
 # Co = 192 and 640, C = 8 (Cp padded to 32, 8-byte copies), b = 3, the bf16
 # exit at conv5's 38x50x512 (b=2: R=4; b=1 above: R=2), and conv2_2 of the
-# main path (b=2, 304x400x128 -> 128, pool) end to end.
+# main path (b=2, 304x400x128 -> 128, pool) end to end; then conv1_2 and
+# conv2_1 of the int8 trunk from conv1_2 (C=64: chain 608x800 -> 64, pool;
+# strip 304x400 -> 128).
 CONV_CASES = [
     (2, 20, 24, 128, 128, True, 0.7131), (2, 76, 100, 256, 512, True, 0.3717),
     (2, 13, 10, 128, 128, False, 0.5519), (1, 38, 50, 512, 512, False, None),
@@ -151,6 +155,7 @@ CONV_CASES = [
     (1, 10, 66, 128, 192, True, 0.4229), (1, 7, 33, 256, 640, False, 0.3391),
     (3, 14, 50, 512, 512, True, 0.2857), (2, 38, 50, 512, 512, False, None),
     (2, 12, 130, 8, 64, True, 0.9137), (2, 304, 400, 128, 128, True, 0.3717),
+    (2, 608, 800, 64, 64, True, 0.5311), (2, 304, 400, 64, 128, False, 0.4127),
 ]
 
 
@@ -182,6 +187,53 @@ def test_conv_int8_kernel_rejects(dev):
                          device=dev)
     with pytest.raises(ValueError, match="grid too large"):
         conv_int8_kernel.conv3x3_int8_strip(x_many, 0.1, layer.w_k, layer.s_w, layer.bias, 0.1)
+
+
+def test_int8_dx_conv_on_card_equals_cpu(dev):
+    """The dx-packed conv (``INT8_BACKEND='xla'``) on the card equals the same
+    code on the CPU bit for bit: exact int32 GEMMs, the same two f32
+    roundings of the epilogue and a true division; int8 codes and bf16 exit,
+    and a map of fewer than 17 rows (``int8_matmul`` pads them)."""
+    for k, (bsz, h, w, c, co, s_out) in enumerate([
+            (2, 13, 17, 64, 128, 0.4441), (1, 38, 50, 512, 512, None),
+            (2, 2, 3, 16, 32, 0.2923), (2, 76, 100, 256, 512, 0.3717)]):
+        rng = np.random.RandomState(k)
+        x = torch.from_numpy(rng.randint(0, 100, (bsz, h, w, c)).astype(np.int8))
+        w_q, s_w = tconv.quantize_weights(
+            torch.from_numpy((rng.randn(co, c, 3, 3) * 0.05).astype(np.float32)))
+        bias = torch.from_numpy(rng.uniform(-1, 1, co).astype(np.float32))
+        want = tconv.conv3x3_int8_dx(x, 0.0419, w_q, s_w, bias, s_out)
+        got = tconv.conv3x3_int8_dx(x.to(dev), 0.0419, w_q.to(dev), s_w.to(dev), bias.to(dev),
+                                    s_out)
+        assert got.dtype == want.dtype and torch.equal(got.cpu(), want), (bsz, h, w, c, co)
+        if s_out is not None:
+            assert 0 < int((want != 0).sum()) < want.numel()
+
+
+@pytest.mark.parametrize("backend,chain_from,width,hw", [
+    ("xla", "conv2_2", 0.25, (34, 42)), ("pallas", "conv1_2", 1.0, (64, 80))])
+def test_int8_trunk_on_card_equals_cpu(dev, backend, chain_from, width, hw):
+    """Two int8 walks from the same int8 codes: ``'xla'`` (``_int_mm``, no
+    kernel launch) and the trunk from conv1_2 at full width (conv1_2
+    through the chain entry at C=64, conv2_1 through the strip entry: chain
+    4, strip 8), card against CPU bit for bit."""
+    torch.manual_seed(0)
+    trunk = VGG16Trunk(width=width, int8_mode=True, int8_backend=backend,
+                       int8_chain_from=chain_from, int8_scales=tuple(np.linspace(0.3, 0.05, 13)))
+    trunk.prepare_int8()
+    c = getattr(trunk, trunk.int8_bf16_prefix[-1]).out_channels
+    scale = 1 if chain_from == "conv1_2" else 2
+    x8 = torch.randint(0, 60, (2, hw[0] // scale, hw[1] // scale, c), dtype=torch.int8)
+    want = trunk.int8_body(x8)
+    gpu = trunk.to(dev)
+    gpu.prepare_int8()
+    before = dict(conv_int8_kernel.LAUNCHES)
+    got = gpu.int8_body(x8.to(dev))
+    launched = {e: conv_int8_kernel.LAUNCHES[e] - before[e] for e in before}
+    assert launched == ({"chain": 0, "strip": 0} if backend == "xla"
+                        else {"chain": 4, "strip": 8}), launched
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got.cpu(), want)
 
 
 def test_int8_matmul_pads_rows(dev):
@@ -332,8 +384,35 @@ def test_conv1_kernel_within_one_ulp(dev, bsz, h, w, c):
     assert 0.05 < float((want > 0).float().mean()) < 0.999
 
 
+@pytest.mark.parametrize("bsz,h,w,c", CONV1_CASES)
+def test_conv1_f32_kernel_within_float64_bound(dev, bsz, h, w, c):
+    """The float32 kernel against a float64 product of the same operands: at
+    most twice the plain version's largest error, and within 1e-5 of the
+    plain version's largest value (``ops/conv1_fused.py::float64_errors``);
+    the dispatch takes it for a float32 input on the card."""
+    rng = np.random.RandomState(h + c + 1)
+    y = torch.from_numpy(np.maximum(rng.randn(bsz, h, w, c), 0).astype(np.float32) * 40).to(dev)
+    w11 = torch.from_numpy((rng.randn(c, 3, 3, 3) * 0.05).astype(np.float32)).to(dev)
+    w12 = torch.from_numpy((rng.randn(c, c, 3, 3) * 0.05).astype(np.float32)).to(dev)
+    b12 = torch.from_numpy(rng.uniform(-1, 1, c).astype(np.float32)).to(dev)
+    before = conv1_kernel.LAUNCHES_F32
+    got = conv1_kernel.conv1_2_pool_cuda_f32(y, tconv1.kernel_layout_f32(w12), b12)
+    assert conv1_kernel.LAUNCHES_F32 == before + 1
+    assert got.dtype == torch.float32 and got.shape == (bsz, h // 2, w // 2, c)
+    ok, errs = tconv1.float64_errors(got, y, w12, b12)
+    assert ok, errs
+    assert errs["plain"] > 0
+    x = y[..., :3].contiguous()
+    with float32_precision():
+        fused = tconv1.fused_conv1_pool(x, w11, b12, w12, b12)
+        assert conv1_kernel.LAUNCHES_F32 == before + 2
+        y1 = tconv1.conv1_1_relu(x, w11, b12)
+    assert tconv1.float64_errors(fused, y1, w12, b12)[0]
+
+
 def test_conv1_kernel_rejects(dev):
-    """What the kernel cannot take raises; nothing falls back."""
+    """What the kernels cannot take raises; nothing falls back. The float32
+    entry takes float32 (and only float32 y and weights)."""
     y = torch.zeros((1, 8, 8, 16), device=dev, dtype=torch.bfloat16)
     w_k = tconv1.kernel_layout(torch.zeros((16, 16, 3, 3), device=dev))
     bias = torch.zeros(16, device=dev)
@@ -352,6 +431,17 @@ def test_conv1_kernel_rejects(dev):
         conv1_kernel.conv1_2_pool_cuda(y, w_k.cpu(), bias)
     with pytest.raises(ValueError, match="at most 64"):
         tconv1.kernel_layout(torch.zeros((128, 64, 3, 3), device=dev))
+    w32 = tconv1.kernel_layout_f32(torch.zeros((16, 16, 3, 3), device=dev))
+    got = conv1_kernel.conv1_2_pool_cuda_f32(y.float(), w32, bias)
+    assert got.dtype == torch.float32 and got.shape == (1, 4, 4, 16)
+    with pytest.raises(TypeError, match="float32"):
+        conv1_kernel.conv1_2_pool_cuda_f32(y.float(), w_k, bias)
+    with pytest.raises(TypeError, match="float32"):
+        conv1_kernel.conv1_2_pool_cuda_f32(y, w32, bias)
+    with pytest.raises(TypeError, match="bf16"):
+        conv1_kernel.conv1_2_pool_cuda(y, w32, bias)
+    with pytest.raises(ValueError, match="tiled layout"):
+        conv1_kernel.conv1_2_pool_cuda_f32(y.float(), w32[:, :8].contiguous(), bias)
 
 
 def test_sample_grid_on_card_is_the_cpus(dev):

@@ -16,13 +16,24 @@ Tolerances:
   the codes quantized from them, and the codes downstream, may differ by one
   step at a few elements; the bf16 output differs by at most 2% of its
   maximum, on at most 1% of the elements by more than one bf16 step.
+- The dx-packed conv (``INT8_BACKEND='xla'``) against
+  ``aznet_tpu.ops.conv_int8.conv3x3_int8`` run eagerly: bit-exact on
+  integer grids at power-of-two scales (int8, bf16 and f32 exits); at
+  calibrated scales codes within 1 on at most 0.1% of the elements (an
+  FMA contraction of the epilogue, were JAX to make one, moves a code).
+  ``quantize_weights`` and ``dx_pack`` bit-exact.
+- The ``'xla'`` walk and the chain walk from conv1_2: the trunk walk's
+  bounds below. The rule that selects the trunk from conv1_2: where the
+  reference keeps the default prefix, each package's result equals its own
+  ``'conv2_2'`` result exactly.
 - Calibration: relative error 1e-5 (float32 convs sum in another order).
 - ``roi_align_int8``: the second contraction sums in float32 in another
   order before ``round``, so a code may differ by 1 on at most 0.1% of the
   elements.
 - The int8 head's logits on the same int8 features: 1e-6 (measured:
   bit-exact).
-- Int8 ``im_propose`` / ``make_propose_batch``: the features and the first
+- Int8 ``im_propose`` / ``make_propose_batch`` (``'pallas_strip'`` and
+  ``'xla'``): the features and the first
   level's head outputs are bit-exact here, but the search runs ROI align at
   every level, where a code may flip (above), and the random-init head puts
   the top scores within ~3e-5 of each other, so near-ties may swap. Held:
@@ -35,6 +46,7 @@ import os
 import subprocess
 import sys
 import textwrap
+import warnings
 
 import numpy as np
 import pytest
@@ -267,6 +279,63 @@ def test_plain_conv_equals_strip_kernel(c):
     _assert_codes_close(got.numpy(), np.asarray(want))
 
 
+# -- the dx-packed conv (INT8_BACKEND='xla') ---------------------------------
+
+
+def test_quantize_weights_and_dx_pack_bit_exact():
+    rng = np.random.RandomState(1)
+    w = (rng.randn(3, 3, 24, 40) * 0.07).astype(np.float32)
+    w[..., 5] = 0.0  # an all-zero channel takes the 1e-12 floor
+    jq, js = jconv.quantize_weights(jnp.asarray(w))
+    tq, ts = tconv.quantize_weights(torch.from_numpy(w).permute(3, 2, 0, 1))
+    assert tq.dtype == torch.int8 and tq.shape == (3, 72, 40)
+    assert all(tq[dy].t().is_contiguous() for dy in range(3))  # the card GEMM's operand layout
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    xp = rng.randint(-127, 128, (2, 9, 12, 16)).astype(np.int8)
+    np.testing.assert_array_equal(tconv.dx_pack(torch.from_numpy(xp)).numpy(),
+                                  np.asarray(jconv.dx_pack(jnp.asarray(xp))))
+
+
+def _dx_pair(x, s_x, w, bias, s_out, jdt=jnp.bfloat16, tdt=torch.bfloat16):
+    """The reference's dx conv (eager) and the port's on the same HWIO ``w``."""
+    jq, js = jconv.quantize_weights(jnp.asarray(w))
+    want = jconv.conv3x3_int8(jnp.asarray(x), s_x, jq, js, jnp.asarray(bias), s_out=s_out,
+                              out_dtype=jdt)
+    tq, ts = tconv.quantize_weights(torch.from_numpy(w).permute(3, 2, 0, 1))
+    got = tconv.conv3x3_int8_dx(torch.from_numpy(x), s_x, tq, ts, torch.from_numpy(bias),
+                                s_out, out_dtype=tdt)
+    return got, np.asarray(want)
+
+
+@pytest.mark.parametrize("bsz,h,w,c,co", [(2, 13, 17, 64, 128), (1, 8, 10, 16, 32),
+                                          (2, 5, 7, 24, 40), (1, 4, 4, 128, 64)])
+def test_dx_conv_matches(bsz, h, w, c, co):
+    """Integer grids (weights with a 127 in every column, so s_w = 1) at
+    s_x = 1: int8 codes at s_out = 32 and the bf16 and f32 exits bit for bit;
+    then calibrated scales within the stated bound."""
+    rng = np.random.RandomState(c + co)
+    x = rng.randint(-5, 6, (bsz, h, w, c)).astype(np.int8)
+    wts = rng.randint(-3, 4, (3, 3, c, co)).astype(np.float32)
+    wts[1, 1, 0, :] = 127.0
+    bias = rng.randint(-2, 3, (co,)).astype(np.float32)
+    got, want = _dx_pair(x, 1.0, wts, bias, 32.0)
+    assert got.dtype == torch.int8 and got.shape == (bsz, h, w, co)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert int(got.abs().max()) > 1
+    for jdt, tdt in ((jnp.bfloat16, torch.bfloat16), (jnp.float32, torch.float32)):
+        got, want = _dx_pair(x, 1.0, wts, bias, None, jdt, tdt)
+        assert got.dtype == tdt
+        np.testing.assert_array_equal(got.float().numpy(), want.astype(np.float32))
+
+    x = rng.randint(0, 90, (bsz, h, w, c)).astype(np.int8)
+    wts = (rng.randn(3, 3, c, co) * 0.05).astype(np.float32)
+    bias = rng.uniform(-0.5, 0.5, co).astype(np.float32)
+    got, want = _dx_pair(x, 0.0419, wts, bias, 0.3717)
+    assert int(got.abs().max()) > 5
+    _assert_codes_close(got.numpy(), want)
+
+
 # -- the trunk walk ----------------------------------------------------------
 
 
@@ -341,6 +410,90 @@ def test_int8_trunk_strip_walk_matches(monkeypatch):
     assert got.shape == (2, 4, 4, 64)
     assert not jcalls
     _assert_trunk_close(got, want)
+
+
+def test_int8_trunk_xla_walk_matches(monkeypatch):
+    """``INT8_BACKEND='xla'``, VGG-16 at WIDTH 0.125 on 64x64 in both
+    packages (the reference's portable walk needs no interpret mode): the
+    bf16 prefix, every later conv as dx-packed GEMMs, separate int8 pools."""
+    calls = []
+    _spy(monkeypatch, tvgg, "conv3x3_int8_dx", lambda a, k: calls.append("dx"))
+    _spy(monkeypatch, tvgg, "conv3x3_int8", lambda a, k: calls.append("kernel"))
+    x = np.random.RandomState(3).uniform(-120, 120, (2, 64, 64, 3)).astype(np.float32)
+    scales = tuple(2.0 ** -k for k in (2, 3, 3, 3, 4, 4, 4, 5, 5, 5, 6, 6, 6))
+    jt = jvgg.VGG16Trunk(dtype=jnp.bfloat16, width=0.125, int8_mode=True, int8_scales=scales,
+                         int8_backend="xla")
+    tt = tvgg.VGG16Trunk(width=0.125, int8_mode=True, int8_scales=scales, int8_backend="xla")
+    got, want = _trunk_pair(x, jt, tt, 3)
+    assert got.shape == (2, 4, 4, 64)
+    assert calls == ["dx"] * 10
+    _assert_trunk_close(got, want)
+
+
+# 64-wide conv1_1 and conv1_2, pool1, then 128-wide layers: the reference's
+# extended chain pads conv1_2's and conv2_1's 64 channels to 128 lanes.
+CONV1_2_MINI = (("conv1_1", 64), ("conv1_2", 64), ("pool1", None), ("conv2_1", 128),
+                ("conv2_2", 128), ("pool2", None), ("conv3_1", 128))
+
+
+@pytest.mark.parametrize("hw,out_hw,fused", [((20, 24), (5, 6), [True, False, True, False]),
+                                             ((21, 18), (5, 4), [False, False, False, False])])
+def test_int8_trunk_chain_from_conv1_2_matches(monkeypatch, hw, out_hw, fused):
+    """``INT8_CHAIN_FROM='conv1_2'`` on the mini layout: only conv1_1 stays
+    bf16 in both packages. The reference takes its extended chain (4 chain
+    kernel calls, conv1_2's input padded to 128 lanes); the port launches
+    conv1_2 at C=64 with pool1 fused at the even size, and runs the pools
+    apart at the odd size (the reference's fallback)."""
+    for mod in (jvgg, tvgg):
+        monkeypatch.setattr(mod, "VGG16_LAYOUT", CONV1_2_MINI)
+    monkeypatch.setenv("AZNET_INT8_INTERPRET", "1")
+    jcalls, tcalls = [], []
+    _spy(monkeypatch, jchain, "conv3x3_int8_chain", lambda a, k: jcalls.append(a[0].shape[-1]))
+    _spy(monkeypatch, tvgg, "conv3x3_int8",
+         lambda a, k: tcalls.append((a[0].shape[-1], k.get("pool", False))))
+    scales = (0.5, 0.125, 0.125, 0.125)
+    x = np.random.RandomState(6).uniform(-1, 1, (2,) + hw + (3,)).astype(np.float32)
+    jt = jvgg.VGG16Trunk(dtype=jnp.bfloat16, int8_mode=True, int8_scales=scales,
+                         int8_chain_from="conv1_2")
+    tt = tvgg.VGG16Trunk(int8_mode=True, int8_scales=scales, int8_chain_from="conv1_2")
+    assert tt.int8_bf16_prefix == ("conv1_1",)
+    got, want = _trunk_pair(x, jt, tt, 7)
+    assert want.shape == (2,) + out_hw + (128,)
+    assert jcalls == [128] * 4
+    assert tcalls == [(64, fused[0]), (64, False), (128, fused[2]), (128, False)]
+    _assert_trunk_close(got, want)
+
+
+@pytest.mark.parametrize("case", ["pallas_strip", "narrow_conv1"])
+def test_int8_chain_from_conv1_2_selection_rule(monkeypatch, case):
+    """Where the reference keeps its default prefix under
+    ``INT8_CHAIN_FROM='conv1_2'`` (the ``'pallas_strip'`` backend; a conv1
+    narrower than 64, here a layout at WIDTH 0.5 whose later widths stay
+    multiples of 128), each package's trunk equals its own ``'conv2_2'``
+    trunk, and the port warns once."""
+    monkeypatch.setenv("AZNET_INT8_INTERPRET", "1")
+    if case == "pallas_strip":
+        backend, width, hw, scales = "pallas_strip", 0.125, (32, 32), tuple([0.25] * 13)
+    else:
+        wide = tuple((n, ch and 2 * ch) for n, ch in CONV1_2_MINI)  # 128, 128, 256, ...
+        for mod in (jvgg, tvgg):
+            monkeypatch.setattr(mod, "VGG16_LAYOUT", wide)
+        backend, width, hw, scales = "pallas", 0.5, (12, 16), (0.5, 0.125, 0.125, 0.125)
+    x = np.random.RandomState(8).uniform(-60, 60, (2,) + hw + (3,)).astype(np.float32)
+    outs = {}
+    for chain_from in ("conv2_2", "conv1_2"):
+        jt = jvgg.VGG16Trunk(dtype=jnp.bfloat16, width=width, int8_mode=True,
+                             int8_scales=scales, int8_backend=backend, int8_chain_from=chain_from)
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            tt = tvgg.VGG16Trunk(width=width, int8_mode=True, int8_scales=scales,
+                                 int8_backend=backend, int8_chain_from=chain_from)
+        assert sum("INT8_CHAIN_FROM" in str(w.message) for w in rec) == (chain_from == "conv1_2")
+        assert tt.int8_bf16_prefix == ("conv1_1", "conv1_2", "conv2_1")
+        outs[chain_from] = _trunk_pair(x, jt, tt, 4)
+    for i in range(2):  # the port's, then the reference's
+        np.testing.assert_array_equal(outs["conv1_2"][i], outs["conv2_2"][i])
+    _assert_trunk_close(*outs["conv1_2"])
 
 
 # -- calibration -------------------------------------------------------------
@@ -468,7 +621,16 @@ def test_int8_im_propose_matches(monkeypatch):
 
 
 def test_int8_make_propose_batch_matches(monkeypatch):
-    cfg8, jnet, tnet = _int8_nets(monkeypatch, backend="pallas_strip")
+    _assert_propose_batch_matches(*_int8_nets(monkeypatch, backend="pallas_strip"))
+
+
+def test_int8_xla_make_propose_batch_matches(monkeypatch):
+    """``INT8_BACKEND='xla'`` through ``make_propose_batch``, at the bounds of
+    the ``'pallas_strip'`` test above."""
+    _assert_propose_batch_matches(*_int8_nets(monkeypatch, backend="xla"))
+
+
+def _assert_propose_batch_matches(cfg8, jnet, tnet):
     ims = np.random.RandomState(5).randint(0, 256, (2, 96, 128, 3)).astype(np.uint8)
     want = jax.jit(japi.make_propose_batch(jnet.model, cfg8, (64, 128)))(
         jnet.params, jnp.asarray(ims))
@@ -512,10 +674,9 @@ def test_net_params_are_the_float32_masters():
 
 
 @pytest.mark.parametrize("override,exc,match", [
-    (dict(COMPUTE_DTYPE="int8", INT8_BACKEND="xla"), NotImplementedError, "xla"),
-    (dict(COMPUTE_DTYPE="int8", INT8_CHAIN_FROM="conv1_2"), NotImplementedError, "conv1_2"),
     (dict(COMPUTE_DTYPE="int8", INT8_CHAIN_FROM="conv12"), ValueError, "INT8_CHAIN_FROM"),
     (dict(COMPUTE_DTYPE="int8", BACKBONE="smallnet"), ValueError, "vgg16 and resnet50"),
+    (dict(COMPUTE_DTYPE="int8", INT8_BACKEND="cuda"), ValueError, "INT8_BACKEND"),
 ])
 def test_int8_guards(override, exc, match):
     with pytest.raises(exc, match=match):

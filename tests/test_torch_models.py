@@ -114,8 +114,8 @@ def test_aznet_roi_forward_matches():
 
 
 @pytest.mark.parametrize("override,match", [
-    (dict(COMPUTE_DTYPE="int8", INT8_BACKEND="xla"), "COMPUTE_DTYPE"),
-    (dict(COMPUTE_DTYPE="int8", INT8_CHAIN_FROM="conv1_2"), "int8"),
+    (dict(COMPUTE_DTYPE="int8", INT8_BACKEND="cuda"), "COMPUTE_DTYPE"),
+    (dict(COMPUTE_DTYPE="int8", INT8_CHAIN_FROM="conv1_1"), "int8"),
     (dict(COMPUTE_DTYPE="float16"), "COMPUTE_DTYPE"),
     (dict(POOLING_MODE="bilinear"), "POOLING_MODE"),
     (dict(BACKBONE="resnet101"), "unknown backbone"),
