@@ -5,8 +5,9 @@ conv1_1 runs as a plain convolution in the input's dtype with no bias in
 the conv, then ``+ b11`` in that dtype and ReLU (the reference's order, which
 rounds twice in bf16). conv1_2, its f32 bias, ReLU and the 2x2/2 max-pool
 then run as one step: for a CUDA tensor the CUDA kernel of the input's
-dtype (``ops/cuda/conv1_kernel.py``: bf16 on the tensor cores, float32 on the
-CUDA cores), for a CPU tensor :func:`conv1_2_pool_reference`. Weights are
+dtype (``ops/cuda/conv1_kernel.py``: bf16 on the tensor cores, float32 as
+three TF32 products on the tensor cores held to float32's error), for a CPU
+tensor :func:`conv1_2_pool_reference`. Weights are
 the trunk's own, OIHW; activations NHWC.
 """
 
@@ -96,19 +97,29 @@ def unpack_kernel_layout(w_k: torch.Tensor, c: int, co: int) -> torch.Tensor:
 
 
 def kernel_layout_f32(w12: torch.Tensor) -> torch.Tensor:
-    """OIHW ``[Co, C, 3, 3]`` -> the float32 kernel's ``[9, C, 64]``: tap
-    (dy*3 + dx), input channel, output channel zero-padded to 64, so that a
-    warp's 8 output channels are two 16-byte words at a fixed stride."""
+    """OIHW ``[Co, C, 3, 3]`` -> the float32 kernel's ``[9, C/8, 128, 4]``:
+    tap (dy*3 + dx), k8 step (8 input channels), consumer thread t of the
+    warpgroup, value v: thread t's ``wgmma`` A fragment of the step, one
+    16-byte word. With warp ``t // 32`` and lane ``l = t % 32``, value v is
+    output channel ``16*(t // 32) + l//4 + 8*(v % 2)`` and input channel
+    ``8*step + l%4 + 4*(v // 2)``; output channels past Co are zeros. C must
+    be a multiple of 8."""
     co, c = w12.shape[:2]
     if co > 64 or c > 64:
         raise ValueError(f"the fused conv1 layout holds at most 64 channels, got {c}->{co}")
-    w = w12.float().permute(2, 3, 1, 0).reshape(9, c, co)
-    return F.pad(w, (0, 64 - co)).contiguous()
+    if c % 8:
+        raise ValueError(f"the float32 fused conv1 layout needs C a multiple of 8, got {c}")
+    w = F.pad(w12.float(), (0, 0, 0, 0, 0, 0, 0, 64 - co))  # [64, C, 3, 3]
+    # [tap, step, v//2, l%4, warp, v%2, l//4] -> [tap, step, warp, l//4, l%4, v//2, v%2]
+    w = w.permute(2, 3, 1, 0).reshape(9, c // 8, 2, 4, 4, 2, 8)
+    return w.permute(0, 1, 4, 6, 3, 2, 5).reshape(9, c // 8, 128, 4).contiguous()
 
 
 def unpack_kernel_layout_f32(w_k: torch.Tensor, co: int) -> torch.Tensor:
     """Inverse of :func:`kernel_layout_f32`: the OIHW ``[Co, C, 3, 3]`` weights."""
-    return w_k[:, :, :co].reshape(3, 3, w_k.shape[1], co).permute(3, 2, 0, 1)
+    steps = w_k.shape[1]
+    w = w_k.reshape(9, steps, 4, 8, 4, 2, 2).permute(0, 1, 5, 4, 2, 6, 3)
+    return w.reshape(3, 3, steps * 8, 64)[..., :co].permute(3, 2, 0, 1)
 
 
 def packed_weights(w12: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:

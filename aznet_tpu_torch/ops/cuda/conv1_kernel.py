@@ -10,10 +10,16 @@ and 128 pixels of a row as N, the weights resident in shared memory, the
 halo patch brought by TMA into a ring of stages, and persistent blocks that
 walk tiles of 2 rows x 128 columns; bias, ReLU and the 2x2/2 max-pool close
 in registers (see the source's header). Bound by compute at VGG-16's shape.
-:func:`conv1_2_pool_cuda_f32`, float32: a direct convolution on the CUDA
-cores in true float32 (``__fmaf_rn``, no TF32), weights and a halo patch in
-shared memory, persistent blocks over tiles of 2 rows x 64 columns, summed
-in the plain version's order (a partial sum per tap, then the taps in order).
+:func:`conv1_2_pool_cuda_f32`, float32: the same implicit GEMM with 64
+pixels of a row as N on the TF32 tensor cores (``wgmma`` m64n64k8), each
+product taken as three TF32 products of the operands' hi and lo parts
+(3xTF32), the weights resident in shared memory and split in registers, the
+patch brought by TMA and split into hi and lo planes, persistent blocks over
+tiles of 2 rows x 64 columns; each tensor-core sum of at most two k8 steps'
+products is promoted into float32 partial sums, one per kernel row, in the
+order of
+:func:`f32_promotions`, so the result keeps float32's error
+(``ops/conv1_fused.py::float64_errors``).
 
 Only CUDA tensors are accepted; the plain PyTorch version is
 ``aznet_tpu_torch.ops.conv1_fused.conv1_2_pool_reference`` and the dispatch
@@ -30,7 +36,8 @@ from aznet_tpu_torch.ops.cuda import sm_count
 
 MAX_CHANNELS = 64  # C and Co: the resident weights and the wgmma M
 CHANNEL_MULTIPLE = 8  # C and Co: TMA's 16-byte rows, the 16-byte output stores
-TILE_COLS = 128  # output columns per tile = wgmma N
+TILE_COLS = 128  # output columns per tile = wgmma N (bf16)
+TILE_COLS_F32 = 64  # the same for the float32 kernel
 CONSUMERS = 2  # consumer warpgroups per block; the block's k-th tile goes to k % 2
 
 # Launches of the bf16 and the float32 kernel (one per call that reaches the card).
@@ -51,7 +58,7 @@ def _launcher():
         fn.argtypes = [p, p, p, i, i, i, i, i, i, p, p]
         fn.restype = i
         fn32 = lib.aznet_conv1_fused_f32
-        fn32.argtypes = [p, p, p, i, i, i, i, i, p, p]
+        fn32.argtypes = [p, p, p, i, i, i, i, i, i, p, p]
         fn32.restype = i
         lib.aznet_cuda_error_string.argtypes = [i]
         lib.aznet_cuda_error_string.restype = ctypes.c_char_p
@@ -59,9 +66,10 @@ def _launcher():
     return _fns
 
 
-def num_tiles(b: int, h: int, w: int) -> int:
-    """Tiles of a ``[b, h, w, C]`` input: (image, row pair, 128-column segment)."""
-    return b * (h // 2) * -(-w // TILE_COLS)
+def num_tiles(b: int, h: int, w: int, cols: int = TILE_COLS) -> int:
+    """Tiles of a ``[b, h, w, C]`` input: (image, row pair, ``cols``-column
+    segment)."""
+    return b * (h // 2) * -(-w // cols)
 
 
 def grid_size(tiles: int, sms: int) -> int:
@@ -70,17 +78,37 @@ def grid_size(tiles: int, sms: int) -> int:
     return max(1, min(sms, -(-tiles // CONSUMERS)))
 
 
-def tile_walk(b: int, h: int, w: int, grid: int):
-    """The kernel's persistent order, as the kernel walks it: ``{(block,
+def tile_walk(b: int, h: int, w: int, grid: int, cols: int = TILE_COLS):
+    """The kernels' persistent order, as they walk it: ``{(block,
     warpgroup): [(image, row pair, segment), ...]}`` (block x takes tiles x,
-    x + grid, ...; its k-th tile goes to warpgroup k % 2)."""
-    tiles, segs, pairs = num_tiles(b, h, w), -(-w // TILE_COLS), h // 2
+    x + grid, ...; its k-th tile goes to warpgroup k % 2); segments of
+    ``cols`` columns."""
+    tiles, segs, pairs = num_tiles(b, h, w, cols), -(-w // cols), h // 2
     walk = {}
     for x in range(grid):
         for k, t in enumerate(range(x, tiles, grid)):
             walk.setdefault((x, k % CONSUMERS), []).append(
                 (t // segs // pairs, (t // segs) % pairs, t % segs))
     return walk
+
+
+def f32_promotions(c: int):
+    """The float32 kernel's order of accumulation for ``c`` input channels:
+    for each kernel row dy in turn, its promotion groups in order, each
+    ``(steps, unbias)`` with ``steps`` a list of (tap, k8 step). A group is
+    the steps of one tap in one 16-channel chunk (one TMA stage), taps dx =
+    0, 1, 2 in turn: two steps, or one where C ends in the chunk's first
+    half. Its steps' TF32 products (lo_w.hi_y, hi_w.lo_y, hi_w.hi_y a step)
+    go through one tensor-core accumulator, the first from zero; the group's
+    sum is then added into dy's float32 partial in one rounding, as
+    ``__fmaf_rn(acc, 1 + 2**-23, partial)`` where ``unbias`` (every two-step
+    group, and a one-step group's dx = 2), which gives back on average what
+    the accumulator's truncations dropped, else as ``acc + partial``; after
+    dy the partial is added into the total."""
+    steps = c // 8
+    return [[([(3 * dy + dx, s) for s in range(2 * i, min(2 * i + 2, steps))],
+              2 * i + 1 < steps or dx == 2)
+             for i in range(-(-steps // 2)) for dx in range(3)] for dy in range(3)]
 
 
 def _check(y: torch.Tensor, w_k: torch.Tensor, bias: torch.Tensor, dtype, w_shape):
@@ -112,7 +140,7 @@ def _check(y: torch.Tensor, w_k: torch.Tensor, bias: torch.Tensor, dtype, w_shap
         raise ValueError("the fused conv1 kernel needs contiguous tensors")
     if y.data_ptr() % 16 or w_k.data_ptr() % 16:
         raise ValueError("y and w_k must be 16-byte aligned")
-    if num_tiles(b, h, w) >= 2**31:
+    if num_tiles(b, h, w, TILE_COLS_F32) >= 2**31:
         raise ValueError(f"too many tiles for y {tuple(y.shape)}")
     return b, h, w, c, co
 
@@ -148,12 +176,13 @@ def conv1_2_pool_cuda(y: torch.Tensor, w_k: torch.Tensor, bias: torch.Tensor) ->
 
 def conv1_2_pool_cuda_f32(y: torch.Tensor, w_k: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """``y [B, H, W, C]`` float32 (H, W even), ``w_k`` the float32 weights
-    ``[9, C, 64]`` (``ops/conv1_fused.py::kernel_layout_f32``), ``bias [Co]``
-    f32, contiguous on one CUDA device -> float32 ``[B, H/2, W/2, Co]``: 3x3
-    SAME conv, + bias, ReLU, 2x2/2 max-pool, in true float32. C and Co must be
-    multiples of 8 and at most 64. Raises on anything else."""
+    ``[9, C/8, 128, 4]`` (``ops/conv1_fused.py::kernel_layout_f32``), ``bias
+    [Co]`` f32, contiguous on one CUDA device -> float32 ``[B, H/2, W/2,
+    Co]``: 3x3 SAME conv, + bias, ReLU, 2x2/2 max-pool, to float32's error
+    (3xTF32 on the tensor cores). C and Co must be multiples of 8 and at
+    most 64. Raises on anything else."""
     global LAUNCHES_F32
-    b, h, w, c, co = _check(y, w_k, bias, torch.float32, lambda c: (9, c, MAX_CHANNELS))
+    b, h, w, c, co = _check(y, w_k, bias, torch.float32, lambda c: (9, c // 8, 128, 4))
     out = torch.empty((b, h // 2, w // 2, co), dtype=torch.float32, device=y.device)
     if out.numel() == 0:
         return out
@@ -161,6 +190,7 @@ def conv1_2_pool_cuda_f32(y: torch.Tensor, w_k: torch.Tensor, bias: torch.Tensor
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream(y.device).cuda_stream
         err = fn(y.data_ptr(), w_k.data_ptr(), bias.data_ptr(), b, h, w, c, co,
+                 grid_size(num_tiles(b, h, w, TILE_COLS_F32), sm_count(y.device.index)),
                  out.data_ptr(), stream)
     _raise_on(err)
     LAUNCHES_F32 += 1

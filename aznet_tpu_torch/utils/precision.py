@@ -9,7 +9,12 @@ every float32 convolution and matmul of the port runs inside
 caller's settings afterwards, whatever they were. The one deliberate
 exception is VGG-16's int8 prefix, whose float32 operands hold bf16 values
 (exact in TF32); it asks for ``tf32=True`` here, so that this module is the
-only place that touches the settings.
+only place that touches the settings. (The float32 fused conv1 kernel,
+``csrc/conv1_fused_f32.cu``, runs on the TF32 tensor cores by its own
+means, outside these settings: it splits each operand into two TF32 parts
+and takes three TF32 products, which keeps float32's accuracy; it is held
+to the plain float32 version's error against float64 by
+``ops/conv1_fused.py::float64_errors``.)
 
 Which settings. PyTorch has two APIs for them: the legacy flags
 (``cudnn.allow_tf32``, ``cuda.matmul.allow_tf32`` /

@@ -188,11 +188,13 @@
    counts at 0, 30 ``torch._int_mm`` calls a trunk call, the share of
    conv2_2's codes that differ from the chain kernel's, cosine > 0.999
    against the ``'pallas'`` trunk, both trunks timed in alternating rounds.
-   (c) The float32 fused conv1 kernel (``csrc/conv1_fused_f32.cu``) alone at
-   b=2 608x800x64 against a float64 product of the same operands (at most
-   twice the plain version's error, within 1e-5 of max|plain|), timed
-   beside the plain version and cuDNN's float32 conv2d + relu + max_pool2d
-   with TF32 off; then a float32 VGG-16 net at full width with
+   (c) The float32 fused conv1 kernel (``csrc/conv1_fused_f32.cu``, 3xTF32
+   on ``wgmma``): its SASS instruction mix from ``cuobjdump -sass`` (HGMMA
+   on TF32 operands, or the phase fails); alone at b=2 608x800x64 against
+   a float64 product of the same operands (at most twice the plain
+   version's error, within 1e-5 of max|plain|), timed beside the plain
+   version and cuDNN's float32 conv2d + relu + max_pool2d with TF32 off,
+   its bound three TF32 products a multiply-add at the TF32 peak; then a float32 VGG-16 net at full width with
    ``FUSE_CONV1`` and ``'align_pallas'`` through the propose path (one f32
    conv1 launch a trunk call; the first launch's input held against
    float64), its trunk against the same net unfused (relative 1e-5). (d)
@@ -217,8 +219,11 @@ checkouts run in turn in one call compare two versions of the kernel.
 
 does the same for the fused conv1 kernels at phase 5's b=2 608x800x64 input,
 the bf16 one and (where the checkout has it) the float32 one on the same
-values in float32 (device time, TFLOP/s and share of the bf16 or f32 peak,
-CUDA-event time).
+values in float32 (device time, TFLOP/s, share of the bf16 peak or, for
+float32, of the 3xTF32 bound and of the f32 CUDA-core bound, CUDA-event
+time). To compare with the parent commit, unpack it into ``build/parent``
+(``git archive``) and run ``--conv1-times build/parent``, ``.``, ``.``,
+``build/parent`` in one chip call.
 
     python3 chip_smoke.py --roi-times [ROOT]
     python3 chip_smoke.py --nms-times [ROOT]
@@ -277,9 +282,11 @@ RESNET_CANVAS = (1088, 1920)
 DETECT_ROIS = 300
 # One H100 SXM's published peaks (NVIDIA data sheet, dense, 700 W): device
 # memory bytes/s and operations/s per type; "f32" is the rate outside the
-# tensor cores, where the NMS and ROI-align kernels do their arithmetic.
+# tensor cores, where the NMS and ROI-align kernels do their arithmetic;
+# "tf32" the tensor cores' rate on TF32 operands, which the float32 conv1
+# kernel takes three times over (3xTF32).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12, "tf32": 495e12}
 IOU_OPS = 15  # f32 operations per IoU of a box pair (NMS mask pass, IoU kernel)
 
 
@@ -1286,6 +1293,19 @@ def conv1_case(dev):
 
 
 CONV1_FLOP = 2.0 * BATCH * CANVAS[0] * CANVAS[1] * 9 * 64 * 64
+# The float32 kernel's three TF32 products for each of conv1's, at the TF32
+# peak: its bound (0.435 ms), against the 1.070 ms of CONV1_FLOP at the f32
+# CUDA-core peak that no kernel off the tensor cores can beat.
+CONV1_F32_BOUND_MS = 3 * CONV1_FLOP / PEAK_OPS["tf32"] * 1e3
+CONV1_F32_SIMT_MS = CONV1_FLOP / PEAK_OPS["f32"] * 1e3
+
+
+def f32_shares(k_us):
+    """The float32 conv1 kernel's device time as shares of the 3xTF32 bound
+    and of the f32 CUDA-core bound, for a line."""
+    return (f"{CONV1_F32_BOUND_MS / (k_us / 1e3):.1%} of the 3xTF32 bound "
+            f"({CONV1_F32_BOUND_MS * 1e3:.1f} us), {CONV1_F32_SIMT_MS / (k_us / 1e3):.1%} of the "
+            f"f32 CUDA-core bound ({CONV1_F32_SIMT_MS * 1e3:.1f} us)")
 
 
 def phase5_kernels(dev):
@@ -1371,9 +1391,10 @@ def conv1_times(dev, root):
         (k_us, _), k_ms = launch_us(run, kernel), cuda_ms(run, 20, 3)
         check(k_us is not None, f"the profiler saw no {dtype} conv1 kernel")
         tf = CONV1_FLOP / k_us / 1e6
+        share = (f32_shares(k_us) if dtype == "f32" else
+                 f"{tf / (PEAK_OPS[dtype] / 1e12):.1%} of the {dtype} peak")
         print(f"conv1-times {root} {dtype} {BATCH}x{CANVAS[0]}x{CANVAS[1]}x64: device "
-              f"{k_us:.2f} us ({tf:.1f} TFLOP/s, {tf / (PEAK_OPS[dtype] / 1e12):.1%} of the "
-              f"{dtype} peak), events {k_ms:.4f} ms", flush=True)
+              f"{k_us:.2f} us ({tf:.1f} TFLOP/s, {share}), events {k_ms:.4f} ms", flush=True)
 
 
 @contextlib.contextmanager
@@ -3403,10 +3424,31 @@ def phase14b_xla(dev, int8):
     return {"nms_err": nms_err}
 
 
+def conv1_f32_sass():
+    """The float32 conv1 kernel's SASS in the built library (``cuobjdump
+    -sass``): {opcode: count} of its instructions, and its HGMMA lines."""
+    import re
+    from collections import Counter
+
+    from aznet_tpu_torch import _build
+
+    _, text = sass_loop(_build.build(), "conv1_fused_f32_kernel")
+    ops = Counter()
+    hgmma = []
+    for line in text.splitlines():
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)([.\w]*)", line)
+        if m:
+            ops[m.group(1)] += 1
+            if m.group(1) == "HGMMA":
+                hgmma.append(line.split(";")[0].split("*/", 1)[1].strip())
+    return ops, hgmma
+
+
 def phase14c_conv1_f32(dev):
-    """The float32 fused conv1 kernel alone at b=2 608x800x64, then a float32
-    VGG-16 net with ``FUSE_CONV1`` and ``'align_pallas'`` through the propose
-    path, against the same net unfused."""
+    """The float32 fused conv1 kernel's SASS (HGMMA on TF32 operands), the
+    kernel alone at b=2 608x800x64, then a float32 VGG-16 net with
+    ``FUSE_CONV1`` and ``'align_pallas'`` through the propose path, against
+    the same net unfused."""
     import dataclasses
 
     import torch
@@ -3416,6 +3458,13 @@ def phase14c_conv1_f32(dev):
     from aznet_tpu_torch.ops import conv1_fused as tconv1
     from aznet_tpu_torch.ops.cuda import conv1_kernel
     from aznet_tpu_torch.utils.precision import float32_precision
+
+    ops, hgmma = conv1_f32_sass()
+    print(f"phase14c conv1_fused_f32 SASS: {sum(ops.values())} instructions, "
+          + ", ".join(f"{op} {n}" for op, n in ops.most_common(16))
+          + f"; HGMMA forms: {sorted({h.split()[0] for h in hgmma})}", flush=True)
+    check(hgmma and all("TF32" in h for h in hgmma),
+          f"the float32 conv1 kernel's SASS has no HGMMA on TF32 operands: {hgmma[:3]}")
 
     y, w12, b12 = (t.float() for t in conv1_case(dev))
     w_k = tconv1.kernel_layout_f32(w12)
@@ -3435,17 +3484,17 @@ def phase14c_conv1_f32(dev):
     (k_us, seen), l_us = launch_us(run, "conv1_fused_f32_kernel"), device_us(library, "")
     check(k_us is not None, "the profiler saw no float32 conv1 kernel")
     nbytes = (y.numel() + w12.numel() + 64 + got.numel()) * 4
-    b_ms, b_by = bound(nbytes, CONV1_FLOP, "f32")
+    b_ms, b_by = bound(nbytes, 3 * CONV1_FLOP, "tf32")
     tf = CONV1_FLOP / k_us / 1e6
     print(f"phase14c conv1_fused_f32 {BATCH}x{CANVAS[0]}x{CANVAS[1]}x64 f32: against float64 "
           f"kernel {errs['kernel']:.4e}, plain {errs['plain']:.4e} (ratio "
           f"{errs['kernel'] / errs['plain']:.3f}), max|kernel - plain| / max|plain| "
           f"{errs['rel']:.3e}, max_abs_err {err}; kernel {k_ms:.4f} ms by events, device "
           f"{k_us:.2f} us a launch over the {seen} of 20 the profiler saw "
-          f"({tf:.1f} TFLOP/s, {tf / (PEAK_OPS['f32'] / 1e12):.1%} of the f32 "
-          f"peak), plain {p_ms:.4f} ms, library (cuDNN f32 conv2d + relu + max_pool2d, TF32 "
-          f"off) {l_ms:.4f} ms (device {l_us} us), bound {b_ms * 1e3:.2f} us ({b_by})",
-          flush=True)
+          f"({tf:.1f} TFLOP/s of conv1's, {f32_shares(k_us)}), plain {p_ms:.4f} ms, library "
+          f"(cuDNN f32 conv2d + relu + max_pool2d, TF32 off) {l_ms:.4f} ms (device {l_us} us), "
+          f"bound {b_ms * 1e3:.2f} us ({b_by}: 3 x {CONV1_FLOP / 1e9:.1f} GFLOP at the TF32 "
+          f"peak)", flush=True)
     check(ok, f"float32 conv1 kernel outside its float64 bound: {errs}")
 
     cfg = cfg_from_dict(Config(), {"MODEL": {"COMPUTE_DTYPE": "float32",

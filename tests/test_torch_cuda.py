@@ -441,7 +441,61 @@ def test_conv1_kernel_rejects(dev):
     with pytest.raises(TypeError, match="bf16"):
         conv1_kernel.conv1_2_pool_cuda(y, w32, bias)
     with pytest.raises(ValueError, match="tiled layout"):
-        conv1_kernel.conv1_2_pool_cuda_f32(y.float(), w32[:, :8].contiguous(), bias)
+        conv1_kernel.conv1_2_pool_cuda_f32(y.float(), w32[:, :1].contiguous(), bias)
+
+
+@pytest.mark.parametrize("bsz", [1, 3])
+@pytest.mark.parametrize("co", [8, 64])
+@pytest.mark.parametrize("c", [8, 16, 64])
+def test_conv1_f32_kernel_narrow_shapes(dev, c, co, bsz):
+    """The float32 kernel at every C and Co its layout takes in turn (one
+    16-channel stage half past C at C = 8; Co = 8 leaves 56 of the 64 wgmma
+    rows zero), H = 2 (both halo rows outside the image) and W = 70 (a
+    64-column tile and a ragged one of 6), against ``float64_errors``."""
+    rng = np.random.RandomState(c + co + bsz)
+    y = torch.from_numpy(np.maximum(rng.randn(bsz, 2, 70, c), 0).astype(np.float32) * 40)
+    w12 = torch.from_numpy((rng.randn(co, c, 3, 3) * 0.05).astype(np.float32))
+    b12 = torch.from_numpy(rng.uniform(-1, 1, co).astype(np.float32))
+    y, w12, b12 = y.to(dev), w12.to(dev), b12.to(dev)
+    before = conv1_kernel.LAUNCHES_F32
+    got = conv1_kernel.conv1_2_pool_cuda_f32(y, tconv1.kernel_layout_f32(w12), b12)
+    assert conv1_kernel.LAUNCHES_F32 == before + 1
+    assert got.shape == (bsz, 1, 35, co)
+    ok, errs = tconv1.float64_errors(got, y, w12, b12)
+    assert ok, errs
+
+
+def test_conv1_f32_accumulator_truncates(dev):
+    """The assumption under the float32 kernel's promotion plan and its
+    correction: the tensor cores' f32 accumulator truncates. One k8 step
+    of the centre tap (dx = 1, no correction) sums 1 + f ulp(1) exactly in
+    its hi.hi product; truncation returns 1 for every f < 1, where rounding
+    to nearest would give 1 + ulp for f = 0.75."""
+    w12 = torch.zeros((8, 8, 3, 3), device=dev)
+    w12[:, :2, 1, 1] = 1.0
+    for f in (0.25, 0.5, 0.75):
+        y = torch.zeros((1, 2, 2, 8), device=dev)
+        y[0, 0, 0, 0], y[0, 0, 0, 1] = 1.0, f * 2.0 ** -23
+        out = conv1_kernel.conv1_2_pool_cuda_f32(y, tconv1.kernel_layout_f32(w12),
+                                                 torch.zeros(8, device=dev))
+        assert out[0, 0, 0].tolist() == [1.0] * 8, (f, out[0, 0, 0].tolist())
+
+
+def test_conv1_f32_kernel_rejects(dev):
+    """C past 64, an odd H and a non-contiguous y raise before any launch."""
+    w16 = tconv1.kernel_layout_f32(torch.zeros((16, 16, 3, 3), device=dev))
+    bias = torch.zeros(16, device=dev)
+    before = conv1_kernel.LAUNCHES_F32
+    w72 = torch.zeros((9, 9, 128, 4), device=dev)
+    with pytest.raises(ValueError, match="multiple of 8 up to 64"):
+        conv1_kernel.conv1_2_pool_cuda_f32(torch.zeros((1, 8, 8, 72), device=dev), w72, bias)
+    with pytest.raises(ValueError, match="even"):
+        conv1_kernel.conv1_2_pool_cuda_f32(torch.zeros((1, 7, 8, 16), device=dev), w16, bias)
+    y = torch.zeros((1, 8, 16, 16), device=dev)[:, :, ::2]
+    assert not y.is_contiguous()
+    with pytest.raises(ValueError, match="contiguous"):
+        conv1_kernel.conv1_2_pool_cuda_f32(y, w16, bias)
+    assert conv1_kernel.LAUNCHES_F32 == before
 
 
 def test_sample_grid_on_card_is_the_cpus(dev):
