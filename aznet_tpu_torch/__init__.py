@@ -25,7 +25,9 @@ NMS (``csrc/nms.cu``), the int8 3x3
 conv with its fused pool (``csrc/conv_int8.cu``), the fused ROI align
 (``csrc/roi_align.cu``), the fused conv1_2 + ReLU + pool1
 (``csrc/conv1_fused.cu``) and the tiled IoU matrix (``csrc/iou.cu``, called
-by no path, as its Pallas counterpart).
+by no path, as its Pallas counterpart). ``entry`` holds the flagship
+forward and the multi-device dry run (``__graft_entry__.py``'s
+counterparts).
 """
 
 __version__ = "0.1.0"

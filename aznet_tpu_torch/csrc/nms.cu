@@ -45,6 +45,22 @@
 //      copies. Keep flags go straight to the boxes' original slots at the
 //      end, so no unpermute pass.
 //
+// Above N = 8192 (n_pad 16384 .. 65536) the shared-memory arithmetic of
+// passes 1 and 3 no longer fits a block (the keys are 4 bytes a row, one
+// 64-row stage of the ring 64 x n_pad / 8 bytes), so a second route takes
+// those sizes, picked by n_pad on the host side of this file:
+//   1. sort_kernel_large: the same counting, over the stream's keys in
+//      chunks of kChunk keys staged through shared memory (the block's 64
+//      rows lie inside one chunk, since kChunk is a multiple of 64);
+//   2. mask_kernel, as above (nothing in it is sized by N);
+//   3. scan_kernel_large: the same three roles without the ring: warp 1
+//      loads the diagonal and next columns from global memory as before,
+//      and the OR threads load only the kept rows of block wb-1 at the
+//      words right of block wb, straight from global memory, 16 rows of a
+//      word a thread with their loads in flight together.
+// No speed is claimed for this route: the scan is one block per stream and
+// reads N * N / 16 bytes of mask through one SM.
+//
 // What bounds it on the card: the mask pass's IoUs (N*N/2 per stream, an
 // f32 division for each pair that overlaps) and the scan's serial chain
 // over N/64 word blocks per stream; at one stream the card is nearly idle,
@@ -68,9 +84,12 @@ namespace {
 
 typedef unsigned long long u64;
 
-constexpr int kMaxN = 8192;
+constexpr int kMaxN = 8192;                   // the shared-memory route's largest n_pad
+constexpr int kMaxNLarge = 65536;             // the large route's
 constexpr int kTile = 64;
 constexpr int kMaxWords = kMaxN / kTile;
+constexpr int kMaxWordsLarge = kMaxNLarge / kTile;
+constexpr int kChunk = 8192;                  // keys a chunk of sort_kernel_large (32 KB)
 constexpr int kRowThreads = 4;                // mask threads a row: 16 columns each
 constexpr int kRankParts = 8;                 // sort threads a pair of rows
 constexpr int kScanThreads = 512;             // warp 0 resolves, warp 1 feeds, the rest OR
@@ -192,6 +211,79 @@ sort_kernel(const float4* __restrict__ boxes, const float* __restrict__ scores,
     const uint4 v = k4[c];
     ca += (v.x < ka) + (v.y < ka) + (v.z < ka) + (v.w < ka);
     cb += (v.x < kb) + (v.y < kb) + (v.z < kb) + (v.w < kb);
+  }
+#pragma unroll
+  for (int m = 1; m < kRankParts; m <<= 1) {
+    ca += __shfl_xor_sync(0xFFFFFFFFu, ca, m);
+    cb += __shfl_xor_sync(0xFFFFFFFFu, cb, m);
+  }
+  if (part < 2) {  // part 0 places row ia, part 1 row ia + 32
+    const int i = part ? ia + 32 : ia;
+    const uint32_t ki = part ? kb : ka;
+    const size_t at = (size_t)b * n_pad + (part ? cb : ca);
+    const bool real = i < n;
+    out.idx[at] = real && ki != kKeyNegInf ? i : ~i;
+    out.boxes[at] = real ? boxes[in_base + i] : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// sort_kernel for n_pad > kMaxN: the same ranks, the stream's keys taken in
+// chunks of kChunk through shared memory. Within a chunk the rows before
+// the block's tile count with <=, the tile's rows by (key, index), the rows
+// after it with <; the tile lies inside one chunk.
+__global__ void __launch_bounds__(kTile * kRankParts / 2)
+sort_kernel_large(const float4* __restrict__ boxes, const float* __restrict__ scores,
+                  const uint8_t* __restrict__ valid, int n, int n_pad, Scratch out) {
+  __shared__ __align__(16) uint32_t keys[kChunk];
+  const int b = blockIdx.y;
+  const int t = threadIdx.x;
+  const size_t in_base = (size_t)b * n;
+  auto key_of = [&](int j) {
+    return j < n ? score_key(valid[in_base + j] ? scores[in_base + j] : -INFINITY) : kKeyNegInf;
+  };
+  const int i0 = blockIdx.x * kTile;
+  const int part = t % kRankParts;
+  const int ia = i0 + t / kRankParts;  // and ia + 32
+  const uint32_t ka = key_of(ia), kb = key_of(ia + 32);
+  const uint4* k4 = reinterpret_cast<const uint4*>(keys);
+  int ca = 0, cb = 0;
+  for (int c0 = 0; c0 < n_pad; c0 += kChunk) {
+    for (int j0 = t; j0 < kChunk; j0 += 8 * blockDim.x) {  // kChunk is a multiple of 8 x 256
+      float sc[8];
+      uint8_t ok[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int j = c0 + j0 + u * blockDim.x;
+        sc[u] = j < n ? scores[in_base + j] : 0.0f;
+        ok[u] = j < n ? valid[in_base + j] : 0;
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int j = c0 + j0 + u * blockDim.x;
+        keys[j0 + u * blockDim.x] = j < n ? score_key(ok[u] ? sc[u] : -INFINITY) : kKeyNegInf;
+      }
+    }
+    __syncthreads();
+    const int before = (i0 < c0 + kChunk ? i0 : c0 + kChunk) - c0;  // chunk rows before the tile
+    for (int c = part; c < before / 4; c += kRankParts) {
+      const uint4 v = k4[c];
+      ca += (v.x <= ka) + (v.y <= ka) + (v.z <= ka) + (v.w <= ka);
+      cb += (v.x <= kb) + (v.y <= kb) + (v.z <= kb) + (v.w <= kb);
+    }
+    if (i0 >= c0 && i0 < c0 + kChunk) {  // the tile
+      for (int j = i0 + part; j < i0 + kTile; j += kRankParts) {
+        const uint32_t kj = keys[j - c0];
+        ca += kj < ka || (kj == ka && j < ia);
+        cb += kj < kb || (kj == kb && j < ia + 32);
+      }
+    }
+    const int after = (i0 + kTile > c0 ? i0 + kTile : c0) - c0;  // first chunk row after it
+    for (int c = after / 4 + part; c < kChunk / 4; c += kRankParts) {
+      const uint4 v = k4[c];
+      ca += (v.x < ka) + (v.y < ka) + (v.z < ka) + (v.w < ka);
+      cb += (v.x < kb) + (v.y < kb) + (v.z < kb) + (v.w < kb);
+    }
+    __syncthreads();
   }
 #pragma unroll
   for (int m = 1; m < kRankParts; m <<= 1) {
@@ -419,41 +511,179 @@ scan_kernel(const Scratch s, int n, int n_pad, int stages, uint8_t* __restrict__
   }
 }
 
+// scan_kernel for n_pad > kMaxN, without the ring: the same roles and
+// step, warp 0 and warp 1 as there; the OR threads read block wb-1's kept
+// rows from global memory. Shared memory (dynamic, sized by n_words):
+// the 4 partial words, the valid bits and the kept bits of every word.
+__global__ void __launch_bounds__(kScanThreads)
+scan_kernel_large(const Scratch s, int n, int n_pad, uint8_t* __restrict__ keep) {
+  extern __shared__ __align__(16) u64 words[];  // part [kGroups][n_words], valid_w, kept
+  __shared__ u64 cols[2][2][kTile];  // [block parity][diagonal, next word][row]
+
+  const int b = blockIdx.x;
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const int n_words = n_pad / kTile;
+  u64* part = words;  // part[g * n_words + w]
+  u64* valid_w = words + kGroups * n_words;
+  u64* kept = valid_w + n_words;
+  const u64* m = s.mask + (size_t)b * n_pad * n_words;
+
+  for (int w = t; w < kGroups * n_words; w += blockDim.x) part[w] = 0;
+  for (int e0 = t; e0 < n_pad; e0 += 4 * blockDim.x) {
+    int idx[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int e = e0 + u * blockDim.x;
+      idx[u] = e < n_pad ? s.idx[(size_t)b * n_pad + e] : -1;
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int e = e0 + u * blockDim.x;
+      const uint32_t bits = __ballot_sync(0xFFFFFFFFu, idx[u] >= 0);
+      if (lane == 0 && e < n_pad) reinterpret_cast<uint32_t*>(valid_w)[e / 32] = bits;
+    }
+  }
+
+  u64 col_d0 = 0, col_d1 = 0, col_n0 = 0, col_n1 = 0;
+  auto load_columns = [&](int wb) {
+    if (wb >= n_words) return;
+    const int nx = wb + 1 < n_words ? wb + 1 : wb;
+    const u64* r0 = m + (size_t)(wb * kTile + lane) * n_words;
+    const u64* r1 = r0 + (size_t)32 * n_words;
+    col_d0 = r0[wb];
+    col_d1 = r1[wb];
+    col_n0 = r0[nx];
+    col_n1 = r1[nx];
+  };
+  auto store_columns = [&](int wb) {
+    cols[wb & 1][0][lane] = col_d0;
+    cols[wb & 1][0][lane + 32] = col_d1;
+    cols[wb & 1][1][lane] = col_n0;
+    cols[wb & 1][1][lane + 32] = col_n1;
+  };
+  if (warp == 1) {
+    load_columns(0);
+    store_columns(0);
+    load_columns(1);
+  }
+  __syncthreads();
+
+  u64 carry = 0;
+  for (int wb = 0; wb < n_words; ++wb) {
+    if (warp == 0) {
+      const u64 d_lo = cols[wb & 1][0][lane], d_hi = cols[wb & 1][0][lane + 32];
+      u64 removed = carry;
+#pragma unroll
+      for (int g = 0; g < kGroups; ++g) removed |= part[g * n_words + wb];
+      const u64 cand = valid_w[wb] & ~removed;
+      const u64 sup_lo = d_lo & ((1ull << lane) - 1);
+      const u64 sup_hi = d_hi & ((1ull << (lane + 32)) - 1);
+      u64 kw = cand;
+      while (true) {
+        const uint32_t lo = __ballot_sync(0xFFFFFFFFu, (sup_lo & kw) != 0);
+        const uint32_t hi = __ballot_sync(0xFFFFFFFFu, (sup_hi & kw) != 0);
+        const u64 next = cand & ~(((u64)hi << 32) | lo);
+        if (next == kw) break;
+        kw = next;
+      }
+      const u64 c = (((kw >> lane) & 1ull) ? cols[wb & 1][1][lane] : 0ull) |
+                    (((kw >> (lane + 32)) & 1ull) ? cols[wb & 1][1][lane + 32] : 0ull);
+      carry = ((u64)__reduce_or_sync(0xFFFFFFFFu, (uint32_t)(c >> 32)) << 32) |
+              __reduce_or_sync(0xFFFFFFFFu, (uint32_t)c);
+      if (lane == 0) kept[wb] = kw;
+    } else if (warp == 1) {
+      if (wb + 1 < n_words) store_columns(wb + 1);
+      load_columns(wb + 2);
+    } else {
+      // Block wb-1's kept rows into words wb+1 ..: thread (g, w) ORs the
+      // kept ones of rows 16g .. 16g+15 of word w into part[g][w], which
+      // only it writes; its loads are all issued before any OR.
+      const int rest = n_words - wb - 1;
+      const int h = t - 64;
+      const int g = h / kOrWords;
+      if (wb >= 1 && g < kGroups) {
+        const uint32_t sel = (uint32_t)(kept[wb - 1] >> (16 * g)) & 0xFFFFu;
+        const u64* rows = m + ((size_t)(wb - 1) * kTile + 16 * g) * n_words + wb + 1;
+        for (int wi = h - g * kOrWords; sel != 0 && wi < rest; wi += kOrWords) {
+          u64 v[16];
+#pragma unroll
+          for (int r = 0; r < 16; ++r)
+            v[r] = (sel >> r) & 1u ? __ldg(rows + (size_t)r * n_words + wi) : 0ull;
+          u64 acc = 0;
+#pragma unroll
+          for (int r = 0; r < 16; ++r) acc |= v[r];
+          part[g * n_words + wb + 1 + wi] |= acc;
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  for (int e0 = t; e0 < n_pad; e0 += 8 * blockDim.x) {
+    int idx[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int e = e0 + u * blockDim.x;
+      idx[u] = e < n_pad ? s.idx[(size_t)b * n_pad + e] : n;
+      if (idx[u] < 0) idx[u] = ~idx[u];
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int e = e0 + u * blockDim.x;
+      if (idx[u] < n) keep[(size_t)b * n + idx[u]] = (uint8_t)((kept[e / kTile] >> (e % kTile)) & 1ull);
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 // Keep mask of B streams. boxes [B, n, 4] f32, scores [B, n] f32, valid
-// [B, n] u8; n_pad is a power of two in [64, 8192], >= n; scratch holds
-// scratch_bytes >= B * n_pad * (n_pad / 8 + 20) bytes (see Scratch), 16-byte
-// aligned. Output: keep [B, n] u8 in original order.
-// Returns the cudaError_t of the launches (0 = cudaSuccess).
+// [B, n] u8; n_pad is a power of two in [64, 65536], >= n (above 8192 the
+// large route); scratch holds scratch_bytes >= B * n_pad * (n_pad / 8 + 20)
+// bytes (see Scratch), 16-byte aligned. Output: keep [B, n] u8 in original
+// order. Returns the cudaError_t of the launches (0 = cudaSuccess).
 int aznet_nms_launch(const void* boxes, const void* scores, const void* valid, int batch, int n,
                      int n_pad, float thresh, float offset, void* scratch, size_t scratch_bytes,
                      void* keep, void* stream) {
-  if (batch <= 0 || batch > 65535 || n <= 0 || n > n_pad || n_pad > kMaxN || n_pad < kTile ||
-      (n_pad & (n_pad - 1)) != 0 || (uintptr_t)scratch % 16 != 0 ||
+  if (batch <= 0 || batch > 65535 || n <= 0 || n > n_pad || n_pad > kMaxNLarge ||
+      n_pad < kTile || (n_pad & (n_pad - 1)) != 0 || (uintptr_t)scratch % 16 != 0 ||
       scratch_bytes < (size_t)batch * n_pad * (n_pad / 8 + 20))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const Scratch s = carve(scratch, batch, n_pad);
+  const bool large = n_pad > kMaxN;
 
-  // The scan's shared-memory limit, raised once per device to its ring.
-  static bool raised[64] = {};
+  // The scans' shared-memory limits, raised once per device: the ring, and
+  // the large route's word arrays.
+  static bool raised[64] = {}, raised_large[64] = {};
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return (int)err;
   if (device >= 64) return (int)cudaErrorInvalidDevice;
-  if (!raised[device]) {
+  if (!large && !raised[device]) {
     err = cudaFuncSetAttribute(scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                kRingBytes);
     if (err != cudaSuccess) return (int)err;
     raised[device] = true;
   }
+  if (large && !raised_large[device]) {
+    err = cudaFuncSetAttribute(scan_kernel_large, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (kGroups + 2) * kMaxWordsLarge * (int)sizeof(u64));
+    if (err != cudaSuccess) return (int)err;
+    raised_large[device] = true;
+  }
 
   const int n_tiles = n_pad / kTile;
-  sort_kernel<<<dim3(n_tiles, batch), kTile * kRankParts / 2, n_pad * sizeof(uint32_t), st>>>(
-      (const float4*)boxes, (const float*)scores, (const uint8_t*)valid, n, n_pad, s);
+  if (large)
+    sort_kernel_large<<<dim3(n_tiles, batch), kTile * kRankParts / 2, 0, st>>>(
+        (const float4*)boxes, (const float*)scores, (const uint8_t*)valid, n, n_pad, s);
+  else
+    sort_kernel<<<dim3(n_tiles, batch), kTile * kRankParts / 2, n_pad * sizeof(uint32_t), st>>>(
+        (const float4*)boxes, (const float*)scores, (const uint8_t*)valid, n, n_pad, s);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
@@ -462,6 +692,11 @@ int aznet_nms_launch(const void* boxes, const void* scores, const void* valid, i
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
+  if (large) {
+    scan_kernel_large<<<batch, kScanThreads, (kGroups + 2) * n_tiles * sizeof(u64), st>>>(
+        s, n, n_pad, (uint8_t*)keep);
+    return (int)cudaGetLastError();
+  }
   const int stage_bytes = kTile * n_tiles * (int)sizeof(u64);
   const int stages = kRingBytes / stage_bytes < kMaxStages ? kRingBytes / stage_bytes : kMaxStages;
   scan_kernel<<<batch, kScanThreads, stages * stage_bytes, st>>>(s, n, n_pad, stages,

@@ -38,6 +38,7 @@ import torch.nn.functional as F
 from aznet_tpu_torch.ops.cuda import conv_int8_kernel
 
 INT8_MAX = 127.0
+EXACT_C = 1040  # int8 products a float32 sum holds exactly: 127**2 * 1040 < 2**24
 
 
 def scalar_f32(value: float, device) -> torch.Tensor:
@@ -161,20 +162,20 @@ def conv3x3_int8_reference(x: torch.Tensor, s_x: float, layer: Int8Conv,
     ``s_x`` -> int8 ``[B, H', W', Co]`` at ``s_out`` (H', W' halved when
     ``pool``), or ``out_dtype`` when ``s_out`` is None.
 
-    The int32 sum is exact: each tap is a float32 product of int8 values
-    whose partial sums stay below ``127**2 * C < 2**24`` for C <= 1040
-    (int8 values are exact in TF32 too), converted to int32, and the taps
-    are summed in int32."""
+    The int32 sum is exact: each tap is float32 products of int8 values
+    over at most :data:`EXACT_C` channels at a time, whose partial sums stay
+    below ``127**2 * 1040 < 2**24`` (int8 values are exact in TF32 too),
+    converted to int32; the taps and channel chunks are summed in int32."""
     b, h, w, c = x.shape
-    if c > 1040:
-        raise ValueError(f"the float32 tap products are exact for C <= 1040, got {c}")
     xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))
     wf = unpack_kernel_layout(layer.w_k, c, layer.s_w.shape[0]).float()  # [9, C, Co]
     acc = None
     for tap in range(9):
         dy, dx = divmod(tap, 3)
-        d = (xp[:, dy:dy + h, dx:dx + w] @ wf[tap]).to(torch.int32)
-        acc = d if acc is None else acc + d
+        for c0 in range(0, c, EXACT_C):
+            d = (xp[:, dy:dy + h, dx:dx + w, c0:c0 + EXACT_C] @ wf[tap, c0:c0 + EXACT_C]
+                 ).to(torch.int32)
+            acc = d if acc is None else acc + d
     y = acc.float() * (scalar_f32(s_x, x.device) * layer.s_w) + layer.bias
     y = torch.relu(y)
     if pool:

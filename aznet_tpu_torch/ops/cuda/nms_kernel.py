@@ -7,9 +7,11 @@ spread over the card), builds the 64-bit suppression bitmask over the
 upper-triangle 64x64 tiles only, and runs the greedy scan over 64-row word
 blocks from a shared-memory ring filled by one bulk copy a block, each
 block resolved by warp ballots, writing keep flags straight to original
-slots. What bounds it: the N^2/2 IoUs of the mask pass
-and the scan's serial chain of N/64 word blocks per stream (see the
-source's header).
+slots. Above :data:`SMEM_MAX_N` boxes a second route of the same source
+takes over (the sort over chunks of keys, the scan reading the kept rows
+from global memory without the ring), up to :data:`MAX_N`. What bounds it:
+the N^2/2 IoUs of the mask pass and the scan's serial chain of N/64 word
+blocks per stream (see the source's header).
 
 Only CUDA tensors are accepted; the plain PyTorch version of the same
 function is :func:`aznet_tpu_torch.ops.nms.nms_mask_reference`, and the
@@ -23,7 +25,9 @@ import ctypes
 import numpy as np
 import torch
 
-MAX_N = 8192
+SMEM_MAX_N = 8192  # the largest sort width of the shared-memory route
+MAX_N = 65536  # the large route's
+SORT_CHUNK = 8192  # keys a chunk of the large route's sort (kChunk in the source)
 TILE = 64
 
 # Launches of the kernel sequence (one per call that reaches the card).
@@ -61,17 +65,20 @@ def scratch_bytes(bsz: int, n_pad: int) -> int:
     return bsz * n_pad * (n_pad // 8 + 16 + 4)
 
 
-def triangle_tile(blk: int) -> tuple[int, int]:
+def triangle_tile(blk):
     """The mask pass's block ``blk`` -> its tile ``(row tile, column tile)``,
     row <= column, as the kernel inverts ``blk = col * (col + 1) / 2 + row``
-    (a float32 square root, then corrected)."""
-    c = int((np.sqrt(np.float32(8.0) * np.float32(blk) + np.float32(1.0)) - np.float32(1.0))
-            * np.float32(0.5))
-    while c * (c + 1) // 2 > blk:
-        c -= 1
-    while (c + 1) * (c + 2) // 2 <= blk:
-        c += 1
-    return blk - c * (c + 1) // 2, c
+    (a float32 square root, then corrected). ``blk`` is an int or an array
+    of them (then both are arrays)."""
+    b = np.asarray(blk, np.int64)
+    c = ((np.sqrt(np.float32(8.0) * b.astype(np.float32) + np.float32(1.0)) - np.float32(1.0))
+         * np.float32(0.5)).astype(np.int64)
+    while (over := c * (c + 1) // 2 > b).any():
+        c = c - over
+    while (under := (c + 1) * (c + 2) // 2 <= b).any():
+        c = c + under
+    row = b - c * (c + 1) // 2
+    return (int(row), int(c)) if b.ndim == 0 else (row, c)
 
 
 def nms_cuda_batched(boxes: torch.Tensor, scores: torch.Tensor,
@@ -79,7 +86,9 @@ def nms_cuda_batched(boxes: torch.Tensor, scores: torch.Tensor,
                      offset: float = 1.0) -> torch.Tensor:
     """Keep masks ``[B, N]`` bool, in original order, for ``boxes [B, N, 4]``
     f32, ``scores [B, N]`` f32 and ``valid [B, N]`` bool, all contiguous on
-    one CUDA device. Raises on anything else, and for N > 8192."""
+    one CUDA device. Raises on anything else, for N > :data:`MAX_N`, and
+    (``torch.cuda.OutOfMemoryError``, naming the bytes) where the scratch
+    does not fit on the card."""
     global LAUNCHES
     if not (boxes.is_cuda and scores.is_cuda and valid.is_cuda):
         raise ValueError("nms_cuda_batched takes CUDA tensors only")
@@ -106,7 +115,12 @@ def nms_cuda_batched(boxes: torch.Tensor, scores: torch.Tensor,
         return keep
     n_pad = sort_width(n)
     nbytes = scratch_bytes(bsz, n_pad)
-    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    try:
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    except torch.cuda.OutOfMemoryError as e:
+        raise torch.cuda.OutOfMemoryError(
+            f"NMS of {bsz} x {n} boxes needs {nbytes} bytes of scratch "
+            f"({bsz} x {n_pad} x ({n_pad} / 8 + 20)), which do not fit on {dev}") from e
     fn, err_str = _launcher()
     idx = dev.index
     args = (boxes.data_ptr(), scores.data_ptr(), valid.data_ptr(), bsz, n, n_pad,

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from aznet_tpu_torch.ops import refuse_grad
+from aznet_tpu_torch.ops.conv_int8 import EXACT_C
 from aznet_tpu_torch.ops.cuda import roi_align_kernel
 from aznet_tpu_torch.utils.precision import float32_precision
 
@@ -78,20 +79,33 @@ def roi_align(feat, rois, spatial_scale: float, pool_size: int = 7,
                       for i in range(0, rois.shape[0], ROI_CHUNK)])
 
 
+def _exact_int_sum(equation: str, weights8, featf, axis: int):
+    """``einsum(equation, weights8, featf)`` of integer-valued float32
+    operands (``|values| <= 127``) contracted over ``featf``'s ``axis``: in
+    one float32 sum when the extent is at most :data:`EXACT_C` (exact), else
+    over pieces of that extent, each exact, added in int32 and converted to
+    float32 once, as an int32 accumulator would be."""
+    n = featf.shape[axis]
+    if n <= EXACT_C:
+        return torch.einsum(equation, weights8, featf)
+    return sum(torch.einsum(equation, weights8[..., i:i + EXACT_C],
+                            featf.narrow(axis, i, min(EXACT_C, n - i))).to(torch.int32)
+               for i in range(0, n, EXACT_C)).float()
+
+
 def roi_align_int8(feat8, rois, spatial_scale: float, pool_size: int = 7,
                    sampling: int = 2, w_first=None):
     """ROI align over int8 features ``[H, W, C]`` -> int8 ``[R, P, P, C]`` at
     the same scale (each weight row sums to 1, so the pooled values stay in
     range). The first contraction takes int8 weights ``round(w * 127)`` and
-    the int8 features to an exact integer sum, computed in float32 (exact for
-    an extent <= 1040), scaled by ``float32(1/127)`` and rounded to bf16; the
-    second is bf16 x bf16 with float32 accumulation, computed in float32 on
-    bf16-valued operands so that it rounds once; then round and clip."""
+    the int8 features to an exact integer sum (float32 sums over at most
+    1040 cells of the extent at a time, each exact, added in int32), scaled
+    by ``float32(1/127)`` and rounded to bf16; the second is bf16 x bf16
+    with float32 accumulation, computed in float32 on bf16-valued operands
+    so that it rounds once; then round and clip."""
     h, w, c = feat8.shape
     if feat8.dtype != torch.int8:
         raise TypeError(f"roi_align_int8 wants int8 features, got {feat8.dtype}")
-    if max(h, w) > 1040:
-        raise ValueError(f"the float32 integer sums are exact for extents <= 1040, got {h}x{w}")
     p = pool_size
     wf = _contract_w_first(h, w, c, 1, w_first)
     inv127 = torch.tensor(1.0 / 127.0, dtype=torch.float32, device=feat8.device)
@@ -105,13 +119,13 @@ def roi_align_int8(feat8, rois, spatial_scale: float, pool_size: int = 7,
         wy = _bilinear_pool_weights(y1, (y2 - y1).clamp(min=1.0), h, p, sampling)
         wx = _bilinear_pool_weights(x1, (x2 - x1).clamp(min=1.0), w, p, sampling)
         if wf:
-            wx8 = torch.round(wx * 127.0)
-            cols = bf16_valued(torch.einsum("rqw,hwc->rqhc", wx8, featf) * inv127)
-            pooled = torch.einsum("rph,rqhc->rpqc", bf16_valued(wy), cols)
+            cols = _exact_int_sum("rqw,hwc->rqhc", torch.round(wx * 127.0), featf, 1)
+            pooled = torch.einsum("rph,rqhc->rpqc", bf16_valued(wy),
+                                  bf16_valued(cols * inv127))
         else:
-            wy8 = torch.round(wy * 127.0)
-            rows = bf16_valued(torch.einsum("rph,hwc->rpwc", wy8, featf) * inv127)
-            pooled = torch.einsum("rqw,rpwc->rpqc", bf16_valued(wx), rows)
+            rows = _exact_int_sum("rph,hwc->rpwc", torch.round(wy * 127.0), featf, 0)
+            pooled = torch.einsum("rqw,rpwc->rpqc", bf16_valued(wx),
+                                  bf16_valued(rows * inv127))
         return torch.round(pooled).clamp_(-127.0, 127.0).to(torch.int8)
 
     if rois.shape[0] <= ROI_CHUNK:

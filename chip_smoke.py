@@ -201,6 +201,24 @@
    ``'xla'`` at WIDTH 0.125 and the trunk from conv1_2 at full width on two
    64x64 images, on the card against the CPU at phase 4's bounds.
 
+16. Phase 15: (a) the NMS kernel's large route (sort widths 16384 ..
+   65536: the sort over chunks of keys, the scan reading the kept rows from
+   global memory) at 1 x 8193, 1 x 16384 (tie-heavy, +-0, subnormal and
+   invalid rows), 2 x 20000 and 1 x 32768 against the plain version, and
+   at 1 x 65536 against the host library's greedy NMS (distinct scores), bit
+   for bit, each timed (device time per pass, events, host) beside its
+   bound; (b) ``tools_torch.bench`` in this process at ``full`` (batches 16
+   and 32, with ``nms_mboxes_per_sec``), ``coco_deep`` and
+   ``resnet50_1080p``; (c) ``tools_torch.bench_nms`` with its four tiers;
+   (d) every other ``tools_torch/bench_*`` at its defaults
+   (``bench_coco_eval --images 500``; ``bench_fused_detect`` on snapshots
+   of seeded nets with ``az_vgg_w100_synthetic_hard.yml``, the fused and
+   two-program mAPs within 1% of each other); (e) ``aznet_tpu_torch.entry``:
+   ``entry()`` (shapes, finite, live proposals), ``dryrun_multichip(1)`` on
+   NCCL and ``dryrun_multichip(2)`` over gloo ranks. Every launch count is
+   set to 0 just before each tool and read just after; the first launch of
+   each kernel a tool makes is held against its plain version.
+
 Prints the card's name and power limit, one JSON line of kernel records
 (each with its bound, library yardstick and launches on the eval path, in
 training, in the tools and on the mesh paths; the int8 conv's with its C=64
@@ -236,6 +254,10 @@ each NMS pass's device time (sort, mask, scan).
     python3 chip_smoke.py --mesh-phase
 
 builds the kernels and runs phase 13 alone.
+
+    python3 chip_smoke.py --tools-phase
+
+builds the kernels and runs phase 15 alone.
 
     python3 chip_smoke.py --settings-phase
 
@@ -3568,6 +3590,313 @@ def phase14_settings(dev, int8):
     return out
 
 
+# -- phase 15: NMS beyond 8192, and the measurement tools --------------------
+
+NMS_LARGE_CASES = [  # name, seed, B, N, extent, tie streams, IoU, held against
+    ("large_1x8193", 21, 1, 8193, 2828.0, 0, 0.5, "plain"),
+    ("ties_1x16384", 22, 1, 16384, 4000.0, 1, 0.7, "plain"),
+    ("large_2x20000", 23, 2, 20000, 4419.0, 0, 0.5, "plain"),
+    ("large_1x32768", 24, 1, 32768, 5657.0, 0, 0.5, "plain"),
+    # The plain version's float IoU matrices take 17 GB each at 65536: the
+    # host library's greedy NMS on distinct scores (its tie order is not the
+    # folded key's) holds this one.
+    ("large_1x65536", 25, 1, 65536, 8000.0, 0, 0.5, "host"),
+]
+
+
+def phase15a_nms_large(dev):
+    """The NMS kernel's large route (sort widths 16384 .. 65536) against the
+    plain version on the card, bit for bit (one case tie-heavy with +-0,
+    subnormal and invalid rows, as phase 1), and at 1 x 65536 against the
+    host library's greedy NMS; each timed beside its bound. Returns
+    ``(max_abs_err, {case: times})``."""
+    import torch
+
+    from aznet_tpu_torch.ops import nms as tnms
+
+    err, cases = 0.0, {}
+    for name, seed, bsz, n, extent, ties, iou, ref in NMS_LARGE_CASES:
+        boxes, scores, valid = nms_inputs(seed, bsz, n, extent, ties, dev)
+        if ref == "host":
+            scores = torch.from_numpy(np.random.RandomState(seed).permutation(bsz * n).reshape(
+                bsz, n).astype(np.float32) / (bsz * n)).to(dev)
+        got = tnms.nms_mask_batched(boxes, scores, iou, valid)
+        t0 = time.perf_counter()
+        if ref == "plain":
+            want = tnms.nms_mask_reference(boxes, scores, iou, valid)
+        else:
+            want = torch.zeros_like(got)
+            for b in range(bsz):
+                dets = torch.cat([boxes[b], scores[b, :, None]], 1).cpu().numpy()
+                want[b, tnms.nms(dets, iou)] = True
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t0
+        diff = (got.float() - want.float()).abs().max().item()
+        err = max(err, diff)
+        kept = int(want.sum())
+        check(diff == 0.0, f"phase15a {name}: NMS kernel disagrees with the {ref} version")
+        check(0 < kept < int(valid.sum()), f"phase15a {name}: degenerate case, kept {kept}")
+        t = nms_kernel_times(boxes, scores, iou, valid)
+        t["plain_ms"] = cuda_ms(lambda: tnms.nms_mask_reference(boxes, scores, iou, valid),
+                                1, 1) if ref == "plain" else None
+        t["held_against"], t["kept"] = ref, kept
+        t["bound_ms"], t["bound_by"] = nms_bound(bsz, n)
+        cases[name] = t
+        plain = f"{t['plain_ms']:.4f} ms" if t["plain_ms"] is not None else "not measured"
+        print(f"phase15a {name}: kept {kept}/{bsz * n}, max_abs_err {diff} against the {ref} "
+              f"version ({ref_s:.2f} s); kernel {nms_times_line(t)}; plain {plain}; "
+              f"{bsz * n / t['ms'] / 1e3:.2f} Mboxes/s; bound {t['bound_ms'] * 1e3:.3f} us "
+              f"({t['bound_by']})", flush=True)
+    return err, cases
+
+
+def zero_counts():
+    from aznet_tpu_torch.ops.cuda import conv1_kernel, iou_kernel, nms_kernel, roi_align_kernel
+    from aznet_tpu_torch.ops.cuda import conv_int8_kernel as ck
+
+    nms_kernel.LAUNCHES = roi_align_kernel.LAUNCHES = conv1_kernel.LAUNCHES = 0
+    iou_kernel.LAUNCHES = ck.LAUNCHES["chain"] = ck.LAUNCHES["strip"] = 0
+
+
+@contextlib.contextmanager
+def recording_first(recorded, recorded_conv):
+    """Copies the inputs (and the result) of the first launch of the NMS,
+    ROI-align and both int8 conv kernels while active, for
+    :func:`path_kernel_errs`; later launches run untouched."""
+    from aznet_tpu_torch.ops.cuda import nms_kernel, roi_align_kernel
+    from aznet_tpu_torch.ops.cuda import conv_int8_kernel as ck
+
+    real_nms, real_roi = nms_kernel.nms_cuda_batched, roi_align_kernel.roi_align_cuda
+    real_conv = {"chain": ck.conv3x3_int8_chain, "strip": ck.conv3x3_int8_strip}
+    seen = set()
+
+    def nms(boxes, scores, thresh, valid, offset=1.0):
+        if "nms" not in seen:
+            seen.add("nms")
+            recorded.append(("nms", (boxes.clone(), scores.clone(), thresh, valid.clone(),
+                                     offset), None))
+        return real_nms(boxes, scores, thresh, valid, offset)
+
+    def roi(feat, rois, scale, pool, w_first):
+        out = real_roi(feat, rois, scale, pool, w_first)
+        if "roi" not in seen:
+            seen.add("roi")
+            recorded.append(("roi", (feat.clone(), rois.clone(), scale, pool, w_first),
+                             out.clone()))
+        return out
+
+    def conv(entry):
+        def call(x, s_x, w_k, s_w, bias, s_out, *rest):
+            out = real_conv[entry](x, s_x, w_k, s_w, bias, s_out, *rest)
+            if entry not in seen:
+                seen.add(entry)
+                recorded_conv.append((entry, x.clone(), s_x, w_k, s_w, bias, s_out, out.clone()))
+            return out
+        return call
+
+    nms_kernel.nms_cuda_batched, roi_align_kernel.roi_align_cuda = nms, roi
+    ck.conv3x3_int8_chain, ck.conv3x3_int8_strip = conv("chain"), conv("strip")
+    try:
+        yield
+    finally:
+        nms_kernel.nms_cuda_batched, roi_align_kernel.roi_align_cuda = real_nms, real_roi
+        ck.conv3x3_int8_chain, ck.conv3x3_int8_strip = real_conv["chain"], real_conv["strip"]
+
+
+def run_tool(tag, name, argv, card, env=None):
+    """``tools_torch.<name>.main(argv)`` in this process under the environment
+    variables ``env``, with every launch count set to 0 just before and read
+    just after, and the first launch of each kernel held against its plain
+    version. Echoes the tool's output; returns ``(output, launches, errs)``."""
+    import importlib
+    import io
+    import os
+
+    import torch
+
+    mod = importlib.import_module(f"tools_torch.{name}")
+    saved = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
+    recorded, recorded_conv = [], []
+    buf = io.StringIO()
+    try:
+        with recording_first(recorded, recorded_conv):
+            zero_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = mod.main(argv)
+            torch.cuda.synchronize()
+            launches = train_launch_counts()
+            s = time.perf_counter() - t0
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    text = buf.getvalue()
+    for line in text.splitlines():
+        print(f"{tag}   {line}")
+    errs, _ = path_kernel_errs(recorded, recorded_conv)
+    print(f"{tag} {name} {' '.join(argv)} {env or ''}: {s:.2f} s ({card}); launches {launches}; "
+          f"first launch of each kernel vs plain {errs}", flush=True)
+    check(rc == 0, f"{tag}: {name} returned {rc}")
+    check(max(errs.values(), default=0.0) == 0.0,
+          f"{tag}: a kernel disagrees with its plain version on the tool's inputs")
+    return text, launches, errs
+
+
+def last_json(text):
+    return json.loads([line for line in text.splitlines() if line.startswith("{")][-1])
+
+
+BENCH_PRESETS = (  # preset, metric, the kernels its main path must launch
+    ("full", "propose_images_per_sec_vgg16_600x800", ("nms", "chain", "strip")),
+    ("coco_deep", "propose_images_per_sec_coco_deep_tree", ("nms", "chain", "strip")),
+    ("resnet50_1080p", "propose_images_per_sec_resnet50_1080p", ("nms",)),
+)
+
+
+def phase15b_bench(card):
+    """``tools_torch.bench`` in this process at ``full`` (batches 16 and 32),
+    ``coco_deep`` and ``resnet50_1080p`` (their default batches): each line's
+    metric name, a finite positive value, ``nms_mboxes_per_sec`` on
+    ``full``, the kernels of each path launched."""
+    out = {}
+    for preset, metric, kernels in BENCH_PRESETS:
+        text, launches, errs = run_tool(f"phase15b {preset}", "bench", [], card,
+                                        {"AZNET_BENCH_PRESET": preset})
+        line = last_json(text)
+        check(line["metric"] == metric, f"phase15b {preset}: metric {line['metric']}")
+        check(np.isfinite(line["value"]) and line["value"] > 0,
+              f"phase15b {preset}: value {line['value']}")
+        if preset == "full":
+            check(list(line["batches"]) == ["16", "32"], f"phase15b full: {line['batches']}")
+            rate = line.get("nms_mboxes_per_sec")
+            check(rate is not None and np.isfinite(rate) and rate > 0,
+                  f"phase15b full: nms_mboxes_per_sec {rate}")
+        for k in kernels:
+            check(launches[k] > 0, f"phase15b {preset}: the {k} kernel never launched")
+        out[preset] = {"line": line, "launches": launches, "errs": errs}
+    return out
+
+
+def phase15cd_tools(card):
+    """``tools_torch.bench_nms`` with its four tiers, then every other
+    ``tools_torch/bench_*`` at its defaults (``bench_coco_eval --images
+    500``; ``bench_fused_detect`` on snapshots of seeded nets), each with its
+    launches."""
+    import tempfile
+    from pathlib import Path
+
+    from aznet_tpu_torch import api
+    from aznet_tpu_torch.utils.checkpoint import Checkpointer
+    from tools_torch import _common, bench_fused_detect
+
+    out = {}
+    text, launches, errs = run_tool("phase15c", "bench_nms", [], card)
+    line = last_json(text)
+    tiers = {"cuda_n8192", "cuda_n32768", "plain_fixpoint_n4096", "cpp_host_n8192"}
+    check(set(line["detail"]) == tiers, f"phase15c: tiers {sorted(line['detail'])}")
+    check(all(np.isfinite(v) and v > 0 for v in line["detail"].values()),
+          f"phase15c: rates {line['detail']}")
+    out["bench_nms"] = {"line": line, "launches": launches, "errs": errs}
+
+    cfg_path = str(Path(__file__).resolve().parent / TOOLS_CFG)
+    check((bench_fused_detect.SCORE_TOL, bench_fused_detect.BOX_TOL) == (FUSED_S_TOL, FUSED_B_TOL),
+          "phase15d: bench_fused_detect's bounds are not phase 10's")
+    # The two full-width snapshots (about a gigabyte) go with the directory.
+    with tempfile.TemporaryDirectory(prefix="aznet_fused_detect_") as snaps:
+        cfg = _common.load_config(cfg_path)
+        for kind, build, seed in (("az", api.build_az_net, None),
+                                  ("frcnn", api.build_frcnn_net, 1)):
+            net = build(cfg, device="cuda", seed=seed)
+            Checkpointer(f"{snaps}/{kind}").save(0, {"params": net.params})
+        del net
+        runs = (  # tag, tool, argv, the kernels it must launch
+            ("phase15d", "bench_trunk", [], ("chain", "strip")),
+            ("phase15d", "bench_roi", [], ("roi_align",)),
+            ("phase15d", "bench_nms_variants", [], ("nms",)),
+            ("phase15d", "bench_fused_detect", ["--cfg", cfg_path, "--ckpt", f"{snaps}/az",
+                                                "--frcnn-ckpt", f"{snaps}/frcnn"], ("nms",)),
+            ("phase15d", "bench_train", [], ()),
+            ("phase15d", "bench_coco_eval", ["--images", "500"], ()),
+        )
+        for tag, name, argv, kernels in runs:
+            text, launches, errs = run_tool(tag, name, argv, card)
+            for k in kernels:
+                check(launches[k] > 0, f"{tag} {name}: the {k} kernel never launched")
+            line = last_json(text)
+            if name == "bench_fused_detect":
+                # Phase 10's bounds: the two paths pool at boxes one bf16 rounding
+                # apart (tests/test_torch_eval.py), so a detection can cross the
+                # per-image cap; `identical` (the reference's 1e-3) is reported.
+                keys = {"fused_img_per_sec", "unfused_img_per_sec", "speedup", "map_fused",
+                        "map_unfused", "identical", "unmatched", "trunks_value_equal"}
+                check(keys <= set(line), f"{tag} {name}: keys {sorted(line)}")
+                check(line["unmatched"] <= FUSED_MISS,
+                      f"{tag} {name}: {line['unmatched']} of the fused and two-program rows "
+                      f"unmatched within {FUSED_S_TOL} / {FUSED_B_TOL} px")
+            if name == "bench_train":
+                check(np.isfinite(line["value"]) and line["value"] > 0
+                      and line["mfu_vs_bf16_peak"] > 0, f"{tag} {name}: {line}")
+            out[name] = {"line": line, "launches": launches, "errs": errs}
+    return out
+
+
+def phase15e_entry(card):
+    """``aznet_tpu_torch.entry``: ``entry()`` on the card (the shapes, finite
+    values, live proposals, its NMS launches), then ``dryrun_multichip(1)``
+    on NCCL in this process and ``dryrun_multichip(2)`` over gloo ranks."""
+    import io
+
+    import torch
+
+    from aznet_tpu_torch import entry as tentry
+
+    zero_counts()
+    fn, args = tentry.entry()
+    boxes, scores, valid = fn(*args)
+    torch.cuda.synchronize()
+    launches = train_launch_counts()
+    check(tuple(boxes.shape) == (1, 300, 4) and tuple(scores.shape) == (1, 300)
+          and tuple(valid.shape) == (1, 300), f"phase15e entry(): shapes {boxes.shape}")
+    check(bool(torch.isfinite(boxes).all()) and bool(torch.isfinite(scores[valid]).all())
+          and int(valid.sum()) > 0, "phase15e entry(): non-finite output or no live proposal")
+    check(launches["nms"] > 0, "phase15e entry(): the NMS kernel never launched")
+    print(f"phase15e entry(): boxes {tuple(boxes.shape)}, {int(valid.sum())} live proposals on "
+          f"{args[0].device} ({card}); launches {launches}", flush=True)
+    for n in (1, 2):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            tentry.dryrun_multichip(n)
+        text = buf.getvalue()
+        for line in text.splitlines():
+            print(f"phase15e   {line}")
+        backend = "nccl" if n == 1 else "gloo"
+        for tag in (f"dryrun_multichip({n}): ", f"backend={backend}", "sharded_propose",
+                    "latency_propose", "sharded_detect", "dryrun_multihost"):
+            check(tag in text, f"phase15e dryrun_multichip({n}): no {tag!r} line")
+        print(f"phase15e dryrun_multichip({n}): {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"launches": launches}
+
+
+def phase15_tools(dev, card):
+    """Phase 15: the NMS kernel beyond 8192 boxes and the measurement entry
+    points (``tools_torch/bench*.py``, ``aznet_tpu_torch/entry.py``)."""
+    t0 = time.perf_counter()
+    err, large = phase15a_nms_large(dev)
+    out = {"nms_err": err, "nms_large": large, "bench": phase15b_bench(card),
+           "tools": phase15cd_tools(card), "entry": phase15e_entry(card)}
+    out["path_errs"] = {}
+    for r in (*out["bench"].values(), *out["tools"].values()):
+        for k, v in r["errs"].items():
+            out["path_errs"][k] = max(out["path_errs"].get(k, 0.0), v)
+    print(f"phase15 {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main(argv) -> int:
     import torch
 
@@ -3602,6 +3931,9 @@ def main(argv) -> int:
     print((lib_path.parent / "nvcc.log").read_text().strip(), flush=True)
     if argv[:1] == ["--mesh-phase"]:
         phase13_mesh(dev, card)
+        return 0
+    if argv[:1] == ["--tools-phase"]:
+        phase15_tools(dev, card)
         return 0
     if argv[:1] == ["--settings-phase"]:
         net = build_net("phase2", Config(), dev)
@@ -3647,6 +3979,8 @@ def main(argv) -> int:
     mp = phase13_mesh(dev, card)  # the same, at world size 1 on NCCL
     mesh = mp["launches"]
     last = phase14_settings(dev, int8)  # sets the counts it reads to 0 just before each path
+    p15 = phase15_tools(dev, card)  # the same, before each tool
+    bench_full = p15["bench"]["full"]["launches"]
     paths = [res["bf16"], res["int8"], small["caffenet"], small["vgg_cnn_m_1024"]]
     print(f"phase7-10 launches: IoU kernel {iou_path_launches} on the main paths (no path calls "
           f"it); " + "; ".join(f"{tag} nms {p['nms']}, roi_align {p['roi']}" for tag, p in zip(
@@ -3659,12 +3993,16 @@ def main(argv) -> int:
         "name": "nms_exact_greedy", "route": "cuda", "source": NMS_SOURCE,
         "replaces": NMS_REPLACES, "launches": launches, "eval_launches": ev["launches"]["nms"],
         "train_launches": train["nms"], "tools_launches": tools["nms"],
-        "mesh_launches": mesh["nms"],
+        "mesh_launches": mesh["nms"], "bench_launches": bench_full["nms"],
         "max_abs_err": max(err1, err2, int8["nms_err"], ev["err"]["nms"], tr["nms_err"],
                            tl["err"]["nms"], mp["err"]["nms"], *(p["nms_err"] for p in paths),
-                           *(last[k]["nms_err"] for k in ("c12", "xla", "conv1_f32"))),
+                           *(last[k]["nms_err"] for k in ("c12", "xla", "conv1_f32")),
+                           p15["nms_err"], p15["path_errs"]["nms"]),
         "ms": nms_t["ms"], "device_us": nms_t["device_us"], "plain_ms": nms_t["plain_ms"],
-        "bound_ms": nms_b[0], "bound_by": nms_b[1], "library_ms": None}]
+        "bound_ms": nms_b[0], "bound_by": nms_b[1], "library_ms": None,
+        "large": {name: {k: t[k] for k in ("ms", "device_us", "passes", "plain_ms", "bound_ms",
+                                           "bound_by", "held_against")}
+                  for name, t in p15["nms_large"].items()}}]
     for entry, replaces in (("chain", CHAIN_REPLACES), ("strip", STRIP_REPLACES)):
         b_ms, b_by = int8_conv_bound(entry)
         records.append({
@@ -3673,9 +4011,11 @@ def main(argv) -> int:
             "eval_launches": ev["launches"][entry], "train_launches": train[entry],
             "tools_launches": tools[entry], "mesh_launches": mesh[entry],
             "conv1_2_launches": last["c12"]["launches"][entry],
+            "bench_launches": bench_full[entry],
             "max_abs_err": max(conv["err"][entry], int8["conv_err"][entry], ev["err"][entry],
                                tl["err"][entry], mp["err"][entry],
-                               last["c12"]["conv_err"][entry]),
+                               last["c12"]["conv_err"][entry],
+                               p15["path_errs"].get(entry, 0.0)),
             "ms": conv["ms"][entry], "plain_ms": conv["plain_ms"][entry],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": conv["library_ms"][entry],
             "c64": conv["c64"][entry]})
@@ -3691,7 +4031,8 @@ def main(argv) -> int:
             "tools_launches": tools["roi_align" if key == "roi" else "conv1"],
             "mesh_launches": mesh["roi_align" if key == "roi" else "conv1"],
             "max_abs_err": max(rec["err"], det["err"][key], ev["err"][key], tl["err"][key],
-                               mp["err"][key], *(p["roi_err"] for p in paths if key == "roi")),
+                               mp["err"][key], *(p["roi_err"] for p in paths if key == "roi"),
+                               p15["path_errs"].get(key, 0.0)),
             "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound"][0],
             "bound_by": rec["bound"][1], "library_ms": rec["library_ms"]})

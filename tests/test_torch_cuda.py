@@ -78,6 +78,8 @@ def _case(seed, bsz, n, dev, ties=True):
 @pytest.mark.parametrize("bsz,n,thresh,offset", [
     (1, 2048, 0.7, 1.0), (4, 1000, 0.5, 1.0), (3, 64, 0.3, 0.0), (1, 1, 0.5, 1.0),
     (2, 4097, 0.5, 1.0), (1, 8192, 0.7, 1.0), (1, 4096, 0.5, 1.0), (16, 4096, 0.5, 1.0),
+    # the large route (n_pad 16384 .. 32768)
+    (1, 8193, 0.5, 1.0), (1, 16384, 0.7, 1.0), (2, 20000, 0.5, 1.0), (1, 32768, 0.5, 0.0),
 ])
 def test_kernel_equals_plain(dev, bsz, n, thresh, offset):
     boxes, scores, valid = _case(bsz * 7 + n, bsz, n, dev)
@@ -121,10 +123,47 @@ def test_nms_topk_on_card_equals_cpu(dev):
         assert torch.equal(g.cpu(), w)
 
 
+def test_kernel_65536_equals_host_greedy(dev):
+    """The largest sort width, 1 x 65536, where the plain version's float
+    IoU matrices (17 GB each) do not fit: held against the host library's
+    greedy NMS on distinct scores (its tie order is not the folded key's)."""
+    n = nms_kernel.MAX_N
+    rng = np.random.RandomState(n)
+    xy = rng.uniform(0, 4000, (n, 2))
+    wh = rng.uniform(5, 300, (n, 2))
+    boxes = np.concatenate([xy, xy + wh], 1).astype(np.float32)
+    scores = rng.permutation(n).astype(np.float32) / n
+    got = tnms.nms_mask_batched(torch.from_numpy(boxes)[None].to(dev),
+                                torch.from_numpy(scores)[None].to(dev), 0.5)
+    want = np.zeros(n, bool)
+    want[tnms.nms(np.concatenate([boxes, scores[:, None]], 1), 0.5)] = True
+    np.testing.assert_array_equal(got[0].cpu().numpy(), want)
+    assert 0 < want.sum() < n
+
+
 def test_kernel_rejects_oversize(dev):
     boxes, scores, valid = _case(1, 1, nms_kernel.MAX_N + 1, dev, ties=False)
     with pytest.raises(ValueError, match="N <="):
         nms_kernel.nms_cuda_batched(boxes, scores, 0.5, valid)
+
+
+def test_wrappers_raise_where_jax_answers(dev):
+    """ROADMAP.md Queue C: the card's limits that the JAX package does not
+    have (``tests/test_torch_limits.py`` shows it answering): the fused
+    conv1 kernels above 64 channels, the float32 one at C not a multiple of
+    8, the ROI-align kernel above 16 bins (the int8 conv's multiple-of-8
+    rule: ``test_conv_int8_kernel_rejects``)."""
+    x = torch.zeros((1, 8, 6, 3), device=dev)
+    for c, dtype, match in ((96, torch.bfloat16, "at most 64 channels"),
+                            (20, torch.float32, "multiple of 8")):
+        w11, w12 = torch.zeros((c, 3, 3, 3), device=dev), torch.zeros((c, c, 3, 3), device=dev)
+        b = torch.zeros(c, device=dev)
+        with pytest.raises(ValueError, match=match):
+            tconv1.fused_conv1_pool(x.to(dtype), w11.to(dtype), b, w12.to(dtype), b)
+    feat = torch.zeros((12, 14, 8), device=dev)
+    rois = torch.tensor([[0.0, 0.0, 90.0, 90.0]], device=dev)
+    with pytest.raises(ValueError, match="pool_size"):
+        roi_align_kernel.roi_align_cuda(feat, rois, 1 / 16.0, 17, False)
 
 
 def _conv_case(seed, bsz, h, w, c, co, dev):

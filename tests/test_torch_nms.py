@@ -70,6 +70,18 @@ def test_plain_equals_fixpoint(n, offset):
         np.testing.assert_array_equal(got[b], want)
 
 
+def test_plain_equals_fixpoint_above_8192():
+    """N = 9000, above the kernel's shared-memory route: sparse boxes (a
+    20000-pixel extent) keep the suppression chains short, so the fixpoint
+    of both stays a few passes over the 9000 x 9000 matrix."""
+    boxes, scores, valid = _case(9000, 1, 9000, ties=4, extent=20000.0)
+    got = _plain(boxes, scores, valid, 0.5)
+    want = np.asarray(jnms.nms_mask(jnp.asarray(boxes[0]), jnp.asarray(scores[0]), 0.5,
+                                    valid=jnp.asarray(valid[0]), impl="fixpoint"))
+    np.testing.assert_array_equal(got[0], want)
+    assert 0 < got.sum() < valid.sum()
+
+
 def test_plain_equals_host_greedy():
     """Host greedy on the valid rows; its float sort does not fold
     subnormals, so it gets the scores flushed to zero, which is what the
@@ -160,36 +172,77 @@ def _simulate_rank_sort(key, n_pad):
     return rank
 
 
+def _simulate_rank_sort_large(key, n_pad, chunk):
+    """The large route's sort pass (``sort_kernel_large``) in numpy: the
+    same counts, taken chunk by chunk of ``chunk`` keys with the kernel's
+    bounds: in chunk ``c0`` the rows before ``min(i0, c0 + chunk)`` count
+    with <=, the tile (when it lies in the chunk) by key and index, the
+    rows from ``max(i0 + 64, c0)`` on with <."""
+    rank = np.zeros(n_pad, np.int64)
+    for c0 in range(0, n_pad, chunk):
+        keys = key[c0:c0 + chunk]
+        whole = np.sort(keys)
+        for i0 in range(0, n_pad, 64):
+            tile = np.arange(i0, i0 + 64)
+            ki = key[tile]
+            before = min(i0, c0 + chunk) - c0
+            after = max(i0 + 64, c0) - c0
+            if before > 0:
+                part = whole if before == chunk else np.sort(keys[:before])
+                rank[tile] += np.searchsorted(part, ki, side="right")
+            if c0 <= i0 < c0 + chunk:
+                kj = key[None, i0:i0 + 64]
+                earlier = tile[None, :] < tile[:, None]
+                rank[tile] += ((kj < ki[:, None]) | ((kj == ki[:, None]) & earlier)).sum(1)
+            if after < chunk:
+                part = whole if after == 0 else np.sort(keys[after:])
+                rank[tile] += np.searchsorted(part, ki, side="left")
+    return rank
+
+
 @pytest.mark.parametrize("n,n_pad", [(2048, 2048), (3000, 4096), (5000, 8192), (100, 128),
-                                     (40, 64)])
+                                     (40, 64), (8193, 16384), (20000, 32768),
+                                     (40000, 65536), (65536, 65536)])
 def test_rank_sort_is_a_stable_sort(n, n_pad):
     """The sort pass's counting, simulated, puts every row at its place in a
     stable sort of the folded keys: ties, +-0, subnormals (folded into one
-    key), -inf and invalid rows (the last key), padding rows after them."""
+    key), -inf and invalid rows (the last key), padding rows after them.
+    Above 8192 rows, the large route's chunked counting."""
     assert nms_kernel.sort_width(n) == n_pad
     boxes, scores, valid = _case(n + 17, 1, n)
     scores[0, 5:9] = [np.float32(1e-42), -np.inf, np.float32(-1e-42), 0.0]
     s = np.where(valid[0], scores[0], -np.inf).astype(np.float32)
     key = np.full(n_pad, tnms.KEY_NEG_INF, np.int64)
     key[:n] = tnms.score_keys(torch.from_numpy(s)).numpy()
-    rank = _simulate_rank_sort(key, n_pad)
+    if n_pad > nms_kernel.SMEM_MAX_N:
+        rank = _simulate_rank_sort_large(key, n_pad, nms_kernel.SORT_CHUNK)
+    else:
+        rank = _simulate_rank_sort(key, n_pad)
     order = np.full(n_pad, -1)
     order[rank] = np.arange(n_pad)
     np.testing.assert_array_equal(order, np.argsort(key, kind="stable"))
 
 
-@pytest.mark.parametrize("n_tiles", [1, 2, 32, 64, 128])
+@pytest.mark.parametrize("n_tiles", [1, 2, 32, 64, 128, 256, 512, 1024])
 def test_mask_blocks_cover_the_upper_triangle_once(n_tiles):
     """The mask pass launches one block per tile at or right of the diagonal
     (n_tiles (n_tiles + 1) / 2 of them): block ``col (col + 1) / 2 + row``
-    takes tile (row, col), as the kernel inverts the index, up to 128 tiles
-    a side (N = 8192)."""
-    tiles = [nms_kernel.triangle_tile(blk) for blk in range(n_tiles * (n_tiles + 1) // 2)]
-    assert tiles == [(rt, ct) for ct in range(n_tiles) for rt in range(ct + 1)]
+    takes tile (row, col), as the kernel inverts the index, up to 1024
+    tiles a side (N = 65536, the large route)."""
+    blocks = n_tiles * (n_tiles + 1) // 2
+    row, col = nms_kernel.triangle_tile(np.arange(blocks))
+    want_col = np.repeat(np.arange(n_tiles), np.arange(1, n_tiles + 1))
+    want_row = np.arange(blocks) - want_col * (want_col + 1) // 2
+    np.testing.assert_array_equal(col, want_col)
+    np.testing.assert_array_equal(row, want_row)
+    assert (row <= col).all()
+    if n_tiles <= 128:  # the scalar form, block by block
+        tiles = [nms_kernel.triangle_tile(blk) for blk in range(blocks)]
+        assert tiles == [(rt, ct) for ct in range(n_tiles) for rt in range(ct + 1)]
 
 
 def test_scratch_is_one_buffer_of_the_three_pieces():
-    for bsz, n_pad in [(1, 64), (16, 4096), (3, 8192)]:
+    for bsz, n_pad in [(1, 64), (16, 4096), (3, 8192), (1, 16384), (2, 32768), (1, 65536)]:
         words = n_pad // nms_kernel.TILE
         pieces = (bsz * n_pad * words * 8, bsz * n_pad * 16, bsz * n_pad * 4)
         assert nms_kernel.scratch_bytes(bsz, n_pad) == sum(pieces)
