@@ -23,6 +23,11 @@ Nets are built on the card (``device="cuda"``) unless ``device="cpu"`` is
 passed; without a card that default raises. Everything runs eagerly on
 ``Net.device``; there is no compile cache.
 
+Each entry call records its spans (``utils/profiling.py``) while a
+``torch.profiler`` session runs: a root (``propose``, ``detect``,
+``fused_detect``, ``im_propose``, ``im_detect``) with ``upload``,
+``preprocess``, ``trunk``, ``search``, ``heads`` and ``download`` under it.
+
 Int8 (``COMPUTE_DTYPE='int8'``, scales from ``ops/quant.py``): the trunk
 keeps float32 parameters and quantizes its int8 layers once at build time;
 the heads are cast to bf16 and, with ``INT8_HEAD_SCALES``, quantized once
@@ -45,6 +50,7 @@ from aznet_tpu_torch.ops.conv_int8 import quantize_acts
 from aznet_tpu_torch.ops.nms import nms_topk
 from aznet_tpu_torch.ops.preprocess import compute_scale, preprocess_image
 from aznet_tpu_torch.search.propose import az_search
+from aznet_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -157,13 +163,16 @@ def _maybe_quantize_feat(cfg: Config, feat: torch.Tensor) -> torch.Tensor:
 
 
 def _preprocess(cfg: Config, images, canvas_hw, src_hw=None, scales=None):
-    """Each raw image of ``images [B, H, W, 3]`` onto the canvas: a list of
-    ``(blob, im_scale, valid_hw)``."""
-    return [preprocess_image(
-        images[i], cfg.PIXEL_MEANS, cfg.TEST.SCALES[0], cfg.TEST.MAX_SIZE,
-        canvas_hw[0], canvas_hw[1], dtype=_blob_dtype(cfg),
-        src_hw=None if src_hw is None else src_hw[i],
-        scale=None if scales is None else scales[i]) for i in range(images.shape[0])]
+    """Each raw image of ``images [B, H, W, 3]`` onto the canvas, in a
+    ``preprocess`` span: ``(preps, blob)``, ``preps`` a list of ``(blob,
+    im_scale, valid_hw)`` and ``blob`` their blobs stacked ``[B, h, w, 3]``."""
+    with profiling.span("preprocess"):
+        preps = [preprocess_image(
+            images[i], cfg.PIXEL_MEANS, cfg.TEST.SCALES[0], cfg.TEST.MAX_SIZE,
+            canvas_hw[0], canvas_hw[1], dtype=_blob_dtype(cfg),
+            src_hw=None if src_hw is None else src_hw[i],
+            scale=None if scales is None else scales[i]) for i in range(images.shape[0])]
+        return preps, torch.stack([p[0] for p in preps])
 
 
 def _propose_images(model: AZNet, cfg: Config, images, canvas_hw, src_hw=None, scales=None,
@@ -173,16 +182,20 @@ def _propose_images(model: AZNet, cfg: Config, images, canvas_hw, src_hw=None, s
     then the search per image. ``roi_wrap``: a decorator of the search's
     per-level ``roi_forward(feat, rois)`` (the region-parallel path,
     ``parallel/inference.py::region_roi_wrap``)."""
-    preps = _preprocess(cfg, images, canvas_hw, src_hw, scales)
-    feats = _maybe_quantize_feat(cfg, model.features(torch.stack([p[0] for p in preps])))
-    roi_forward = model.roi_forward if roi_wrap is None else roi_wrap(model.roi_forward)
-    outs = []
-    for feat, (_, im_scale, valid_hw) in zip(feats, preps):
-        boxes, scores, valid = az_search(
-            roi_forward, feat, valid_hw, cfg.SEAR,
-            num_templates=cfg.MODEL.NUM_TEMPLATES, offset=cfg.BOX_OFFSET)
-        outs.append((boxes / im_scale, scores, valid))
-    return tuple(torch.stack(t) for t in zip(*outs))
+    with profiling.span("propose"):
+        preps, blob = _preprocess(cfg, images, canvas_hw, src_hw, scales)
+        with profiling.span("trunk"):
+            feats = _maybe_quantize_feat(cfg, model.features(blob))
+        # Looked up at call time: a caller may replace it on the instance.
+        roi_forward = model.roi_forward if roi_wrap is None else roi_wrap(model.roi_forward)
+        outs = []
+        for i, (feat, (_, im_scale, valid_hw)) in enumerate(zip(feats, preps)):
+            with profiling.span("search", image=i):
+                boxes, scores, valid = az_search(
+                    roi_forward, feat, valid_hw, cfg.SEAR,
+                    num_templates=cfg.MODEL.NUM_TEMPLATES, offset=cfg.BOX_OFFSET)
+                outs.append((boxes / im_scale, scores, valid))
+        return tuple(torch.stack(t) for t in zip(*outs))
 
 
 def _propose_core(model: AZNet, cfg: Config, image, canvas_hw, src_hw=None, scale=None):
@@ -213,16 +226,19 @@ def im_propose(net: Net, im: np.ndarray) -> np.ndarray:
     """Scored proposals ``float32 (N, 5) [x1, y1, x2, y2, score]`` for one raw
     BGR image, in its original coordinates."""
     cfg = net.cfg
-    image = torch.from_numpy(np.ascontiguousarray(im)).to(net.device)
-    if len(cfg.TEST.SCALES) > 1:
-        canvases = tuple(_canvas_for(im.shape[0], im.shape[1], _scale_cfg(cfg, t))
-                         for t in cfg.TEST.SCALES)
-        boxes, scores, valid = _propose_core_pyramid(net.model, cfg, image, canvases)
-    else:
-        canvas = _canvas_for(im.shape[0], im.shape[1], cfg)
-        boxes, scores, valid = _propose_core(net.model, cfg, image, canvas)
-    n = int(valid.sum())
-    return torch.cat([boxes[:n], scores[:n, None]], dim=1).float().cpu().numpy()
+    with profiling.span("im_propose"):
+        with profiling.span("upload"):
+            image = torch.from_numpy(np.ascontiguousarray(im)).to(net.device)
+        if len(cfg.TEST.SCALES) > 1:
+            canvases = tuple(_canvas_for(im.shape[0], im.shape[1], _scale_cfg(cfg, t))
+                             for t in cfg.TEST.SCALES)
+            boxes, scores, valid = _propose_core_pyramid(net.model, cfg, image, canvases)
+        else:
+            canvas = _canvas_for(im.shape[0], im.shape[1], cfg)
+            boxes, scores, valid = _propose_core(net.model, cfg, image, canvas)
+        with profiling.span("download"):
+            n = int(valid.sum())
+            return torch.cat([boxes[:n], scores[:n, None]], dim=1).float().cpu().numpy()
 
 
 def make_propose_batch(model: AZNet, cfg: Config, canvas_hw, roi_wrap=None):
@@ -309,14 +325,18 @@ def _detect_images(model: FRCNN, cfg: Config, images, boxes, canvas_hw, src_hw=N
     """Raw ``images [B, H, W, 3]`` and ``boxes [B, R, 4]`` (original
     coordinates) -> ``(scores [B, R, K], pred_boxes [B, R, 4K])``: ONE trunk
     call on the batch, then the head per image."""
-    preps = _preprocess(cfg, images, canvas_hw, src_hw, scales)
-    feats = _maybe_quantize_feat(cfg, model.features(torch.stack([p[0] for p in preps])))
-    outs = []
-    for i, (feat, (_, im_scale, _)) in enumerate(zip(feats, preps)):
-        raw_hw = (float(images.shape[1]), float(images.shape[2])) if src_hw is None else src_hw[i]
-        outs.append(_detect_rois(model, cfg, feat, boxes[i], boxes[i] * im_scale, im_scale,
-                                 raw_hw))
-    return tuple(torch.stack(t) for t in zip(*outs))
+    with profiling.span("detect"):
+        preps, blob = _preprocess(cfg, images, canvas_hw, src_hw, scales)
+        with profiling.span("trunk"):
+            feats = _maybe_quantize_feat(cfg, model.features(blob))
+        outs = []
+        for i, (feat, (_, im_scale, _)) in enumerate(zip(feats, preps)):
+            raw_hw = ((float(images.shape[1]), float(images.shape[2])) if src_hw is None
+                      else src_hw[i])
+            with profiling.span("heads", image=i):
+                outs.append(_detect_rois(model, cfg, feat, boxes[i], boxes[i] * im_scale,
+                                         im_scale, raw_hw))
+        return tuple(torch.stack(t) for t in zip(*outs))
 
 
 def _detect_core_pyramid(model: FRCNN, cfg: Config, image, boxes, canvases):
@@ -350,17 +370,21 @@ def im_detect(net: Net, im: np.ndarray, boxes: np.ndarray):
     4K))`` float32 NumPy. Several ``TEST.SCALES`` run the image pyramid.
     Rows are independent, so no padding of R is needed."""
     cfg = net.cfg
-    image = torch.from_numpy(np.ascontiguousarray(im)).to(net.device)
-    rois = torch.from_numpy(np.ascontiguousarray(boxes[:, :4], dtype=np.float32)).to(net.device)
-    if len(cfg.TEST.SCALES) > 1:
-        canvases = tuple(_canvas_for(im.shape[0], im.shape[1], _scale_cfg(cfg, t))
-                         for t in cfg.TEST.SCALES)
-        scores, pred = _detect_core_pyramid(net.model, cfg, image, rois, canvases)
-    else:
-        canvas = _canvas_for(im.shape[0], im.shape[1], cfg)
-        scores, pred = (t[0] for t in _detect_images(net.model, cfg, image[None], rois[None],
-                                                     canvas))
-    return scores.float().cpu().numpy(), pred.float().cpu().numpy()
+    with profiling.span("im_detect"):
+        with profiling.span("upload"):
+            image = torch.from_numpy(np.ascontiguousarray(im)).to(net.device)
+            rois = torch.from_numpy(np.ascontiguousarray(boxes[:, :4], dtype=np.float32)).to(
+                net.device)
+        if len(cfg.TEST.SCALES) > 1:
+            canvases = tuple(_canvas_for(im.shape[0], im.shape[1], _scale_cfg(cfg, t))
+                             for t in cfg.TEST.SCALES)
+            scores, pred = _detect_core_pyramid(net.model, cfg, image, rois, canvases)
+        else:
+            canvas = _canvas_for(im.shape[0], im.shape[1], cfg)
+            scores, pred = (t[0] for t in _detect_images(net.model, cfg, image[None],
+                                                         rois[None], canvas))
+        with profiling.span("download"):
+            return scores.float().cpu().numpy(), pred.float().cpu().numpy()
 
 
 def make_detect_batch(model: FRCNN, cfg: Config, canvas_hw):
@@ -398,20 +422,24 @@ def make_fused_detect_batch_padded(az_model: AZNet, frcnn_model: FRCNN, cfg_az: 
 
     @torch.inference_mode()
     def fn(images, src_hw, scales):
-        preps = _preprocess(cfg_az, images, canvas_hw, src_hw, scales)
-        feats = az_model.features(torch.stack([p[0] for p in preps]))
-        # Each net quantizes at its own calibrated scale (INT8_ROI).
-        feats_az = _maybe_quantize_feat(cfg_az, feats)
-        feats_fr = _maybe_quantize_feat(cfg_fr, feats)
-        outs = []
-        for i, (_, im_scale, valid_hw) in enumerate(preps):
-            boxes, p_scores, valid = az_search(
-                az_model.roi_forward, feats_az[i], valid_hw, cfg_az.SEAR,
-                num_templates=cfg_az.MODEL.NUM_TEMPLATES, offset=cfg_az.BOX_OFFSET)
-            orig = boxes / im_scale
-            det_scores, det_boxes = _detect_rois(frcnn_model, cfg_fr, feats_fr[i], orig, boxes,
-                                                 im_scale, src_hw[i])
-            outs.append((orig, p_scores, valid, det_scores, det_boxes))
-        return tuple(torch.stack(t) for t in zip(*outs))
+        with profiling.span("fused_detect"):
+            preps, blob = _preprocess(cfg_az, images, canvas_hw, src_hw, scales)
+            with profiling.span("trunk"):
+                feats = az_model.features(blob)
+                # Each net quantizes at its own calibrated scale (INT8_ROI).
+                feats_az = _maybe_quantize_feat(cfg_az, feats)
+                feats_fr = _maybe_quantize_feat(cfg_fr, feats)
+            outs = []
+            for i, (_, im_scale, valid_hw) in enumerate(preps):
+                with profiling.span("search", image=i):
+                    boxes, p_scores, valid = az_search(
+                        az_model.roi_forward, feats_az[i], valid_hw, cfg_az.SEAR,
+                        num_templates=cfg_az.MODEL.NUM_TEMPLATES, offset=cfg_az.BOX_OFFSET)
+                    orig = boxes / im_scale
+                with profiling.span("heads", image=i):
+                    det_scores, det_boxes = _detect_rois(frcnn_model, cfg_fr, feats_fr[i], orig,
+                                                         boxes, im_scale, src_hw[i])
+                outs.append((orig, p_scores, valid, det_scores, det_boxes))
+            return tuple(torch.stack(t) for t in zip(*outs))
 
     return fn

@@ -9,6 +9,12 @@ shapes; the steady-state tail is a Python loop that stops when no frontier
 row is valid. The candidates are capped at CAND_BUF by score and go through
 exact greedy NMS to the top NUM_PROPOSALS.
 
+Spans (``utils/profiling.py``, recorded only under ``torch.profiler``): a
+``search.level`` per level run (``level``, and ``rows``, the padded frontier
+rows the head evaluates), a ``search.sync`` around each host read of the
+card (the tail's frontier check), and ``search.select`` around the
+candidate cap and NMS.
+
 Two sentinels, as in the reference: the search pads scores with the finite
 ``NEG_INF = -1e30`` (no inf - inf hazards), while NMS masks with -inf.
 """
@@ -31,6 +37,7 @@ from aznet_tpu_torch.search.templates import (
     divide_regions,
     template_boxes,
 )
+from aznet_tpu_torch.utils import profiling
 
 NEG_INF = -1e30
 
@@ -133,7 +140,8 @@ def az_search(roi_forward: Callable, feat: torch.Tensor, im_hw, scfg: SearchConf
         if collect_frontier:
             vis_b[lvl, :f_boxes.shape[0]] = f_boxes
             vis_v[lvl, :f_boxes.shape[0]] = f_valid
-        b, s, f_boxes, f_valid = level_step(f_boxes, f_valid, next_cap)
+        with profiling.span("search.level", level=lvl, rows=f_boxes.shape[0]):
+            b, s, f_boxes, f_valid = level_step(f_boxes, f_valid, next_cap)
         cand_b.append(b)
         cand_s.append(s)
         lvl += 1
@@ -146,27 +154,31 @@ def az_search(roi_forward: Callable, feat: torch.Tensor, im_hw, scfg: SearchConf
         tail_b = torch.zeros((rem * per_level, 4), dtype=torch.float32, device=dev)
         tail_s = torch.full((rem * per_level,), NEG_INF, dtype=torch.float32, device=dev)
         for level in range(rem):
-            if not bool(f_valid.any()):
+            with profiling.span("search.sync"):
+                any_valid = bool(f_valid.any())
+            if not any_valid:
                 break
             if collect_frontier:
                 vis_b[lvl + level] = f_boxes
                 vis_v[lvl + level] = f_valid
-            b, s, f_boxes, f_valid = level_step(f_boxes, f_valid, r_cap)
-            tail_b[level * per_level:(level + 1) * per_level] = b
-            tail_s[level * per_level:(level + 1) * per_level] = s
+            with profiling.span("search.level", level=lvl + level, rows=r_cap):
+                b, s, f_boxes, f_valid = level_step(f_boxes, f_valid, r_cap)
+                tail_b[level * per_level:(level + 1) * per_level] = b
+                tail_s[level * per_level:(level + 1) * per_level] = s
         cand_b.append(tail_b)
         cand_s.append(tail_s)
 
-    c_boxes = torch.cat(cand_b)
-    c_scores = torch.cat(cand_s)
-    if c_scores.shape[0] > scfg.CAND_BUF:  # the one lossy step: cap by score
-        c_scores, idx = top_k(c_scores, scfg.CAND_BUF)
-        c_boxes = c_boxes[idx]
+    with profiling.span("search.select"):
+        c_boxes = torch.cat(cand_b)
+        c_scores = torch.cat(cand_s)
+        if c_scores.shape[0] > scfg.CAND_BUF:  # the one lossy step: cap by score
+            c_scores, idx = top_k(c_scores, scfg.CAND_BUF)
+            c_boxes = c_boxes[idx]
 
-    final_scores = torch.where(c_scores >= scfg.CONF_THRESH, c_scores, NEG_INF)
-    live = final_scores > NEG_INF
-    out = nms_topk(c_boxes, final_scores, scfg.NMS_THRESH, scfg.NUM_PROPOSALS,
-                   valid=live, offset=offset)
+        final_scores = torch.where(c_scores >= scfg.CONF_THRESH, c_scores, NEG_INF)
+        live = final_scores > NEG_INF
+        out = nms_topk(c_boxes, final_scores, scfg.NMS_THRESH, scfg.NUM_PROPOSALS,
+                       valid=live, offset=offset)
     if collect_frontier:
         return (*out, vis_b.reshape(-1, 4), vis_v.reshape(-1))
     return out

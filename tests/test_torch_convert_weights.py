@@ -188,11 +188,26 @@ def test_trace_writes_a_chrome_trace(tmp_path):
     import json
 
     with profiling.trace(str(tmp_path / "tb")) as prof:
-        torch.ones(64, 64).matmul(torch.ones(64, 64))
+        with profiling.span("outer"):
+            with profiling.span("inner", image=0):
+                torch.ones(64, 64).matmul(torch.ones(64, 64))
     with open(tmp_path / "tb" / "trace.json") as f:
         events = json.load(f)["traceEvents"]
     assert any("mm" in e.get("name", "") for e in events)
     assert any("mm" in e.key for e in prof.key_averages())
+    # The spans recorded while the trace ran, on the perf_counter_ns clock.
+    with open(tmp_path / "tb" / "spans.json") as f:
+        record = json.load(f)
+    assert record["dropped"] == 0 and record["profiler_offset_ns"] is None  # no card
+    inner, outer = record["spans"]
+    assert (outer["name"], outer["parent"], outer["call"]) == ("outer", None, outer["id"])
+    assert (inner["name"], inner["parent"], inner["call"]) == ("inner", outer["id"], outer["id"])
+    assert inner["attrs"] == {"image": 0}
+    assert outer["start"] <= inner["start"] <= inner["end"] <= outer["end"]
+    with profiling.trace(str(tmp_path / "tb2")):
+        pass
+    with open(tmp_path / "tb2" / "spans.json") as f:
+        assert json.load(f)["spans"] == []  # only the spans of its own session
 
 
 def test_device_memory_stats_without_a_card(monkeypatch):

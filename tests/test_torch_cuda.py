@@ -896,3 +896,35 @@ def test_prefetch_workers_leave_cuda_uninitialised(dev):
     for env in pf.worker_env.values():
         assert (env["jax_imported"], env["cuda_initialized"],
                 env["cuda_visible_devices"]) == (False, False, ""), env
+
+
+def test_trace_puts_the_spans_on_the_profiler_clock(dev, tmp_path):
+    """``profiling.trace``'s ``spans.json`` on a card: the marker kernel's
+    offset takes a span onto ``trace.json``'s clock, where every kernel but
+    the marker (the matmul and the sum the span launched and waited for)
+    lies inside it."""
+    import json
+    import time
+
+    from aznet_tpu_torch.utils import profiling
+
+    x = torch.randn(2048, 2048, device=dev)
+    (x @ x).sum().item()  # cuBLAS loaded before the trace
+    with profiling.trace(str(tmp_path)):
+        with profiling.span("outer"):
+            time.sleep(0.002)  # the host alone: the kernels lie in "inner" only
+            with profiling.span("inner", rows=2048):
+                (x @ x).sum()
+                torch.cuda.synchronize()
+    record = json.loads((tmp_path / "spans.json").read_text())
+    chrome = json.loads((tmp_path / "trace.json").read_text())
+    offset, base = record["profiler_offset_ns"], chrome["baseTimeNanoseconds"]
+    assert isinstance(offset, int) and record["dropped"] == 0
+    inner = next(s for s in record["spans"] if s["name"] == "inner")
+    kernels = [e for e in chrome["traceEvents"]
+               if e.get("cat") == "kernel" and "spin" not in e["name"].lower()]
+    assert kernels
+    for e in kernels:
+        start = e["ts"] * 1000 + base - offset
+        end = start + e["dur"] * 1000
+        assert inner["start"] - 100e3 < start and end < inner["end"] + 100e3, (e["name"], inner)

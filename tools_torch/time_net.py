@@ -77,7 +77,7 @@ def main(argv=None) -> int:
     model = net.model
 
     def prep(x):
-        return torch.stack([blob for blob, _, _ in api._preprocess(cfg, x, canvas)])
+        return api._preprocess(cfg, x, canvas)[1]
 
     def trunk(x):
         return api._maybe_quantize_feat(cfg, model.features(x))
