@@ -4,10 +4,15 @@
 Per level: the head on the padded frontier, decode K adjacency candidates
 per region, divide the regions whose zoom score passes into 5 children, and
 keep the top ``next_cap`` children by parent zoom. The early levels, whose
-lossless capacity is below FRONTIER_CAP, are unrolled with their own
-shapes; the steady-state tail is a Python loop that stops when no frontier
-row is valid. The candidates are capped at CAND_BUF by score and go through
-exact greedy NMS to the top NUM_PROPOSALS.
+lossless capacity is below FRONTIER_CAP, run at their own shapes; the
+steady-state tail stops when no frontier row is valid. Every level writes
+its candidates into one buffer at fixed rows (:func:`candidate_starts`);
+they are capped at CAND_BUF by score and go through exact greedy NMS to the
+top NUM_PROPOSALS.
+
+After the head, a level is :func:`level_step` (plain PyTorch, on the CPU)
+or, for features on the card, one launch of ``csrc/search_level.cu``
+(``ops/cuda/search_level_kernel.py``), equal to it bit for bit.
 
 Spans (``utils/profiling.py``, recorded only under ``torch.profiler``): a
 ``search.level`` per level run (``level``, and ``rows``, the padded frontier
@@ -21,18 +26,21 @@ Two sentinels, as in the reference: the search pads scores with the finite
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+import functools
+from typing import Callable, NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from aznet_tpu_torch.config import SearchConfig
 from aznet_tpu_torch.ops.boxes import bbox_transform_inv, clip_boxes
+from aznet_tpu_torch.ops.cuda.search_level_kernel import search_level_cuda
 from aznet_tpu_torch.ops.nms import nms_topk
 from aznet_tpu_torch.ops.topk import top_k
 from aznet_tpu_torch.search.templates import (
     NUM_DIVISIONS,
     _apply_normalized,
-    adjacency_templates,
+    adjacency_templates_np,
     division_table,
     divide_regions,
     template_boxes,
@@ -82,6 +90,147 @@ def init_frontier(im_h, im_w, scfg: SearchConfig, offset: float = 1.0,
     return boxes, torch.arange(r, device=device) < n
 
 
+
+
+def candidate_starts(scfg: SearchConfig, num_templates: int = 11):
+    """``(starts, total)``: the candidate buffer's first row of each level's
+    R * K candidates, and its length. The levels in order at their frontier
+    widths (the unrolled prefix at its own, the tail at FRONTIER_CAP), which
+    is the order and layout in which the reference concatenates them."""
+    starts, total = [], 0
+    for cap in frontier_schedule(scfg):
+        starts.append(total)
+        total += cap * num_templates
+    return tuple(starts), total
+
+
+class LevelConsts(NamedTuple):
+    """What every level of one search shares (:func:`level_consts`)."""
+
+    templates: torch.Tensor  # [K, 4] float32 on the features' device
+    divisions: torch.Tensor  # [5, 4] float32 on the features' device
+    templates_np: np.ndarray  # the same tables as NumPy, which the kernel
+    divisions_np: np.ndarray  # takes by value
+    extent: torch.Tensor  # [2] float32 on the features' device: the valid (h, w)
+    offset: float
+    zoom_thresh: float
+    min_size: float
+    clip: float | None  # BBOX_XFORM_CLIP
+
+
+@functools.lru_cache(maxsize=None)
+def _device_tables(num_templates: int, div_overlap: float, device: torch.device):
+    """The template and division tables on ``device``, copied once a process
+    (as normal tensors, though the first search may run in inference mode)."""
+    with torch.inference_mode(False):
+        return (torch.as_tensor(adjacency_templates_np(num_templates), device=device),
+                torch.as_tensor(division_table(div_overlap), device=device))
+
+
+def level_consts(scfg: SearchConfig, num_templates: int, extent: torch.Tensor,
+                 offset: float = 1.0) -> LevelConsts:
+    """The constants of one search whose valid ``extent [2]`` (h, w) lies on
+    the features' device."""
+    templates, divisions = _device_tables(num_templates, scfg.DIV_OVERLAP, extent.device)
+    return LevelConsts(templates, divisions, adjacency_templates_np(num_templates),
+                       division_table(scfg.DIV_OVERLAP), extent, offset, scfg.ZOOM_THRESH,
+                       scfg.MIN_SIZE, scfg.BBOX_XFORM_CLIP)
+
+
+def level_step(out: dict, f_boxes, f_valid, next_cap: int, c: LevelConsts):
+    """One level after the head, the plain version: the head's logits
+    ``out`` on the frontier ``f_boxes [R, 4]`` / ``f_valid [R]`` -> the
+    candidates ``(boxes [R*K, 4], scores [R*K])`` and the next frontier
+    ``(boxes [next_cap, 4], valid [next_cap])``."""
+    im_hw = (c.extent[0], c.extent[1])
+    zoom_p = torch.sigmoid(out["zoom"])
+    adj_p = torch.sigmoid(out["adj_score"])
+    anchors = template_boxes(f_boxes, c.templates, c.offset)
+    boxes = bbox_transform_inv(anchors, out["adj_delta"], c.offset, clip=c.clip)
+    boxes = clip_boxes(boxes, im_hw, c.offset)
+    scores = torch.where(f_valid[:, None], adj_p, NEG_INF)
+
+    children = _apply_normalized(f_boxes, c.divisions, c.offset)  # [R, 5, 4]
+    cw = children[..., 2] - children[..., 0] + c.offset
+    ch = children[..., 3] - children[..., 1] + c.offset
+    parent_ok = f_valid & (zoom_p > c.zoom_thresh)
+    child_ok = parent_ok[:, None] & (torch.minimum(cw, ch) >= c.min_size)
+    priority = torch.where(child_ok, zoom_p[:, None], NEG_INF).reshape(-1)
+    cboxes = children.reshape(-1, 4)
+    if next_cap > priority.shape[0]:  # the schedule grows at most 5x
+        pad = next_cap - priority.shape[0]
+        priority = torch.nn.functional.pad(priority, (0, pad), value=NEG_INF)
+        cboxes = torch.nn.functional.pad(cboxes, (0, 0, 0, pad))
+    # Ties are certain here (a parent's five children share its zoom
+    # score); top_k keeps the lower index first, as jax.lax.top_k.
+    top_p, top_i = top_k(priority, next_cap)
+    return boxes.reshape(-1, 4), scores.reshape(-1), cboxes[top_i], top_p > NEG_INF
+
+
+def level_plain(out: dict, f_boxes, f_valid, next_cap: int, c: LevelConsts,
+                cand_boxes, cand_scores, start: int):
+    """:func:`level_step` with its candidates written into rows ``start ..``
+    of the candidate buffers; returns the next frontier."""
+    boxes, scores, next_boxes, next_valid = level_step(out, f_boxes, f_valid, next_cap, c)
+    cand_boxes[start:start + boxes.shape[0]] = boxes
+    cand_scores[start:start + scores.shape[0]] = scores
+    return next_boxes, next_valid
+
+
+def level_cuda(out: dict, f_boxes, f_valid, next_cap: int, c: LevelConsts,
+               cand_boxes, cand_scores, start: int):
+    """:func:`level_plain` on the card: one launch of ``csrc/search_level.cu``."""
+    return search_level_cuda(out["zoom"], out["adj_score"], out["adj_delta"], f_boxes, f_valid,
+                             c.extent, c.templates_np, c.divisions_np, next_cap, cand_boxes,
+                             cand_scores, start, offset=c.offset, zoom_thresh=c.zoom_thresh,
+                             min_size=c.min_size, clip=c.clip, neg_inf=NEG_INF)
+
+
+def search_candidates(roi_forward: Callable, feat: torch.Tensor, im_hw, scfg: SearchConfig,
+                      num_templates: int = 11, offset: float = 1.0,
+                      collect_frontier: bool = False):
+    """Every level of the search over ``feat``: ``(cand_boxes [T, 4],
+    cand_scores [T])`` in the layout of :func:`candidate_starts` (the slots
+    of levels not run stay zero boxes at NEG_INF), then, with
+    ``collect_frontier``, ``visited`` and ``visited_valid`` as
+    :func:`az_search` returns them. A level after the head is
+    :func:`level_cuda` where ``feat`` is a CUDA tensor, else
+    :func:`level_plain`."""
+    dev = feat.device
+    r_cap = scfg.FRONTIER_CAP
+    im_h = torch.as_tensor(im_hw[0], dtype=torch.float32, device=dev)
+    im_w = torch.as_tensor(im_hw[1], dtype=torch.float32, device=dev)
+    sched = frontier_schedule(scfg)
+    starts, total = candidate_starts(scfg, num_templates)
+    consts = level_consts(scfg, num_templates, torch.stack([im_h, im_w]), offset)
+    step = level_cuda if feat.is_cuda else level_plain
+    cand_boxes = torch.zeros((total, 4), dtype=torch.float32, device=dev)
+    cand_scores = torch.full((total,), NEG_INF, dtype=torch.float32, device=dev)
+    f_boxes, f_valid = init_frontier(im_h, im_w, scfg, offset, cap=sched[0])
+    if collect_frontier:
+        vis_b = torch.zeros((scfg.MAX_LEVELS, r_cap, 4), dtype=torch.float32, device=dev)
+        vis_v = torch.zeros((scfg.MAX_LEVELS, r_cap), dtype=torch.bool, device=dev)
+    for lvl, cap in enumerate(sched):
+        # The early levels below FRONTIER_CAP run unconditionally; the
+        # steady-state tail stops when no frontier row is valid.
+        if cap == r_cap:
+            with profiling.span("search.sync"):
+                any_valid = bool(f_valid.any())
+            if not any_valid:
+                break
+        next_cap = sched[lvl + 1] if lvl + 1 < len(sched) else cap
+        if collect_frontier:
+            vis_b[lvl, :cap] = f_boxes
+            vis_v[lvl, :cap] = f_valid
+        with profiling.span("search.level", level=lvl, rows=cap):
+            out = roi_forward(feat, f_boxes)
+            f_boxes, f_valid = step(out, f_boxes, f_valid, next_cap, consts,
+                                    cand_boxes, cand_scores, starts[lvl])
+    if collect_frontier:
+        return cand_boxes, cand_scores, vis_b.reshape(-1, 4), vis_v.reshape(-1)
+    return cand_boxes, cand_scores
+
+
 def az_search(roi_forward: Callable, feat: torch.Tensor, im_hw, scfg: SearchConfig,
               num_templates: int = 11, offset: float = 1.0,
               collect_frontier: bool = False):
@@ -96,81 +245,9 @@ def az_search(roi_forward: Callable, feat: torch.Tensor, im_hw, scfg: SearchConf
     reference's layout: one block of FRONTIER_CAP rows per level (a level of
     the unrolled prefix padded with zero rows), zero from the level where the
     frontier emptied."""
-    dev = feat.device
-    r_cap = scfg.FRONTIER_CAP
-    templates = adjacency_templates(num_templates, device=dev)
-    divisions = torch.as_tensor(division_table(scfg.DIV_OVERLAP), device=dev)
-    im_h = torch.as_tensor(im_hw[0], dtype=torch.float32, device=dev)
-    im_w = torch.as_tensor(im_hw[1], dtype=torch.float32, device=dev)
-    sched = frontier_schedule(scfg)
-
-    def level_step(f_boxes, f_valid, next_cap):
-        out = roi_forward(feat, f_boxes)
-        zoom_p = torch.sigmoid(out["zoom"])
-        adj_p = torch.sigmoid(out["adj_score"])
-        anchors = template_boxes(f_boxes, templates, offset)
-        boxes = bbox_transform_inv(anchors, out["adj_delta"], offset, clip=scfg.BBOX_XFORM_CLIP)
-        boxes = clip_boxes(boxes, (im_h, im_w), offset)
-        scores = torch.where(f_valid[:, None], adj_p, NEG_INF)
-
-        children = _apply_normalized(f_boxes, divisions, offset)  # [R, 5, 4]
-        cw = children[..., 2] - children[..., 0] + offset
-        ch = children[..., 3] - children[..., 1] + offset
-        parent_ok = f_valid & (zoom_p > scfg.ZOOM_THRESH)
-        child_ok = parent_ok[:, None] & (torch.minimum(cw, ch) >= scfg.MIN_SIZE)
-        priority = torch.where(child_ok, zoom_p[:, None], NEG_INF).reshape(-1)
-        cboxes = children.reshape(-1, 4)
-        if next_cap > priority.shape[0]:  # the schedule grows at most 5x
-            pad = next_cap - priority.shape[0]
-            priority = torch.nn.functional.pad(priority, (0, pad), value=NEG_INF)
-            cboxes = torch.nn.functional.pad(cboxes, (0, 0, 0, pad))
-        # Ties are certain here (a parent's five children share its zoom
-        # score); top_k keeps the lower index first, as jax.lax.top_k.
-        top_p, top_i = top_k(priority, next_cap)
-        return boxes.reshape(-1, 4), scores.reshape(-1), cboxes[top_i], top_p > NEG_INF
-
-    f_boxes, f_valid = init_frontier(im_h, im_w, scfg, offset, cap=sched[0])
-    cand_b, cand_s = [], []
-    if collect_frontier:
-        vis_b = torch.zeros((scfg.MAX_LEVELS, r_cap, 4), dtype=torch.float32, device=dev)
-        vis_v = torch.zeros((scfg.MAX_LEVELS, r_cap), dtype=torch.bool, device=dev)
-    lvl = 0
-    while lvl < scfg.MAX_LEVELS and sched[lvl] != r_cap:
-        next_cap = sched[lvl + 1] if lvl + 1 < scfg.MAX_LEVELS else sched[lvl]
-        if collect_frontier:
-            vis_b[lvl, :f_boxes.shape[0]] = f_boxes
-            vis_v[lvl, :f_boxes.shape[0]] = f_valid
-        with profiling.span("search.level", level=lvl, rows=f_boxes.shape[0]):
-            b, s, f_boxes, f_valid = level_step(f_boxes, f_valid, next_cap)
-        cand_b.append(b)
-        cand_s.append(s)
-        lvl += 1
-
-    # Steady-state tail: one slot per (level, region, template), filled until
-    # the frontier empties; unfilled levels stay at NEG_INF.
-    rem = scfg.MAX_LEVELS - lvl
-    if rem > 0:
-        per_level = r_cap * num_templates
-        tail_b = torch.zeros((rem * per_level, 4), dtype=torch.float32, device=dev)
-        tail_s = torch.full((rem * per_level,), NEG_INF, dtype=torch.float32, device=dev)
-        for level in range(rem):
-            with profiling.span("search.sync"):
-                any_valid = bool(f_valid.any())
-            if not any_valid:
-                break
-            if collect_frontier:
-                vis_b[lvl + level] = f_boxes
-                vis_v[lvl + level] = f_valid
-            with profiling.span("search.level", level=lvl + level, rows=r_cap):
-                b, s, f_boxes, f_valid = level_step(f_boxes, f_valid, r_cap)
-                tail_b[level * per_level:(level + 1) * per_level] = b
-                tail_s[level * per_level:(level + 1) * per_level] = s
-        cand_b.append(tail_b)
-        cand_s.append(tail_s)
-
+    c_boxes, c_scores, *visited = search_candidates(
+        roi_forward, feat, im_hw, scfg, num_templates, offset, collect_frontier)
     with profiling.span("search.select"):
-        c_boxes = torch.cat(cand_b)
-        c_scores = torch.cat(cand_s)
         if c_scores.shape[0] > scfg.CAND_BUF:  # the one lossy step: cap by score
             c_scores, idx = top_k(c_scores, scfg.CAND_BUF)
             c_boxes = c_boxes[idx]
@@ -179,6 +256,4 @@ def az_search(roi_forward: Callable, feat: torch.Tensor, im_hw, scfg: SearchConf
         live = final_scores > NEG_INF
         out = nms_topk(c_boxes, final_scores, scfg.NMS_THRESH, scfg.NUM_PROPOSALS,
                        valid=live, offset=offset)
-    if collect_frontier:
-        return (*out, vis_b.reshape(-1, 4), vis_v.reshape(-1))
-    return out
+    return (*out, *visited)

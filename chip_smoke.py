@@ -5,7 +5,7 @@
 
 1. Builds the CUDA kernels from ``aznet_tpu_torch/csrc`` (into the
    git-ignored ``build/``): NMS, the int8 conv, ROI align, fused conv1
-   (bf16 and float32), IoU.
+   (bf16 and float32), IoU, the search level.
 2. Phase 1: holds the kernel's keep masks against its plain PyTorch version
    on the card, bit for bit: the search's shape (1 x 2048, IoU 0.7), the
    16 x 4096 stream shape (boxes uniform in [0, 2000] plus wh in [5, 300],
@@ -219,10 +219,20 @@
    set to 0 just before each tool and read just after; the first launch of
    each kernel a tool makes is held against its plain version.
 
+The search-level kernel (``csrc/search_level.cu``, one launch a level of
+every search on the card) runs in every phase that searches: its count is
+set to 0 and read with the others' (phases 2, 4, 6, 8-13, 14a-c, 15), and the levels of
+the first search of each path (phases 2, 4, 6, 8-10, 12-15; the first
+harvest in 11) are held bit for bit against ``search/propose.py::
+level_plain`` on the card, on the inputs the path gave the kernel. Phase 5
+also holds it alone at R = 64 and 128 and times it beside the plain version
+and its bound.
+
 Prints the card's name and power limit, one JSON line of kernel records
 (each with its bound, library yardstick and launches on the eval path, in
 training, in the tools and on the mesh paths; the int8 conv's with its C=64
-layer and its launches from conv1_2, and the float32 conv1's), and,
+layer and its launches from conv1_2, the float32 conv1's, and the search
+level's, whose yardstick is its plain version, not a library), and,
 as the last line, ``{"ok": true, "device": {...}}``. Exits non-zero at the first failure and
 when no CUDA device is present. Imports no JAX and nothing of ``aznet_tpu``.
 
@@ -272,6 +282,13 @@ kernel's storing loop (``cuobjdump -sass`` of the library built from ROOT;
 the SASS goes to ``build/iou_sass_<ROOT>.txt``), then times 4096 x 4095
 and 4096 x 4096 again in four sessions each, every session's output at a
 new address.
+
+    python3 chip_smoke.py --search-level-times [ROOT]
+
+times one search level after the head, the kernel (``csrc/search_level.cu``)
+and the plain version on the card, at the benchmark configurations' schedule
+steps (device time and launches per call, CUDA-event and host time), each
+first held bit for bit.
 """
 
 from __future__ import annotations
@@ -296,6 +313,10 @@ CONV1_F32_SOURCE = "aznet_tpu_torch/csrc/conv1_fused_f32.cu"
 CONV1_REPLACES = "aznet_tpu/ops/pallas/conv1_kernel.py:132"
 IOU_SOURCE = "aznet_tpu_torch/csrc/iou.cu"
 IOU_REPLACES = "aznet_tpu/ops/pallas/iou_kernel.py:43"
+SEARCH_LEVEL_SOURCE = "aznet_tpu_torch/csrc/search_level.cu"
+SEARCH_LEVEL_PLAIN = "aznet_tpu_torch/search/propose.py::level_plain"
+# (R, next_cap) of the benchmark configurations' search levels.
+SEARCH_LEVEL_STEPS = ((8, 32), (32, 64), (32, 128), (64, 64), (128, 128))
 BATCH = 2
 RAW_HW = (375, 500)
 CANVAS = (608, 800)
@@ -560,18 +581,90 @@ def nms_path_err(recorded):
     return err
 
 
+@contextlib.contextmanager
+def recording_search_level(recorded):
+    """Copies the inputs and results of the search-level kernel's launches
+    in the first search while active, as one record ``("search_level",
+    [level, ...], None)``; later searches run untouched (the count is kept
+    by the wrapper itself). The head's logits keep their strides."""
+    import torch
+
+    from aznet_tpu_torch.search import propose
+
+    real, levels, searches = propose.level_cuda, [], []
+
+    def same_layout(t):
+        return torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                                   device=t.device).copy_(t)
+
+    def level(out, f_boxes, f_valid, next_cap, consts, cand_boxes, cand_scores, start):
+        if start == 0:  # a search's first level
+            searches.append(start)
+            if len(searches) == 1:
+                recorded.append(("search_level", levels, None))
+        first = len(searches) == 1
+        if first:
+            args = ({k: same_layout(out[k]) for k in ("zoom", "adj_score", "adj_delta")},
+                    f_boxes.clone(), f_valid.clone(), next_cap, consts)
+        next_boxes, next_valid = real(out, f_boxes, f_valid, next_cap, consts, cand_boxes,
+                                      cand_scores, start)
+        if first:
+            n = f_boxes.shape[0] * out["adj_score"].shape[1]
+            levels.append((*args, (cand_boxes[start:start + n].clone(),
+                                   cand_scores[start:start + n].clone(), next_boxes.clone(),
+                                   next_valid.clone())))
+        return next_boxes, next_valid
+
+    propose.level_cuda = level
+    try:
+        yield
+    finally:
+        propose.level_cuda = real
+
+
+def search_level_path_err(recorded):
+    """Each recorded search level: the kernel's outputs on the path (the
+    candidate rows it wrote, the next frontier) against ``level_plain`` on
+    the same inputs on the card, checked bit for bit. Returns (max |kernel -
+    plain|, the levels' sorted (R, next_cap), the number of levels)."""
+    import torch
+
+    from aznet_tpu_torch.search import propose
+
+    err, shapes, n = 0.0, set(), 0
+    for kind, levels, _ in recorded:
+        if kind != "search_level":
+            continue
+        for out, f_boxes, f_valid, next_cap, consts, got in levels:
+            cand = (torch.empty_like(got[0]), torch.empty_like(got[1]))
+            want = (*cand, *propose.level_plain(out, f_boxes, f_valid, next_cap, consts, *cand, 0))
+            for g, w, name in zip(got, want, ("cand_boxes", "cand_scores", "next_boxes",
+                                              "next_valid")):
+                same = (torch.equal(g.view(torch.int32), w.view(torch.int32))
+                        if g.dtype == torch.float32 else torch.equal(g, w))
+                check(same, f"search-level kernel: {name} differs from the plain version at "
+                            f"R={f_boxes.shape[0]}, next_cap={next_cap} on the path's inputs")
+                diff = (g.float() - w.float()).abs().nan_to_num(0.0)  # equal bits: NaN - NaN
+                err = max(err, diff.max().item())
+            shapes.add((f_boxes.shape[0], next_cap))
+            n += 1
+    return err, sorted(shapes), n
+
+
 def phase2_propose(dev, net, tag="phase2", recorders=(), counters=(), raw_hw=RAW_HW,
                    canvas=CANVAS):
     """The propose path of ``net`` on two raw ``raw_hw`` images on a
     ``canvas``. ``recorders`` are context managers that wrap other kernels of
     the path while it runs; ``counters`` are ``(name, reset, read)`` launch
-    counters, reset just before the path and read just after. Returns (NMS
-    launches, img/s, nms_err, {name: count}, the preprocessed blobs of the
-    two images)."""
+    counters, reset just before the path and read just after. The
+    search-level kernel's count is reset and read with the NMS kernel's, and
+    its first search held against the plain version. Returns (NMS launches,
+    img/s, nms_err, {name: count}, the preprocessed blobs of the two images,
+    {"launches", "err"} of the search-level kernel)."""
     import torch
 
     from aznet_tpu_torch import api
-    from aznet_tpu_torch.ops.cuda import nms_kernel
+    from aznet_tpu_torch.ops.cuda import nms_kernel, search_level_kernel
 
     cfg = net.cfg
     rng = np.random.RandomState(0)
@@ -581,21 +674,23 @@ def phase2_propose(dev, net, tag="phase2", recorders=(), counters=(), raw_hw=RAW
 
     # Record the NMS inputs of the measured run (the kernel's count is kept
     # by the wrapper itself; the recorder only copies its arguments).
-    recorded = []
+    recorded, recorded_levels = [], []
     with contextlib.ExitStack() as stack:
-        for rec in [recording_nms(recorded), *recorders]:
+        for rec in [recording_nms(recorded), recording_search_level(recorded_levels), *recorders]:
             stack.enter_context(rec)
         for _, reset, _ in counters:
             reset()
-        nms_kernel.LAUNCHES = 0
+        nms_kernel.LAUNCHES = search_level_kernel.LAUNCHES = 0
         boxes, scores, valid = fn(images)
         dets = api.im_propose(net, ims_np[0])
         torch.cuda.synchronize()
-        launches = nms_kernel.LAUNCHES
+        launches, levels = nms_kernel.LAUNCHES, search_level_kernel.LAUNCHES
         counts = {name: read() for name, _, read in counters}
-    print(f"{tag} main path: nms launches {launches}"
+    print(f"{tag} main path: nms launches {launches}, search_level launches {levels}"
           + "".join(f", {k} launches {v}" for k, v in counts.items()), flush=True)
     check(launches >= BATCH + 1, f"NMS kernel launched {launches} times, expected >= {BATCH + 1}")
+    check(levels >= BATCH + 1, f"search-level kernel launched {levels} times in {BATCH + 1} "
+                               "searches")
 
     h, w = raw_hw
     check(boxes.shape == (BATCH, cfg.SEAR.NUM_PROPOSALS, 4), f"boxes shape {tuple(boxes.shape)}")
@@ -618,6 +713,10 @@ def phase2_propose(dev, net, tag="phase2", recorders=(), counters=(), raw_hw=RAW
     print(f"{tag} NMS on the path's {len(recorded)} inputs ({tuple(recorded[0][1][1].shape)}): "
           f"kernel vs plain max_abs_err {nms_err}", flush=True)
     check(nms_err == 0.0, "NMS kernel disagrees with the plain version on the path's inputs")
+    level_err, shapes, n = search_level_path_err(recorded_levels)
+    print(f"{tag} search level on the first search's {n} levels ((R, next_cap) in {shapes}): "
+          f"kernel vs plain max_abs_err {level_err}, bit for bit", flush=True)
+    check(n >= 1, f"{tag}: no search level recorded")
 
     ms = cuda_ms(lambda: fn(images), 5, 2)
     blobs = torch.stack([api.preprocess_image(
@@ -630,7 +729,7 @@ def phase2_propose(dev, net, tag="phase2", recorders=(), counters=(), raw_hw=RAW
     ips = BATCH / (ms / 1e3)
     print(f"{tag} make_propose_batch b={BATCH}: {ms:.3f} ms/call, {ips:.2f} img/s; "
           f"peak {peak:.2f} GiB", flush=True)
-    return launches, ips, nms_err, counts, blobs
+    return launches, ips, nms_err, counts, blobs, {"launches": levels, "err": level_err}
 
 
 def breakdown(tag, net, blobs):
@@ -1043,7 +1142,7 @@ def phase4_int8(dev, net, blobs, bf16_ips):
 
     recorded = []
     counters = [(e, reset, lambda e=e: ck.LAUNCHES[e]) for e in ("chain", "strip")]
-    nms_launches, ips, nms_err, counts, _ = phase2_propose(
+    nms_launches, ips, nms_err, counts, _, level = phase2_propose(
         dev, net8, "phase4", recorders=[recording_conv(recorded)], counters=counters)
     trunk_calls = 2  # make_propose_batch on the batch, then im_propose
     check(counts["chain"] + counts["strip"] >= 10 * trunk_calls,
@@ -1062,7 +1161,7 @@ def phase4_int8(dev, net, blobs, bf16_ips):
     print(f"phase4 img/s at b={BATCH}: int8 {ips:.2f} vs bf16 {bf16_ips:.2f} (same call)",
           flush=True)
     return {"launches": counts, "conv_err": conv_err, "nms_err": nms_err, "ips": ips,
-            "net": net8, "bf16_feat": f16, "blobs": blobs}
+            "net": net8, "bf16_feat": f16, "blobs": blobs, "search_level": level}
 
 
 def cosine(a, b):
@@ -1471,14 +1570,15 @@ def check_detections(tag, scores, boxes, hw, n_classes):
 def phase6_detect(dev):
     """The detection path at full width: make_fused_detect_batch_padded,
     make_detect_batch_padded on the fused run's proposals, im_propose and
-    im_detect, with the ROI-align, conv1 and NMS launch counts reset just
-    before and read just after. Returns the counts, the kernels' errors on
-    the path's inputs, and img/s."""
+    im_detect, with the ROI-align, conv1, NMS and search-level launch counts
+    reset just before and read just after. Returns the counts, the kernels'
+    errors on the path's inputs, and img/s."""
     import torch
 
     from aznet_tpu_torch import api
     from aznet_tpu_torch.ops import conv1_fused as tconv1
-    from aznet_tpu_torch.ops.cuda import conv1_kernel, nms_kernel, roi_align_kernel
+    from aznet_tpu_torch.ops.cuda import (conv1_kernel, nms_kernel, roi_align_kernel,
+                                          search_level_kernel)
 
     cfg = detect_config()
     t0 = time.perf_counter()
@@ -1499,15 +1599,16 @@ def phase6_detect(dev):
     detect = api.make_detect_batch_padded(fr.model, cfg, CANVAS)
 
     recorded = []
-    with recording_detect_kernels(recorded):
+    with recording_detect_kernels(recorded), recording_search_level(recorded):
         roi_align_kernel.LAUNCHES = conv1_kernel.LAUNCHES = nms_kernel.LAUNCHES = 0
+        search_level_kernel.LAUNCHES = 0
         p_boxes, p_scores, p_valid, d_scores, d_boxes = fused(images, src_hw, scales)
         t_scores, t_boxes = detect(images, src_hw, scales, p_boxes)
         props = api.im_propose(az, ims_np[0])
         s1, b1 = api.im_detect(fr, ims_np[0], props)
         torch.cuda.synchronize()
         counts = {"roi_align": roi_align_kernel.LAUNCHES, "conv1": conv1_kernel.LAUNCHES,
-                  "nms": nms_kernel.LAUNCHES}
+                  "nms": nms_kernel.LAUNCHES, "search_level": search_level_kernel.LAUNCHES}
     print(f"phase6 main path: launches {counts}", flush=True)
     n_iter = max(int(cfg.TEST.BBOX_ITER), 1)
     searches, detects, trunk_calls = BATCH + 1, 2 * BATCH + 1, 4
@@ -1516,6 +1617,8 @@ def phase6_detect(dev):
     check(counts["roi_align"] >= searches + n_iter * detects,
           f"ROI-align kernel launched {counts['roi_align']} times")
     check(counts["nms"] >= searches, f"NMS kernel launched {counts['nms']} times")
+    check(counts["search_level"] >= searches,
+          f"search-level kernel launched {counts['search_level']} times in {searches} searches")
 
     for i in range(BATCH):
         n = int(p_valid[i].sum())
@@ -1554,6 +1657,11 @@ def phase6_detect(dev):
           flush=True)
     check(errs["roi"] == 0.0, "ROI-align kernel disagrees with the plain version on the path's "
                               "inputs")
+    errs["search_level"], shapes, n = search_level_path_err(recorded)
+    print(f"phase6 search level ({counts['search_level']} launches) on the first search's {n} "
+          f"levels ((R, next_cap) in {shapes}): max_abs_err {errs['search_level']}, bit for bit",
+          flush=True)
+    check(n >= 1, "phase6: no search level recorded")
     recorded.clear()
 
     fused_ms = cuda_ms(lambda: fused(images, src_hw, scales), 5, 2)
@@ -1755,6 +1863,105 @@ def sass_loop(lib, name):
     return loops, "\n".join(text)
 
 
+def search_level_inputs(r, next_cap, dev, seed=0):
+    """One search level's inputs at R regions of a 600x800 image, from the
+    card tests' generator (``tests/_search_level_cases.py::level_case``):
+    the head's logits as strided views of its fused output, the frontier,
+    the constants at VGG-16's SEAR, and a candidate buffer of R * K rows."""
+    import torch
+    from pathlib import Path
+
+    tests = str(Path(__file__).resolve().parent / "tests")
+    if tests not in sys.path:
+        sys.path.append(tests)
+    from _search_level_cases import level_case
+
+    out, f_boxes, f_valid, _, consts = level_case("random", r, seed, dev)
+    n = r * out["adj_score"].shape[1]
+    return (out, f_boxes, f_valid, next_cap, consts, torch.zeros((n, 4), device=dev),
+            torch.zeros(n, device=dev), 0)
+
+
+def search_level_bound(r, k, next_cap):
+    """The head's logits, the frontier and the extent read once, the
+    candidates and the next frontier written once; per candidate the
+    anchor (14 f32 operations), decode (28), clip (8) and sigmoid (4), per
+    child its sigmoid, box, sides and gate (25), one a compare-exchange of
+    the sort over its width, the next frontier's boxes (14 a slot)."""
+    from aznet_tpu_torch.ops.cuda.search_level_kernel import sort_width
+
+    width = sort_width(r, next_cap)
+    stages = width.bit_length() - 1
+    nbytes = r * (1 + 5 * k) * 4 + r * 17 + 8 + r * k * 20 + next_cap * 17
+    ops = r * k * 54 + 5 * r * 25 + width // 2 * stages * (stages + 1) // 2 + next_cap * 14
+    return bound(nbytes, ops, "f32")
+
+
+def search_level_timing(dev, r, next_cap, seed=0):
+    """One search level after the head at (R, next_cap), the kernel
+    (``level_cuda``) and the plain version on the card (``level_plain``),
+    first held bit for bit. Returns {"kernel" | "plain": {"device_us": the
+    card's events a call (kernels, copies, fills), "launches": events a
+    call, "ms": CUDA-event time a call over back-to-back calls, "host_us":
+    the host's time a call}}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from aznet_tpu_torch.search import propose
+
+    args = search_level_inputs(r, next_cap, dev, seed)
+    out, f_boxes, f_valid, _, consts, cand_b, cand_s, _ = args
+    bufs = [(torch.full_like(cand_b, 7.0), torch.full_like(cand_s, 7.0)) for _ in range(2)]
+    got = (*bufs[0], *propose.level_cuda(out, f_boxes, f_valid, next_cap, consts, *bufs[0], 0))
+    want = (*bufs[1], *propose.level_plain(out, f_boxes, f_valid, next_cap, consts, *bufs[1], 0))
+    for g, w in zip(got, want):
+        check(torch.equal(g.view(torch.int32) if g.dtype == torch.float32 else g,
+                          w.view(torch.int32) if w.dtype == torch.float32 else w),
+              f"search-level kernel differs from the plain version at R={r}, next_cap={next_cap}")
+    res = {}
+    for name, fn in (("kernel", propose.level_cuda), ("plain", propose.level_plain)):
+        run = lambda: fn(*args)  # noqa: E731
+        run()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                run()
+            torch.cuda.synchronize()
+        events = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == torch.autograd.DeviceType.CUDA]
+        res[name] = {"device_us": sum(events) / 20 / 1e3, "launches": len(events) / 20,
+                     "ms": cuda_ms(run, 100, 3), "host_us": host_us(run, 100)}
+    return res
+
+
+def search_level_line(tag, r, next_cap, t):
+    b_ms, b_by = search_level_bound(r, 11, next_cap)
+    return (f"{tag} R={r} next_cap={next_cap}: " + "; ".join(
+        f"{name} device {v['device_us']:.2f} us in {v['launches']:.1f} launches, "
+        f"{v['ms']:.4f} ms per call by events, host {v['host_us']:.2f} us per call"
+        for name, v in t.items()) + f"; bound {b_ms * 1e3:.4f} us ({b_by})")
+
+
+def search_level_times(dev, root):
+    """``--search-level-times [ROOT]``: :func:`search_level_timing` at the
+    benchmark configurations' (R, next_cap). Needs a checkout with the
+    kernel (``search/propose.py::level_cuda``)."""
+    for r, next_cap in SEARCH_LEVEL_STEPS:
+        print(search_level_line(f"search-level-times {root}", r, next_cap,
+                                search_level_timing(dev, r, next_cap)), flush=True)
+
+
+def phase5_search_level(dev):
+    """The search-level kernel alone at R = 64 and 128 (next_cap = R), bit
+    for bit against the plain version on the card and timed beside it.
+    Returns {R: :func:`search_level_timing`'s result}."""
+    out = {}
+    for r in (64, 128):
+        out[r] = search_level_timing(dev, r, r, seed=r)
+        print(search_level_line("phase5 search level", r, r, out[r]), flush=True)
+    return out
+
+
 def iou_times(dev, root):
     """``--iou-times [ROOT]``: the IoU kernel at phase 7's shapes
     (:data:`IOU_SHAPES`), device, CUDA-event and host time per call, with
@@ -1830,7 +2037,7 @@ def propose_phase(dev, tag, net, raw_hw, canvas):
         roi_align_kernel.LAUNCHES = 0
 
     recorded = []
-    nms_launches, ips, nms_err, counts, blobs = phase2_propose(
+    nms_launches, ips, nms_err, counts, blobs, level = phase2_propose(
         dev, net, tag, recorders=[recording_detect_kernels(recorded)],
         counters=[("roi_align", reset, lambda: roi_align_kernel.LAUNCHES)],
         raw_hw=raw_hw, canvas=canvas)
@@ -1843,7 +2050,8 @@ def propose_phase(dev, tag, net, raw_hw, canvas):
     check(roi_err == 0.0, f"{tag}: ROI-align kernel disagrees with the plain version on the "
                           "path's inputs")
     return {"nms": nms_launches, "roi": counts["roi_align"], "nms_err": nms_err,
-            "roi_err": roi_err, "modes": modes, "ips": ips, "blobs": blobs}
+            "roi_err": roi_err, "modes": modes, "ips": ips, "blobs": blobs,
+            "search_level": level}
 
 
 def card_vs_cpu(tag, cfg, dev, int8=False):
@@ -2070,12 +2278,15 @@ def wrapped(module, name, before=None, after=None):
 
 def path_kernel_errs(recorded, recorded_conv=()):
     """Each recorded launch against its plain version on the same inputs:
-    {kernel: max_abs_err} (conv1 within one bf16 ulp, the others bit for bit,
-    checked by the caller), and the share of conv1 elements that differ."""
+    {kernel: max_abs_err} (conv1 within one bf16 ulp, the search level bit
+    for bit, checked here; the others bit for bit, checked by the caller),
+    and the share of conv1 elements that differ."""
     from aznet_tpu_torch.ops import conv1_fused as tconv1
     from aznet_tpu_torch.ops import conv_int8 as tconv
 
-    errs, frac = {"roi": roi_path_errs(recorded)[0], "nms": nms_path_err(recorded)}, 0.0
+    errs = {"roi": roi_path_errs(recorded)[0], "nms": nms_path_err(recorded),
+            "search_level": search_level_path_err(recorded)[0]}
+    frac = 0.0
     for kind, args, out in recorded:
         if kind == "conv1":
             y, w_k, bias = args
@@ -2160,7 +2371,8 @@ def phase10_eval(dev, card):
     from aznet_tpu_torch import api
     from aznet_tpu_torch.data import SyntheticImdb, get_imdb
     from aznet_tpu_torch.eval import detection as tdet
-    from aznet_tpu_torch.ops.cuda import conv1_kernel, iou_kernel, nms_kernel, roi_align_kernel
+    from aznet_tpu_torch.ops.cuda import (conv1_kernel, iou_kernel, nms_kernel, roi_align_kernel,
+                                          search_level_kernel)
     from aznet_tpu_torch.ops.cuda import conv_int8_kernel as ck
     from aznet_tpu_torch.ops.quant import calibrate_net_on_imdb
     from aznet_tpu_torch.utils import native
@@ -2194,7 +2406,8 @@ def phase10_eval(dev, card):
     def counts():
         return {"nms": nms_kernel.LAUNCHES, "roi_align": roi_align_kernel.LAUNCHES,
                 "conv1": conv1_kernel.LAUNCHES, "chain": ck.LAUNCHES["chain"],
-                "strip": ck.LAUNCHES["strip"], "iou": iou_kernel.LAUNCHES}
+                "strip": ck.LAUNCHES["strip"], "iou": iou_kernel.LAUNCHES,
+                "search_level": search_level_kernel.LAUNCHES}
 
     host_nms = {"calls": 0, "s": 0.0}
     props, fused_calls, times = {}, [], {}
@@ -2221,9 +2434,11 @@ def phase10_eval(dev, card):
 
     nms_kernel.LAUNCHES = roi_align_kernel.LAUNCHES = conv1_kernel.LAUNCHES = 0
     iou_kernel.LAUNCHES = ck.LAUNCHES["chain"] = ck.LAUNCHES["strip"] = 0
+    search_level_kernel.LAUNCHES = 0
     with wrapped(tdet, "nms", after=count_nms):
         with first_batch("make_propose_batch_padded",
-                         [recording_nms(recorded), recording_detect_kernels(recorded)]), \
+                         [recording_nms(recorded), recording_detect_kernels(recorded),
+                          recording_search_level(recorded)]), \
                 wrapped(tdet, "propose_all_batched", after=keep("bf16")):
             rec_bf16 = run("evaluate_recall batched", EVAL_IMAGES, lambda: tdet.evaluate_recall(
                 az, imdb, max_images=EVAL_IMAGES, batched=True, batch_size=EVAL_BATCH))
@@ -2233,7 +2448,8 @@ def phase10_eval(dev, card):
         with wrapped(tdet, "propose_all", after=keep("seq")):
             rec_seq = run("evaluate_recall per image", EVAL_SEQ, lambda: tdet.evaluate_recall(
                 az, imdb, max_images=EVAL_SEQ, batched=False))
-        with first_batch("make_fused_detect_batch_padded", [recording_detect_kernels(recorded)]), \
+        with first_batch("make_fused_detect_batch_padded",
+                         [recording_detect_kernels(recorded), recording_search_level(recorded)]), \
                 wrapped(tdet, "detect_all_fused", before=lambda *a: fused_calls.append(1)):
             nms0 = dict(host_nms)
             dets = run("detect_all_batched fused=None", EVAL_IMAGES, lambda: tdet.detect_all_batched(
@@ -2257,7 +2473,7 @@ def phase10_eval(dev, card):
           f"head {[round(s, 6) for s in net8.cfg.MODEL.INT8_HEAD_SCALES]}", flush=True)
     with first_batch("make_propose_batch_padded",
                      [recording_conv(recorded_conv), recording_nms(recorded8),
-                      recording_detect_kernels(recorded8)]), \
+                      recording_detect_kernels(recorded8), recording_search_level(recorded8)]), \
             wrapped(tdet, "propose_all_batched", after=keep("int8")):
         rec_int8 = run("evaluate_recall batched int8", EVAL_IMAGES, lambda: tdet.evaluate_recall(
             net8, imdb, max_images=EVAL_IMAGES, batched=True, batch_size=EVAL_BATCH))
@@ -2289,14 +2505,15 @@ def phase10_eval(dev, card):
 
     errs, frac = path_kernel_errs(recorded)
     errs8, _ = path_kernel_errs(recorded8, recorded_conv)
-    n_rec = {k: sum(r[0] == k for r in recorded + recorded8) for k in ("nms", "roi", "conv1")}
+    path_kinds = ("nms", "roi", "conv1", "search_level")
+    n_rec = {k: sum(r[0] == k for r in recorded + recorded8) for k in path_kinds}
     n_rec.update({e: sum(r[0] == e for r in recorded_conv) for e in ("chain", "strip")})
-    errs = {k: max(errs.get(k, 0.0), errs8.get(k, 0.0)) for k in ("nms", "roi", "conv1")} | {
+    errs = {k: max(errs.get(k, 0.0), errs8.get(k, 0.0)) for k in path_kinds} | {
         e: errs8.get(e, 0.0) for e in ("chain", "strip")}
     print(f"phase10 kernels on the first batches' inputs ({n_rec} launches): max_abs_err {errs}; "
           f"conv1 within one bf16 ulp, at most {frac:.4%} of elements differ", flush=True)
     check(all(n_rec.values()), f"a kernel was not recorded on the first batches: {n_rec}")
-    check(all(errs[k] == 0.0 for k in ("nms", "roi", "chain", "strip")),
+    check(all(errs[k] == 0.0 for k in ("nms", "roi", "chain", "strip", "search_level")),
           "a kernel disagrees with its plain version on the eval path's inputs")
     del az, fr, net8, recorded, recorded8, recorded_conv
     torch.cuda.empty_cache()
@@ -2404,6 +2621,7 @@ class TrainProbe:
     def __init__(self, windows=()):
         self.windows = windows
         self.steps, self.waits, self.harvests, self.nms_inputs = [], [], [], []
+        self.level_inputs = []
         self.profiles, self.window_s = [], 0.0  # profilers of the windows, their wall s
         self.first_batches, self.builds = [], []  # the loop's own batch builds, s
         self.worker_env = {}
@@ -2468,7 +2686,10 @@ class TrainProbe:
             probe.dirty.add(len(probe.steps) - 1)
             torch.cuda.synchronize()
             n0, t0 = nms_kernel.LAUNCHES, time.perf_counter()
-            with recording_nms(probe.nms_inputs) if not probe.harvests else contextlib.nullcontext():
+            with contextlib.ExitStack() as stack:
+                if not probe.harvests:
+                    stack.enter_context(recording_nms(probe.nms_inputs))
+                    stack.enter_context(recording_search_level(probe.level_inputs))
                 n = real_harvest(miner, model)
             torch.cuda.synchronize()
             probe.harvests.append((time.perf_counter() - t0, n, nms_kernel.LAUNCHES - n0))
@@ -2542,12 +2763,32 @@ def check_metrics(tag, metrics, keys):
 
 
 def train_launch_counts():
-    from aznet_tpu_torch.ops.cuda import conv1_kernel, iou_kernel, nms_kernel, roi_align_kernel
+    from aznet_tpu_torch.ops.cuda import (conv1_kernel, iou_kernel, nms_kernel, roi_align_kernel,
+                                          search_level_kernel)
     from aznet_tpu_torch.ops.cuda import conv_int8_kernel as ck
 
     return {"nms": nms_kernel.LAUNCHES, "roi_align": roi_align_kernel.LAUNCHES,
             "conv1": conv1_kernel.LAUNCHES, "chain": ck.LAUNCHES["chain"],
-            "strip": ck.LAUNCHES["strip"], "iou": iou_kernel.LAUNCHES}
+            "strip": ck.LAUNCHES["strip"], "iou": iou_kernel.LAUNCHES,
+            "search_level": search_level_kernel.LAUNCHES}
+
+
+def set_launch_counts(counts):
+    """Sets every kernel's launch count to ``counts`` (the keys of
+    :func:`train_launch_counts`)."""
+    from aznet_tpu_torch.ops.cuda import (conv1_kernel, iou_kernel, nms_kernel, roi_align_kernel,
+                                          search_level_kernel)
+    from aznet_tpu_torch.ops.cuda import conv_int8_kernel as ck
+
+    for mod, k in ((nms_kernel, "nms"), (roi_align_kernel, "roi_align"),
+                   (conv1_kernel, "conv1"), (iou_kernel, "iou"),
+                   (search_level_kernel, "search_level")):
+        mod.LAUNCHES = counts[k]
+    ck.LAUNCHES["chain"], ck.LAUNCHES["strip"] = counts["chain"], counts["strip"]
+
+
+def zero_counts():
+    set_launch_counts(dict.fromkeys(train_launch_counts(), 0))
 
 
 def phase11_train(dev, card):
@@ -2572,8 +2813,7 @@ def phase11_train(dev, card):
     from aznet_tpu_torch.data.prefetch import MPPrefetcher, az_batch_builder
     from aznet_tpu_torch.data.synthetic import SyntheticImdb
     from aznet_tpu_torch.eval.detection import propose_all
-    from aznet_tpu_torch.ops.cuda import conv1_kernel, iou_kernel, nms_kernel, roi_align_kernel
-    from aznet_tpu_torch.ops.cuda import conv_int8_kernel as ck
+    from aznet_tpu_torch.ops.cuda import nms_kernel
     from aznet_tpu_torch.train import loop
     from aznet_tpu_torch.train.train_az import make_az_train_state, make_az_train_step
     from aznet_tpu_torch.utils.checkpoint import Checkpointer
@@ -2585,8 +2825,7 @@ def phase11_train(dev, card):
     print(f"phase11 {TRAIN_IMDB}: {len(roidb)} images made in {time.perf_counter() - t0:.2f} s",
           flush=True)
     out_root = tempfile.mkdtemp(prefix="aznet_train_")
-    nms_kernel.LAUNCHES = roi_align_kernel.LAUNCHES = conv1_kernel.LAUNCHES = 0
-    iou_kernel.LAUNCHES = ck.LAUNCHES["chain"] = ck.LAUNCHES["strip"] = 0
+    zero_counts()
     try:
         # (a) AZ-Net with mining.
         cfg = train_config(MINE_INTERVAL=MINE_INTERVAL, MINE_IMAGES=MINE_IMAGES)
@@ -2638,6 +2877,10 @@ def phase11_train(dev, card):
               f"max_abs_err {nms_err}", flush=True)
         check(nms_err == 0.0, "11a: NMS kernel disagrees with its plain version on the "
                               "harvest's inputs")
+        level_err, shapes, n_levels = search_level_path_err(probe.level_inputs)
+        print(f"phase11a search level on the first harvest's first search ({n_levels} levels, "
+              f"(R, next_cap) in {shapes}): max_abs_err {level_err}, bit for bit", flush=True)
+        check(n_levels >= 1, "11a: the harvests ran no search level on the card")
         ckpt = Checkpointer(out)
         check(ckpt.all_steps() == [TRAIN_STEPS], f"11a: snapshots {ckpt.all_steps()}")
         deploy = Checkpointer(f"{out}/deploy")
@@ -2764,7 +3007,8 @@ def phase11_train(dev, card):
     launches = train_launch_counts()
     print(f"phase11 launches {launches}; {time.perf_counter() - t_phase:.1f} s", flush=True)
     check(launches["nms"] > 0, "phase 11 launched no NMS kernel")
-    return {"launches": launches, "nms_err": nms_err, "card_vs_cpu": errs}
+    return {"launches": launches, "nms_err": nms_err, "search_level_err": level_err,
+            "card_vs_cpu": errs}
 
 
 def step_breakdown(dev, cfg, batch, steps=3):
@@ -2942,8 +3186,6 @@ def phase12_tools(dev, card):
     import torch
 
     from aznet_tpu_torch.eval import detection as tdet
-    from aznet_tpu_torch.ops.cuda import conv1_kernel, iou_kernel, nms_kernel, roi_align_kernel
-    from aznet_tpu_torch.ops.cuda import conv_int8_kernel as ck
     from aznet_tpu_torch.utils import profiling
     from aznet_tpu_torch.utils.checkpoint import Checkpointer
     from tools_torch import _common
@@ -2981,11 +3223,10 @@ def phase12_tools(dev, card):
         legs.setdefault(leg, []).append((name, s, delta))
         return text, delta
 
-    nms_kernel.LAUNCHES = roi_align_kernel.LAUNCHES = conv1_kernel.LAUNCHES = 0
-    iou_kernel.LAUNCHES = ck.LAUNCHES["chain"] = ck.LAUNCHES["strip"] = 0
+    zero_counts()
     try:
         with recording_nms(recorded), recording_detect_kernels(recorded), \
-                recording_conv(recorded_conv), \
+                recording_search_level(recorded), recording_conv(recorded_conv), \
                 wrapped(tdet, "detect_all_fused", before=lambda *a: fused_calls.append(1)):
             # (a) AZ-Net with mining, then a resume.
             az = f"{out}/az"
@@ -3099,14 +3340,12 @@ def phase12_tools(dev, card):
 
     n0 = train_launch_counts()
     errs, frac = path_kernel_errs(recorded, recorded_conv)
-    nms_kernel.LAUNCHES, roi_align_kernel.LAUNCHES = n0["nms"], n0["roi_align"]
-    conv1_kernel.LAUNCHES, ck.LAUNCHES["chain"], ck.LAUNCHES["strip"] = (
-        n0["conv1"], n0["chain"], n0["strip"])  # the comparisons' launches are not the path's
+    set_launch_counts(n0)  # the comparisons' launches are not the path's
     kinds = sorted({r[0] for r in recorded} | {r[0] for r in recorded_conv})
     print(f"phase12 kernels on the tools' first inputs ({kinds}): max_abs_err {errs}; conv1 "
           f"within one bf16 ulp, {frac:.4%} of elements differ", flush=True)
-    check(kinds == ["chain", "conv1", "nms", "roi", "strip"], f"recorded {kinds}")
-    check(all(errs[k] == 0.0 for k in ("nms", "roi", "chain", "strip")),
+    check(kinds == ["chain", "conv1", "nms", "roi", "search_level", "strip"], f"recorded {kinds}")
+    check(all(errs[k] == 0.0 for k in ("nms", "roi", "chain", "strip", "search_level")),
           "a kernel disagrees with its plain version on the tools' inputs")
     return {"launches": launches, "err": errs, "legs": legs}
 
@@ -3153,8 +3392,6 @@ def phase13_mesh(dev, card):
     from aznet_tpu_torch.config import Config
     from aznet_tpu_torch.data.imdb import get_imdb
     from aznet_tpu_torch.data.minibatch import fixed_canvas, get_az_minibatch
-    from aznet_tpu_torch.ops.cuda import conv1_kernel, iou_kernel, nms_kernel, roi_align_kernel
-    from aznet_tpu_torch.ops.cuda import conv_int8_kernel as ck
     from aznet_tpu_torch.parallel import make_mesh
     from aznet_tpu_torch.parallel.inference import (make_latency_propose, make_sharded_detect,
                                                     make_sharded_propose)
@@ -3210,12 +3447,11 @@ def phase13_mesh(dev, card):
         mesh_step = make_az_train_step(mst.model, mesh=mesh)
 
         recorded, recorded_conv = [], []
-        nms_kernel.LAUNCHES = roi_align_kernel.LAUNCHES = conv1_kernel.LAUNCHES = 0
-        iou_kernel.LAUNCHES = ck.LAUNCHES["chain"] = ck.LAUNCHES["strip"] = 0
+        zero_counts()
         COLLECTIVES.update(all_gather=0, all_reduce=0)
         got = {}
         with recording_nms(recorded), recording_detect_kernels(recorded), \
-                recording_conv(recorded_conv):
+                recording_search_level(recorded), recording_conv(recorded_conv):
             for key in ("propose", "region", "int8"):
                 got[key] = mesh_fns[key](images)
                 first_of_each(recorded)
@@ -3265,18 +3501,16 @@ def phase13_mesh(dev, card):
               flush=True)
         check(calls["all_gather"] > 0 and calls["all_reduce"] > 0,
               f"13f: NCCL collectives {calls}")
-        for k in ("nms", "roi_align", "conv1", "chain", "strip"):
+        for k in ("nms", "roi_align", "conv1", "chain", "strip", "search_level"):
             check(launches[k] > 0, f"13g: {k} kernel never launched on the mesh paths")
         check(launches["iou"] == 0, f"13g: the IoU kernel launched: {launches}")
 
         n0 = train_launch_counts()
         errs, frac = path_kernel_errs(recorded, recorded_conv)
-        nms_kernel.LAUNCHES, roi_align_kernel.LAUNCHES = n0["nms"], n0["roi_align"]
-        conv1_kernel.LAUNCHES, ck.LAUNCHES["chain"], ck.LAUNCHES["strip"] = (
-            n0["conv1"], n0["chain"], n0["strip"])
+        set_launch_counts(n0)
         print(f"phase13g kernels on the mesh paths' first inputs: max_abs_err {errs}; conv1 "
               f"within one bf16 ulp, {frac:.4%} of elements differ", flush=True)
-        check(all(errs[k] == 0.0 for k in ("nms", "roi", "chain", "strip")),
+        check(all(errs[k] == 0.0 for k in ("nms", "roi", "chain", "strip", "search_level")),
               "13g: a kernel disagrees with its plain version on the mesh paths' inputs")
 
         # Times: each mesh call beside its plain path, in this call, in
@@ -3315,11 +3549,7 @@ def phase13_mesh(dev, card):
                                    "calls": timed, "collectives": calls,
                                    "issue_host_us": issue_us, "launches": launches}}),
               flush=True)
-        # The timing runs launched again: the path's counts are the window's.
-        for mod, k in ((nms_kernel, "nms"), (roi_align_kernel, "roi_align"),
-                       (conv1_kernel, "conv1"), (iou_kernel, "iou")):
-            mod.LAUNCHES = launches[k]
-        ck.LAUNCHES["chain"], ck.LAUNCHES["strip"] = launches["chain"], launches["strip"]
+        set_launch_counts(launches)  # the timing runs launched again: the window's counts
     finally:
         dist.destroy_process_group()
         shutil.rmtree(out_dir, ignore_errors=True)
@@ -3365,7 +3595,7 @@ def phase14a_chain_from_conv1_2(dev, int8):
 
     recorded = []
     counters = [(e, reset, lambda e=e: ck.LAUNCHES[e]) for e in ("chain", "strip")]
-    nms_launches, ips, nms_err, counts, _ = phase2_propose(
+    nms_launches, ips, nms_err, counts, _, level = phase2_propose(
         dev, net12, "phase14a", recorders=[recording_conv(recorded)], counters=counters)
     check(counts == {"chain": 8, "strip": 16},
           f"trunk from conv1_2: launches {counts}, expected chain 8 and strip 16 in 2 trunk calls")
@@ -3386,7 +3616,7 @@ def phase14a_chain_from_conv1_2(dev, int8):
     print(f"phase14a int8 trunk at b={BATCH}, medians of 3 alternating rounds (events): "
           + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items())
           + f"; propose {ips:.2f} img/s vs {int8['ips']:.2f} from conv2_2", flush=True)
-    return {"launches": counts, "conv_err": conv_err, "nms_err": nms_err}
+    return {"launches": counts, "conv_err": conv_err, "nms_err": nms_err, "search_level": level}
 
 
 def phase14b_xla(dev, int8):
@@ -3412,7 +3642,7 @@ def phase14b_xla(dev, int8):
     counters = [("chain", reset, lambda: ck.LAUNCHES["chain"]),
                 ("strip", lambda: None, lambda: ck.LAUNCHES["strip"]),
                 ("_int_mm", lambda: None, lambda: int_mm[0])]
-    _, ips, nms_err, counts, _ = phase2_propose(
+    _, ips, nms_err, counts, _, level = phase2_propose(
         dev, netx, "phase14b", recorders=[wrapped(torch, "_int_mm", before=tick)],
         counters=counters)
     check(counts["chain"] == 0 and counts["strip"] == 0, f"'xla' launched conv kernels: {counts}")
@@ -3443,7 +3673,7 @@ def phase14b_xla(dev, int8):
           + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items())
           + f"; propose {ips:.2f} img/s vs 'pallas' {int8['ips']:.2f}", flush=True)
     check(cos > 0.999, f"'xla' trunk drifts from the 'pallas' trunk: cosine {cos}")
-    return {"nms_err": nms_err}
+    return {"nms_err": nms_err, "search_level": level}
 
 
 def conv1_f32_sass():
@@ -3532,7 +3762,7 @@ def phase14c_conv1_f32(dev):
             first.append((y.clone(), w_k, bias))
 
     counters = [("conv1_f32", reset, lambda: conv1_kernel.LAUNCHES_F32)]
-    _, ips, nms_err, counts, blobs = phase2_propose(
+    _, ips, nms_err, counts, blobs, level = phase2_propose(
         dev, netf, "phase14c", counters=counters,
         recorders=[wrapped(conv1_kernel, "conv1_2_pool_cuda_f32", before=record)])
     check(counts["conv1_f32"] == 2, f"float32 conv1 launched {counts} times in 2 trunk calls")
@@ -3554,6 +3784,7 @@ def phase14c_conv1_f32(dev):
     check(rel <= 1e-5, f"float32 FUSE_CONV1 trunk disagrees with the unfused trunk: {rel}")
     return {"err": err, "errs": errs, "ms": k_ms, "device_us": k_us, "plain_ms": p_ms,
             "library_ms": l_ms, "bound": (b_ms, b_by), "launches": counts["conv1_f32"],
+            "search_level": level,
             "nms_err": nms_err}
 
 
@@ -3650,19 +3881,12 @@ def phase15a_nms_large(dev):
     return err, cases
 
 
-def zero_counts():
-    from aznet_tpu_torch.ops.cuda import conv1_kernel, iou_kernel, nms_kernel, roi_align_kernel
-    from aznet_tpu_torch.ops.cuda import conv_int8_kernel as ck
-
-    nms_kernel.LAUNCHES = roi_align_kernel.LAUNCHES = conv1_kernel.LAUNCHES = 0
-    iou_kernel.LAUNCHES = ck.LAUNCHES["chain"] = ck.LAUNCHES["strip"] = 0
-
-
 @contextlib.contextmanager
 def recording_first(recorded, recorded_conv):
     """Copies the inputs (and the result) of the first launch of the NMS,
-    ROI-align and both int8 conv kernels while active, for
-    :func:`path_kernel_errs`; later launches run untouched."""
+    ROI-align and both int8 conv kernels, and of the first search's levels,
+    while active, for :func:`path_kernel_errs`; later launches run
+    untouched."""
     from aznet_tpu_torch.ops.cuda import nms_kernel, roi_align_kernel
     from aznet_tpu_torch.ops.cuda import conv_int8_kernel as ck
 
@@ -3697,7 +3921,8 @@ def recording_first(recorded, recorded_conv):
     nms_kernel.nms_cuda_batched, roi_align_kernel.roi_align_cuda = nms, roi
     ck.conv3x3_int8_chain, ck.conv3x3_int8_strip = conv("chain"), conv("strip")
     try:
-        yield
+        with recording_search_level(recorded):
+            yield
     finally:
         nms_kernel.nms_cuda_batched, roi_align_kernel.roi_align_cuda = real_nms, real_roi
         ck.conv3x3_int8_chain, ck.conv3x3_int8_strip = real_conv["chain"], real_conv["strip"]
@@ -3904,7 +4129,8 @@ def main(argv) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     timers = {"--conv-times": conv_times, "--conv1-times": conv1_times,
-              "--roi-times": roi_times, "--nms-times": nms_times, "--iou-times": iou_times}
+              "--roi-times": roi_times, "--nms-times": nms_times, "--iou-times": iou_times,
+              "--search-level-times": search_level_times}
     if argv[:1] and argv[0] in timers:
         root = argv[1] if len(argv) > 1 else "."
         sys.path.insert(0, root)
@@ -3937,7 +4163,7 @@ def main(argv) -> int:
         return 0
     if argv[:1] == ["--settings-phase"]:
         net = build_net("phase2", Config(), dev)
-        _, ips, _, _, blobs = phase2_propose(dev, net)
+        _, ips, _, _, blobs, _ = phase2_propose(dev, net)
         int8 = phase4_int8(dev, net, blobs, ips)
         del net
         phase14_settings(dev, int8)
@@ -3946,7 +4172,7 @@ def main(argv) -> int:
     err1, times = phase1_nms(dev)
     # VGG-16 at full width, bf16 (Config()'s default), default search.
     net = build_net("phase2", Config(), dev)
-    launches, ips, err2, _, blobs = phase2_propose(dev, net)
+    launches, ips, err2, _, blobs, level2 = phase2_propose(dev, net)
     phase2_reference(dev)
     precision_probe(dev)
     bf16_reduction_probe(dev)
@@ -3958,6 +4184,7 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
 
     new = phase5_kernels(dev)
+    level_alone = phase5_search_level(dev)
     det = phase6_detect(dev)
     phase6_reference(dev)
 
@@ -4050,6 +4277,29 @@ def main(argv) -> int:
         "tools_launches": tools["iou"], "mesh_launches": mesh["iou"], "max_abs_err": iou["err"],
         "ms": iou["ms"], "device_us": iou["device_us"], "plain_ms": iou["plain_ms"],
         "bound_ms": iou["bound"][0], "bound_by": iou["bound"][1], "library_ms": None})
+    lv, (b_ms, b_by) = level_alone[128], search_level_bound(128, 11, 128)
+    records.append({
+        "name": "search_level", "route": "cuda", "source": SEARCH_LEVEL_SOURCE,
+        "replaces": None, "plain": SEARCH_LEVEL_PLAIN, "launches": level2["launches"],
+        "int8_launches": int8["search_level"]["launches"],
+        "detect_launches": det["launches"]["search_level"],
+        "resnet50_launches": res["bf16"]["search_level"]["launches"],
+        "eval_launches": ev["launches"]["search_level"], "train_launches": train["search_level"],
+        "tools_launches": tools["search_level"], "mesh_launches": mesh["search_level"],
+        "bench_launches": bench_full["search_level"],
+        "max_abs_err": max(level2["err"], int8["search_level"]["err"],
+                           det["err"]["search_level"], ev["err"]["search_level"],
+                           tr["search_level_err"], tl["err"]["search_level"],
+                           mp["err"]["search_level"], p15["path_errs"].get("search_level", 0.0),
+                           *(p["search_level"]["err"] for p in paths),
+                           *(last[k]["search_level"]["err"] for k in ("c12", "xla", "conv1_f32"))),
+        "ms": lv["kernel"]["ms"], "device_us": lv["kernel"]["device_us"],
+        "host_us": lv["kernel"]["host_us"], "plain_ms": lv["plain"]["ms"],
+        "plain_device_us": lv["plain"]["device_us"], "plain_launches": lv["plain"]["launches"],
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "r": 128,
+        "r64": {k: level_alone[64][name][key] for k, name, key in (
+            ("ms", "kernel", "ms"), ("device_us", "kernel", "device_us"),
+            ("plain_ms", "plain", "ms"), ("plain_device_us", "plain", "device_us"))}})
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
