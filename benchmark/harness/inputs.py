@@ -39,20 +39,21 @@ def make_weights(model: dict, kind: str, seed: int, device) -> dict:
     from one normal draw on ``device``, each parameter a view of it scaled
     to its init. Then three choices that fix the work and the scale of the
     outputs for every seed: the output layers' rows are centred (a zero sum,
-    so that the ReLUs' common mode does not set the logits); fc6 is scaled
-    by the inverse of the trunk's output rms on a noise image, so that the
-    heads see unit-scale input whatever the trunk's gain; and the search
-    head's output layers are scaled so that their outputs, before the
-    biases, spread by ``AZ_SPREADS`` over the noise image's regions (the
-    spread of all of a layer's outputs together), and biased so that each
-    output's mean there is 0, the zoom logits' ``ZOOM_BIAS``, once the zoom
-    row is turned to fall with a region's depth (``_zoom_by_depth``). So
-    every region divides, the search runs every level on every image and
-    seed, and its width follows from the image's size alone, while the
-    frontier's top-k by zoom has a real order to keep and the scores and
-    boxes vary as a trained head's do. The scales are rounded to three
-    digits and the biases to two decimals, so that rounding in the probe
-    does not move them."""
+    so that the ReLUs' common mode does not set the logits); the weights
+    that take the pooled features (``nets.head_input_weights``: fc6 where
+    the head has it) are scaled by the inverse of the trunk's output rms on
+    a noise image, so that the heads see unit-scale input whatever the
+    trunk's gain; and the search head's output layers are scaled so that
+    their outputs, before the biases, spread by ``AZ_SPREADS`` over the
+    noise image's regions (the spread of all of a layer's outputs
+    together), and biased so that each output's mean there is 0, the zoom
+    logits' ``ZOOM_BIAS``, once the zoom row is turned to fall with a
+    region's depth (``_zoom_by_depth``). So every region divides, the search
+    runs every level on every image and seed, and its width follows from the
+    image's size alone, while the frontier's top-k by zoom has a real order
+    to keep and the scores and boxes vary as a trained head's do. The scales
+    are rounded to three digits and the biases to two decimals, so that
+    rounding in the probe does not move them."""
     specs = nets.param_specs(model, kind)
     sizes = [math.prod(shape) for _, shape, _ in specs]
     flat = torch.randn(sum(sizes), generator=generator(seed, f"weights.{kind}", device),
@@ -69,7 +70,8 @@ def make_weights(model: dict, kind: str, seed: int, device) -> dict:
                        device=device) * 255.0 - 128.0
     feat = nets.trunk(model, out, probe)
     rms = float(feat.pow(2).mean().sqrt())
-    out["head.fc.fc6.weight"].mul_(float(f"{1.0 / rms:.3g}"))
+    for name in nets.head_input_weights(model, kind):
+        out[name].mul_(float(f"{1.0 / rms:.3g}"))
     if kind == "az":
         for name in AZ_SPREADS:
             out[f"head.{name}.bias"].zero_()

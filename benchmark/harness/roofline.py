@@ -1,7 +1,8 @@
 """The yardstick's arithmetic: the card's published peaks, the work a
 configuration fixes (FLOPs of its trunk and heads, counted from the
 configuration alone), and the least time of each kernel at its call's
-shapes. Device times come from the profiler; these functions only count.
+shapes. Device times come from the profiler; these functions only count. Each
+network counts its own FLOPs (``reference/networks/<network>.py``).
 
 Peaks: one NVIDIA H100 SXM (NVIDIA's data sheet, dense, at 700 W): 989
 TFLOP/s in bf16 on the tensor cores, 67 TFLOP/s in float32 outside them, and
@@ -35,50 +36,16 @@ def bound_s(nbytes: float, ops: float, peak: str) -> float:
 
 # -- FLOPs of the work a configuration fixes ------------------------------------
 
-def _out(n: int, k: int, s: int, p: int) -> int:
-    return (n + 2 * p - k) // s + 1
-
-
-def vgg16_flops(width: float, h: int, w: int) -> float:
-    flops, c = 0.0, 3
-    for _, ch in nets.VGG16_LAYOUT:
-        if ch is None:
-            h, w = h // 2, w // 2
-            continue
-        ch = max(int(ch * width), 8)
-        flops += 2.0 * h * w * 9 * c * ch
-        c = ch
-    return flops
-
-
-def resnet50_flops(h: int, w: int) -> float:
-    h, w = _out(h, 7, 2, 3), _out(w, 7, 2, 3)
-    flops = 2.0 * h * w * 49 * 3 * 64
-    h, w = _out(h, 3, 2, 1), _out(w, 3, 2, 1)
-    c_in = 64
-    for stage, n in enumerate(nets.RESNET50_STAGES):
-        ch = 64 * 2 ** stage
-        for b in range(n):
-            s = 2 if stage > 0 and b == 0 else 1
-            ho, wo = -(-h // s), -(-w // s)
-            flops += 2.0 * h * w * c_in * ch + 2.0 * ho * wo * (9 * ch * ch + ch * 4 * ch)
-            if b == 0:
-                flops += 2.0 * ho * wo * c_in * 4 * ch
-            h, w, c_in = ho, wo, 4 * ch
-    return flops
-
-
 def trunk_flops(model: dict, canvas) -> float:
-    if model["BACKBONE"] == "vgg16":
-        return vgg16_flops(model["WIDTH"], *canvas)
-    return resnet50_flops(*canvas)
+    """The trunk's convolutions on a ``canvas`` (h, w) image, as its network
+    (``reference/networks/<network>.py``) counts them."""
+    return nets.network(model).trunk_flops(model, canvas)
 
 
 def head_flops(model: dict, kind: str, rows: int) -> float:
-    """fc6, fc7 and the fused output dot over ``rows`` rois."""
-    specs = {name: shape for name, shape, _ in nets.param_specs(model, kind)
-             if name.startswith("head.") and name.endswith(".weight")}
-    return 2.0 * rows * sum(s[0] * s[1] for s in specs.values())
+    """The head's convolutions and dots over ``rows`` rois (fc6, fc7 and the
+    fused output dot, for a head of those)."""
+    return nets.network(model).head_flops(model, kind, rows)
 
 
 def propose_rows(sear: dict) -> int:

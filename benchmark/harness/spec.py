@@ -1,11 +1,12 @@
 """The benchmark's data: ``BENCHMARK.json`` at the root of the checkout, and,
 found by name under ``benchmark/``, each configuration
-(``configs/<config>.json``), traffic mix (``traffic/<traffic>.json``), the
-limits of a cell's correctness check (``limits/<cell>.json``), a traffic
-mix's driver (``drivers/<driver>.py``) and each metric's reader
-(``metrics/<name>.py``, else ``metrics/<name less its last dotted part>.py``).
-Adding a cell, configuration, mix or metric adds files and entries; no file
-here names one."""
+(``configs/<config>.json``), the reference's network it runs
+(``reference/networks/<MODEL["BACKBONE"]>.py``), each traffic mix
+(``traffic/<traffic>.json``), the limits of a cell's correctness check
+(``limits/<cell>.json``), a traffic mix's driver (``drivers/<driver>.py``)
+and each metric's reader (``metrics/<name>.py``, else ``metrics/<name less
+its last dotted part>.py``). Adding a cell, configuration, network, mix or
+metric adds files and entries; no file here names one."""
 
 from __future__ import annotations
 
@@ -14,6 +15,8 @@ import importlib.util
 import json
 import re
 from pathlib import Path
+
+from reference import nets
 
 BENCH_DIR = Path(__file__).resolve().parents[1]
 ROOT = BENCH_DIR.parent
@@ -56,8 +59,10 @@ def load_cell(name: str, root: Path = ROOT) -> Cell:
     conf_entry = next(c for c in bench["configs"] if c["name"] == entry["config"])
     bench_dir = root / "benchmark"
     limits_path = bench_dir / "limits" / f"{name}.json"
+    conf = _json(root / conf_entry["file"])
+    nets.network(conf["MODEL"])  # a network that is not there stops the cell here
     return Cell(
-        name=name, chips=entry["chips"], conf=_json(root / conf_entry["file"]),
+        name=name, chips=entry["chips"], conf=conf,
         traffic=_json(bench_dir / "traffic" / f"{entry['traffic']}.json"),
         end_to_end=[m for m in bench["end_to_end"] if _reports(m, name)],
         per_layer=[m for m in bench["per_layer"] if _reports(m, name)],

@@ -52,11 +52,13 @@ class PortSystem:
 def reverse_frontier_top_k(cand_buf: int):
     """Plant a fault in the program's search: its frontier's top-k reversed,
     the lowest valid priorities first (the top-k of the ``cand_buf``
-    candidate cap untouched). The check has to find it not correct. Returns
-    the function that takes it out again."""
+    candidate cap untouched). On the card a level runs as one kernel that
+    sorts the frontier itself, so the level's plain version, which calls
+    ``top_k``, stands in for it while the fault is planted. The check has to
+    find it not correct. Returns the function that takes it out again."""
     from aznet_tpu_torch.search import propose
 
-    top_k = propose.top_k
+    top_k, level_cuda = propose.top_k, propose.level_cuda
 
     def reversed_top_k(x, k):
         if k == cand_buf:
@@ -64,8 +66,11 @@ def reverse_frontier_top_k(cand_buf: int):
         _, idx = top_k(torch.where(x > -1e30, -x, x), k)
         return x[idx], idx
 
-    propose.top_k = reversed_top_k
-    return lambda: setattr(propose, "top_k", top_k)
+    def undo():
+        propose.top_k, propose.level_cuda = top_k, level_cuda
+
+    propose.top_k, propose.level_cuda = reversed_top_k, propose.level_plain
+    return undo
 
 
 class ReferenceSystem:

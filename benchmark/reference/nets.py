@@ -1,19 +1,35 @@
-"""Plain PyTorch reference of the benchmarked networks, in float32.
+"""Plain PyTorch reference of the benchmarked networks, in float32: what
+every network shares, and the dispatch to the network of a configuration.
 
-- VGG-16 configuration D to conv5_3 (arXiv:1409.1556): thirteen 3x3 convs
-  with ReLU, four 2x2/2 max pools, stride 16.
-- ResNet-50 to its conv4_x stage (arXiv:1512.03385): the 7x7/2 stem and a
-  3x3/2 max pool, then 3, 4 and 6 bottlenecks (1x1, 3x3, 1x1 x4), the first
-  of stages 2 and 3 at stride 2 in its 3x3 conv, a 1x1 projection where the
-  shape changes, each conv followed by a frozen BatchNorm (``x * scale +
-  bias``). Stride-2 3x3 convs pad as TensorFlow's ``SAME`` (the extra row
-  and column at the bottom and right), the system's convention.
-- ROI align (He et al., arXiv:1703.06870) at 7x7 bins, two bilinear samples
-  per bin and axis averaged, on the feature map at 1/16 scale; then fc6, fc7
-  (ReLU each) and the output layers: AZ-Net's zoom score, 11 adjacency scores
-  and 44 deltas (arXiv:1512.07711), or Fast R-CNN's class scores and
-  per-class box deltas (arXiv:1504.08083).
-- The preprocess: BGR pixel means subtracted, a bilinear resize (half-pixel
+A network is a module of its own, ``reference/networks/<network>.py``, found
+by its configuration's ``MODEL["BACKBONE"]`` (``network``). It defines, in
+plain PyTorch:
+
+- ``param_specs(model, kind)``: every parameter ``[(name, shape, init)]``;
+- ``trunk(model, p, x, q)``: ``[B, H, W, 3]`` -> ``[B, H/s, W/s, C]``;
+- ``head(model, kind, p, pooled, q)``: the pooled rois ``[R, P, P, C]`` ->
+  the output dict (``output_dot``'s);
+- ``head_outputs(kind, model)``: the output layers, whose rows the weights'
+  draw centres and scales;
+- ``head_input_weights(model, kind)``: the weights that take the pooled
+  features, which the draw scales by the inverse of the trunk's output rms;
+- ``trunk_flops(model, canvas)`` and ``head_flops(model, kind, rows)``: the
+  FLOPs of its convolutions and dots;
+- ``TINY``: the ``MODEL`` settings a CPU test cuts it to.
+
+Shared here:
+
+- ROI align (He et al., arXiv:1703.06870) at ``POOL_SIZE`` bins, two
+  bilinear samples per bin and axis averaged, on the feature map at
+  ``1/FEAT_STRIDE`` scale;
+- fc6, fc7 (ReLU each) and the output layers (``fc_head``): AZ-Net's zoom
+  score, 11 adjacency scores and 44 deltas (arXiv:1512.07711), or Fast
+  R-CNN's class scores and per-class box deltas (arXiv:1504.08083), as one
+  dot (``output_dot``);
+- the convolution, the frozen BatchNorm (``x * scale + bias``) and
+  TensorFlow's ``SAME`` padding of stride-2 3x3 convs (the extra row and
+  column at the bottom and right), the system's convention;
+- the preprocess: BGR pixel means subtracted, a bilinear resize (half-pixel
   centres) by the scale that takes the short side to the target, capped by
   the maximum size, onto a zero-padded canvas.
 
@@ -28,19 +44,16 @@ lower-precision control of ``reference/lowp.py``.
 from __future__ import annotations
 
 import contextlib
+import functools
+import importlib.util
 import math
+from pathlib import Path
 
 import torch
 import torch.nn.functional as F
 
-VGG16_LAYOUT = (
-    ("conv1_1", 64), ("conv1_2", 64), ("pool1", None),
-    ("conv2_1", 128), ("conv2_2", 128), ("pool2", None),
-    ("conv3_1", 256), ("conv3_2", 256), ("conv3_3", 256), ("pool3", None),
-    ("conv4_1", 512), ("conv4_2", 512), ("conv4_3", 512), ("pool4", None),
-    ("conv5_1", 512), ("conv5_2", 512), ("conv5_3", 512),
-)
-RESNET50_STAGES = (3, 4, 6)  # bottlenecks of conv2_x .. conv4_x
+NETWORKS_DIR = Path(__file__).resolve().parent / "networks"
+FC_HEAD_INPUT = ("head.fc.fc6.weight",)
 
 
 @contextlib.contextmanager
@@ -60,59 +73,24 @@ def _ident(x):
     return x
 
 
-# -- parameters ---------------------------------------------------------------
+# -- networks -----------------------------------------------------------------
 
-def vgg16_specs(width: float = 1.0):
-    """``([(name, shape, kind)], out_channels)`` of the VGG-16 trunk."""
-    out, c = [], 3
-    for name, ch in VGG16_LAYOUT:
-        if ch is None:
-            continue
-        ch = max(int(ch * width), 8)
-        out += [(f"trunk.{name}.weight", (ch, c, 3, 3), "fan_in"),
-                (f"trunk.{name}.bias", (ch,), "bias")]
-        c = ch
-    return out, c
-
-
-def _bn(prefix: str, ch: int):
-    return [(f"{prefix}.scale", (ch,), "bn_scale"), (f"{prefix}.bias", (ch,), "bias")]
+@functools.cache
+def network_module(name: str):
+    """The module ``networks/<name>.py``, loaded once."""
+    path = NETWORKS_DIR / f"{name}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"no reference network {name!r}: {path} does not exist")
+    spec = importlib.util.spec_from_file_location(f"_bench_network_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
-def resnet50_specs():
-    out = [("trunk.conv1.weight", (64, 3, 7, 7), "fan_in"), *_bn("trunk.bn1", 64)]
-    c_in = 64
-    for stage, n in enumerate(RESNET50_STAGES):
-        ch = 64 * 2 ** stage
-        for b in range(n):
-            p = f"trunk.layer{stage + 1}_block{b}"
-            out += [(f"{p}.conv1.weight", (ch, c_in, 1, 1), "fan_in"), *_bn(f"{p}.bn1", ch),
-                    (f"{p}.conv2.weight", (ch, ch, 3, 3), "fan_in"), *_bn(f"{p}.bn2", ch),
-                    (f"{p}.conv3.weight", (4 * ch, ch, 1, 1), "fan_in"), *_bn(f"{p}.bn3", 4 * ch)]
-            if b == 0:
-                out += [(f"{p}.downsample.weight", (4 * ch, c_in, 1, 1), "fan_in"),
-                        *_bn(f"{p}.downsample_bn", 4 * ch)]
-            c_in = 4 * ch
-    return out, c_in
-
-
-def head_specs(kind: str, in_dim: int, fc_dim: int, fc7_dim: int, outputs: dict):
-    """fc6, fc7 and the output layers ``{name: (rows, kind)}``."""
-    d7 = fc7_dim or fc_dim
-    out = [("head.fc.fc6.weight", (fc_dim, in_dim), "fan_in"), ("head.fc.fc6.bias", (fc_dim,), "bias"),
-           ("head.fc.fc7.weight", (d7, fc_dim), "fan_in"), ("head.fc.fc7.bias", (d7,), "bias")]
-    for name, (rows, init) in outputs.items():
-        out += [(f"head.{name}.weight", (rows, d7), init), (f"head.{name}.bias", (rows,), "bias")]
-    return out
-
-
-def head_outputs(kind: str, model: dict) -> dict:
-    """The output layers of a head, in the order of its one fused dot."""
-    if kind == "az":
-        k = model["NUM_TEMPLATES"]
-        return {"zoom_score": (1, "score"), "adj_score": (k, "score"), "adj_bbox": (4 * k, "bbox")}
-    c = model["NUM_CLASSES"]
-    return {"cls_score": (c, "score"), "bbox_pred": (4 * c, "bbox")}
+def network(model: dict):
+    """The network module of a configuration's ``MODEL`` section, named by
+    its ``BACKBONE``."""
+    return network_module(model["BACKBONE"])
 
 
 def param_specs(model: dict, kind: str):
@@ -120,16 +98,36 @@ def param_specs(model: dict, kind: str):
     config's ``MODEL`` section: ``[(name, shape, init)]``, ``init`` one of
     ``fan_in`` (normal, std 1/sqrt(fan-in)), ``score`` (std 0.01), ``bbox``
     (std 0.001), ``bias`` (std 0.01) and ``bn_scale`` (1 + 0.1 normal)."""
-    if model["BACKBONE"] == "vgg16":
-        trunk, c = vgg16_specs(model["WIDTH"])
-    elif model["BACKBONE"] == "resnet50":
-        trunk, c = resnet50_specs()
-    else:
-        raise ValueError(f"no reference for backbone {model['BACKBONE']!r}")
-    in_dim = model["POOL_SIZE"] ** 2 * c
-    return trunk + head_specs(kind, in_dim, model["FC_DIM"], model["FC7_DIM"],
-                              head_outputs(kind, model))
+    return network(model).param_specs(model, kind)
 
+
+def head_outputs(kind: str, model: dict) -> dict:
+    """The output layers of the network's head ``{name: (rows, init)}``."""
+    return network(model).head_outputs(kind, model)
+
+
+def head_input_weights(model: dict, kind: str):
+    return network(model).head_input_weights(model, kind)
+
+
+def trunk(model: dict, p: dict, x: torch.Tensor, q=_ident) -> torch.Tensor:
+    """The network's trunk, in true float32."""
+    with ieee_fp32():
+        return network(model).trunk(model, p, x.float(), q)
+
+
+def head(model: dict, kind: str, p: dict, pooled: torch.Tensor, q=_ident) -> dict:
+    """The network's head, in true float32."""
+    with ieee_fp32():
+        return network(model).head(model, kind, p, pooled, q)
+
+
+def roi_forward(model: dict, kind: str, p: dict, feat, rois, q=_ident) -> dict:
+    pooled = roi_align(q(feat), rois, model["FEAT_STRIDE"], model["POOL_SIZE"])
+    return head(model, kind, p, pooled, q)
+
+
+# -- parameters ---------------------------------------------------------------
 
 def init_std(shape, init: str) -> tuple:
     """``(std, mean)`` of a parameter's normal draw."""
@@ -138,63 +136,55 @@ def init_std(shape, init: str) -> tuple:
             "bn_scale": (0.1, 1.0)}[init]
 
 
-# -- trunks -------------------------------------------------------------------
+def bn_specs(prefix: str, ch: int):
+    return [(f"{prefix}.scale", (ch,), "bn_scale"), (f"{prefix}.bias", (ch,), "bias")]
 
-def _conv(x, w, b=None, q=_ident, **kw):
+
+def output_layers(kind: str, model: dict) -> dict:
+    """AZ-Net's or Fast R-CNN's output layers ``{name: (rows, init)}``, in
+    the order of ``output_dot``."""
+    if kind == "az":
+        k = model["NUM_TEMPLATES"]
+        return {"zoom_score": (1, "score"), "adj_score": (k, "score"), "adj_bbox": (4 * k, "bbox")}
+    c = model["NUM_CLASSES"]
+    return {"cls_score": (c, "score"), "bbox_pred": (4 * c, "bbox")}
+
+
+def output_specs(kind: str, model: dict, in_dim: int):
+    out = []
+    for name, (rows, init) in output_layers(kind, model).items():
+        out += [(f"head.{name}.weight", (rows, in_dim), init), (f"head.{name}.bias", (rows,), "bias")]
+    return out
+
+
+def fc_head_specs(model: dict, kind: str, channels: int):
+    """fc6 and fc7 on the flattened ``POOL_SIZE`` x ``POOL_SIZE`` x
+    ``channels`` pool, and the output layers."""
+    fc_dim = model["FC_DIM"]
+    d7 = model["FC7_DIM"] or fc_dim
+    in_dim = model["POOL_SIZE"] ** 2 * channels
+    return [("head.fc.fc6.weight", (fc_dim, in_dim), "fan_in"), ("head.fc.fc6.bias", (fc_dim,), "bias"),
+            ("head.fc.fc7.weight", (d7, fc_dim), "fan_in"), ("head.fc.fc7.bias", (d7,), "bias"),
+            *output_specs(kind, model, d7)]
+
+
+# -- layers ---------------------------------------------------------------------
+
+def conv(x, w, b=None, q=_ident, **kw):
     return F.conv2d(q(x), q(w), b, **kw)
 
 
-def vgg16_trunk(p: dict, x: torch.Tensor, q=_ident) -> torch.Tensor:
-    """``[B, H, W, 3]`` -> ``[B, H/16, W/16, C]``."""
-    x = x.permute(0, 3, 1, 2)
-    for name, ch in VGG16_LAYOUT:
-        if ch is None:
-            x = F.max_pool2d(x, 2, 2)
-        else:
-            x = F.relu(_conv(x, p[f"trunk.{name}.weight"], p[f"trunk.{name}.bias"], q, padding=1))
-    return x.permute(0, 2, 3, 1)
-
-
-def _frozen_bn(p, prefix, x):
+def frozen_bn(p, prefix, x):
     return x * p[f"{prefix}.scale"][:, None, None] + p[f"{prefix}.bias"][:, None, None]
 
 
-def _pad_same(x, k: int, s: int):
+def pad_same(x, k: int, s: int):
     """TensorFlow's ``SAME`` padding of NCHW ``x`` for a k x k / s conv."""
     pads = []
     for n in (x.shape[3], x.shape[2]):
         total = max((-(-n // s) - 1) * s + k - n, 0)
         pads += [total // 2, total - total // 2]
     return F.pad(x, pads)
-
-
-def resnet50_trunk(p: dict, x: torch.Tensor, q=_ident) -> torch.Tensor:
-    """``[B, H, W, 3]`` -> conv4_x features ``[B, H/16, W/16, 1024]``."""
-    x = x.permute(0, 3, 1, 2)
-    x = F.relu(_frozen_bn(p, "trunk.bn1", _conv(x, p["trunk.conv1.weight"], q=q, stride=2, padding=3)))
-    x = F.max_pool2d(x, 3, 2, padding=1)
-    for stage, n in enumerate(RESNET50_STAGES):
-        for b in range(n):
-            pre = f"trunk.layer{stage + 1}_block{b}"
-            stride = 2 if stage > 0 and b == 0 else 1
-            y = F.relu(_frozen_bn(p, f"{pre}.bn1", _conv(x, p[f"{pre}.conv1.weight"], q=q)))
-            w2 = p[f"{pre}.conv2.weight"]
-            y = (_conv(y, w2, q=q, padding=1) if stride == 1
-                 else _conv(_pad_same(y, 3, 2), w2, q=q, stride=2))
-            y = F.relu(_frozen_bn(p, f"{pre}.bn2", y))
-            y = _frozen_bn(p, f"{pre}.bn3", _conv(y, p[f"{pre}.conv3.weight"], q=q))
-            res = x
-            if b == 0:
-                res = _frozen_bn(p, f"{pre}.downsample_bn",
-                                 _conv(x, p[f"{pre}.downsample.weight"], q=q, stride=stride))
-            x = F.relu(y + res)
-    return x.permute(0, 2, 3, 1)
-
-
-def trunk(model: dict, p: dict, x: torch.Tensor, q=_ident) -> torch.Tensor:
-    fn = {"vgg16": vgg16_trunk, "resnet50": resnet50_trunk}[model["BACKBONE"]]
-    with ieee_fp32():
-        return fn(p, x.float(), q)
 
 
 # -- ROI align and heads --------------------------------------------------------
@@ -225,16 +215,22 @@ def roi_align(feat, rois, stride: int, pool: int, chunk: int = 32):
     return torch.cat(outs)
 
 
-def head(model: dict, kind: str, p: dict, pooled: torch.Tensor, q=_ident) -> dict:
+def fc_head(model: dict, kind: str, p: dict, pooled: torch.Tensor, q=_ident) -> dict:
     """fc6 -> ReLU -> fc7 -> ReLU -> the output layers (one dot)."""
     x = pooled.reshape(pooled.shape[0], -1)
-    outs = head_outputs(kind, model)
-    with ieee_fp32():
-        for fc in ("fc6", "fc7"):
-            x = F.relu(F.linear(q(x), q(p[f"head.fc.{fc}.weight"]), p[f"head.fc.{fc}.bias"]))
-        w = torch.cat([p[f"head.{n}.weight"] for n in outs])
-        b = torch.cat([p[f"head.{n}.bias"] for n in outs])
-        y = F.linear(q(x), q(w), b)
+    for fc in ("fc6", "fc7"):
+        x = F.relu(F.linear(q(x), q(p[f"head.fc.{fc}.weight"]), p[f"head.fc.{fc}.bias"]))
+    return output_dot(model, kind, p, x, q)
+
+
+def output_dot(model: dict, kind: str, p: dict, x: torch.Tensor, q=_ident) -> dict:
+    """The output layers of ``output_layers`` as one dot over ``x [R, D]``:
+    ``zoom``, ``adj_score``, ``adj_delta [R, K, 4]`` (``'az'``) or
+    ``cls_score``, ``bbox_pred`` (``'frcnn'``)."""
+    outs = output_layers(kind, model)
+    w = torch.cat([p[f"head.{n}.weight"] for n in outs])
+    b = torch.cat([p[f"head.{n}.bias"] for n in outs])
+    y = F.linear(q(x), q(w), b)
     if kind == "az":
         k = model["NUM_TEMPLATES"]
         return {"zoom": y[:, 0], "adj_score": y[:, 1:1 + k],
@@ -243,9 +239,12 @@ def head(model: dict, kind: str, p: dict, pooled: torch.Tensor, q=_ident) -> dic
     return {"cls_score": y[:, :c], "bbox_pred": y[:, c:]}
 
 
-def roi_forward(model: dict, kind: str, p: dict, feat, rois, q=_ident) -> dict:
-    pooled = roi_align(q(feat), rois, model["FEAT_STRIDE"], model["POOL_SIZE"])
-    return head(model, kind, p, pooled, q)
+def dense_flops(specs, rows: int) -> float:
+    """Two FLOPs a multiply-add of every dot of ``specs`` (a 2-d
+    ``head.*.weight``: fc6, fc7, the output layers) over ``rows`` rows."""
+    shapes = {name: shape for name, shape, _ in specs
+              if name.startswith("head.") and name.endswith(".weight") and len(shape) == 2}
+    return 2.0 * rows * sum(s[0] * s[1] for s in shapes.values())
 
 
 # -- preprocess -----------------------------------------------------------------

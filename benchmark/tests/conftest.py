@@ -12,8 +12,8 @@ BENCH = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(BENCH), str(BENCH.parent)]
 
 from harness import spec  # noqa: E402
+from reference import nets  # noqa: E402
 
-TINY_MODEL = {"WIDTH": 0.125, "FC_DIM": 64}
 TINY_SEAR = {"MAX_LEVELS": 3, "FRONTIER_CAP": 16, "CAND_BUF": 256, "NUM_PROPOSALS": 50}
 # The propose cells' limit at this size, between the program's readings
 # (0.0042-0.0087 over three seeds a cell) and the lower-precision control's
@@ -22,12 +22,13 @@ TINY_PROPOSE_LIMITS = {"proposal_gap": 0.02, "zoom_band": 0.2}
 
 
 def tiny_cell(name: str) -> spec.Cell:
-    """A cell of BENCHMARK.json cut to a CPU test's size: VGG-16 at an eighth
-    of its widths (ResNet-50 whole), fc6/fc7 64 wide, a 3-level search,
-    60x80 images on a 64x96 canvas, 1 to 2 images a call."""
+    """A cell of BENCHMARK.json cut to a CPU test's size: its network's
+    ``TINY`` settings (VGG-16 at an eighth of its widths, ResNet-50 whole;
+    fc6/fc7 64 wide), a 3-level search, 60x80 images on a 64x96 canvas, 1 to
+    2 images a call."""
     cell = spec.load_cell(name)
     conf = copy.deepcopy(cell.conf)
-    conf["MODEL"].update(TINY_MODEL if conf["MODEL"]["BACKBONE"] == "vgg16" else {"FC_DIM": 64})
+    conf["MODEL"].update(nets.network(conf["MODEL"]).TINY)
     conf["SEAR"].update(TINY_SEAR)
     conf["TEST"].update(SCALES=[64], MAX_SIZE=128)
     conf["canvas"] = [64, 96]

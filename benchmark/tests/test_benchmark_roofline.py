@@ -21,13 +21,13 @@ def test_vgg16_flops_by_hand():
     # conv1_1 alone at 2x2 is 2*2*2 * 9*3*64 FLOPs; the whole net at 32x32:
     h = w = 32
     want, c = 0, 3
-    for _, ch in nets.VGG16_LAYOUT:
+    for _, ch in nets.network_module("vgg16").LAYOUT:
         if ch is None:
             h, w = h // 2, w // 2
         else:
             want += 2 * h * w * 9 * c * ch
             c = ch
-    assert roofline.vgg16_flops(1.0, 32, 32) == want
+    assert roofline.trunk_flops({"BACKBONE": "vgg16", "WIDTH": 1.0}, (32, 32)) == want
 
 
 def test_trunk_and_head_flops_match_the_flop_counter():

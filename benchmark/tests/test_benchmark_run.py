@@ -15,13 +15,17 @@ import pytest
 import torch
 
 from conftest import BENCH, TINY_SEAR, tiny_cell
-from harness import runner, trace as tr
+from harness import runner, spec, trace as tr
 from harness.system import PortSystem, ReferenceSystem, reverse_frontier_top_k
 
 ROOT = BENCH.parent
-CELLS = ["resnet50_1080p.propose_b4", "vgg16.detect_given_b8",
-         "vgg16.im_propose_b1"]
+CELLS = [w["name"] for w in spec.load_bench()["workloads"]]
 KEYS = ["correct", "attempted", "failed", "metrics", "device"]
+# The faults a traffic mix's driver can have: half of a batch needs a batch
+# of two or more, and the search's faults a search.
+FAULTS = {"propose_batch": ("altered", "half_batch", "reversed_top_k", "unchanged_state"),
+          "detect_batch": ("altered", "half_batch"),
+          "im_propose": ("altered", "reversed_top_k", "unchanged_state")}
 
 
 def run(name, system=PortSystem, seconds=0.0, traced=False, seed=2 ** 31 + 5):
@@ -37,9 +41,8 @@ def test_program_is_correct_and_the_line_has_its_keys(name):
     assert list(r) == KEYS + ["checks"]
     assert r["correct"], r["checks"]
     assert r["attempted"] > 0 and r["failed"] == 0
-    e2e = {"vgg16.detect_given_b8": "detect_img_per_s",
-           "vgg16.im_propose_b1": "propose_latency_p95_ms"}.get(name, "propose_img_per_s")
-    assert set(r["metrics"]) == {e2e, "setup_s"}
+    assert set(r["metrics"]) == {m["name"] for m in spec.load_cell(name).end_to_end}
+    assert len(r["metrics"]) == 2 and "setup_s" in r["metrics"]
     assert all(set(c) == {"value", "limit"} for c in r["checks"].values())
 
 
@@ -135,7 +138,8 @@ def _fault_system(kind, monkeypatch=None):
         from aznet_tpu_torch.search import propose
 
         if kind == "reversed_top_k":
-            monkeypatch.setattr(propose, "top_k", propose.top_k)  # undone after the test
+            for name in ("top_k", "level_cuda"):  # undone after the test
+                monkeypatch.setattr(propose, name, getattr(propose, name))
             reverse_frontier_top_k(TINY_SEAR["CAND_BUF"])
         else:
             monkeypatch.setattr(propose, "_apply_normalized",
@@ -179,15 +183,46 @@ def _fault_system(kind, monkeypatch=None):
 
 
 @pytest.mark.parametrize("name,fault", [
-    ("resnet50_1080p.propose_b4", "altered"), ("resnet50_1080p.propose_b4", "half_batch"),
-    ("resnet50_1080p.propose_b4", "reversed_top_k"),
-    ("resnet50_1080p.propose_b4", "unchanged_state"),
-    ("vgg16.detect_given_b8", "altered"), ("vgg16.detect_given_b8", "half_batch"),
-    ("vgg16.im_propose_b1", "altered"), ("vgg16.im_propose_b1", "reversed_top_k"),
-    ("vgg16.im_propose_b1", "unchanged_state")])
+    (name, fault) for name in CELLS for fault in FAULTS[spec.load_cell(name).traffic["driver"]]])
 def test_a_planted_fault_is_not_correct(name, fault, monkeypatch):
     r = run(name, system=_fault_system(fault, monkeypatch))
     assert not r["correct"], r["checks"]
+
+
+def test_the_planted_top_k_fault_reaches_the_cards_path():
+    """On the card a level is one kernel that sorts the frontier itself: the
+    fault puts the level's plain version, which calls ``top_k``, in its
+    place, and takes both out again."""
+    from aznet_tpu_torch.search import propose
+
+    top_k, level_cuda = propose.top_k, propose.level_cuda
+    undo = reverse_frontier_top_k(256)
+    try:
+        assert propose.level_cuda is propose.level_plain
+        assert propose.top_k is not top_k
+    finally:
+        undo()
+    assert propose.top_k is top_k and propose.level_cuda is level_cuda
+
+
+@pytest.mark.parametrize("planted", [True, False], ids=["planted", "not_planted"])
+def test_calibrate_refuses_a_fault_that_reads_correct(planted, monkeypatch, capsys):
+    sys.path.insert(0, str(BENCH / "tools"))
+    import calibrate
+    from harness import system
+
+    cell = tiny_cell("vgg16.im_propose_b1")
+    if not planted:  # a fault planted where the program does not run
+        monkeypatch.setattr(system, "reverse_frontier_top_k", lambda cand_buf: (lambda: None))
+    args = calibrate.parse(["--workload", cell.name, "--fault-seeds", str(2 ** 31 + 9),
+                            "--seconds", "0"])
+    rc = calibrate.calibrate(cell, args, torch.device("cpu"))
+    out, err = capsys.readouterr()
+    lines = [json.loads(line) for line in out.splitlines()]
+    assert [r["side"] for r in lines] == ["reversed_top_k"]
+    assert lines[0]["correct"] is not planted
+    assert rc == (0 if planted else 1)
+    assert ("reads correct on seed 2147483657" in err) is not planted
 
 
 @pytest.mark.cuda
