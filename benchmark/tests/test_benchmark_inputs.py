@@ -1,12 +1,13 @@
 """What the benchmark makes from ``--seed``: the same seed gives the same
 weights, images and given boxes; another seed gives others; seeds past 32
-bits work. The reference's parameter list is the port's, name for name."""
+bits work. The reference's parameter list is the port's, name for name, for
+each network and kind that a cell of BENCHMARK.json runs."""
 
 import numpy as np
 import pytest
 import torch
 
-from conftest import tiny_cell
+from conftest import network_cells, tiny_cell
 from harness import inputs
 from reference import nets, search as rs
 
@@ -62,12 +63,15 @@ def test_weights_repeat_and_set_the_heads(kind):
         assert by_depth == sorted(by_depth, reverse=True)  # a larger region zooms more
 
 
-@pytest.mark.parametrize("backbone,kind", [("vgg16", "az"), ("vgg16", "frcnn"), ("resnet50", "az")])
+NETWORKS = network_cells()
+
+
+@pytest.mark.parametrize("backbone,kind", list(NETWORKS))
 def test_reference_parameters_are_the_ports(backbone, kind):
     from aznet_tpu_torch import api
     from aznet_tpu_torch.config import Config, cfg_from_dict
 
-    cell = tiny_cell("vgg16.im_propose_b1" if backbone == "vgg16" else "resnet50_1080p.propose_b4")
+    cell = tiny_cell(NETWORKS[backbone, kind])
     model = cell.conf["MODEL"]
     cfg = cfg_from_dict(Config(), {"MODEL": model})
     with torch.device("meta"):

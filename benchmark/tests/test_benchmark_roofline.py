@@ -6,7 +6,7 @@ import math
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from conftest import tiny_cell
+from conftest import network_cells, tiny_cell
 from harness import inputs, roofline
 from reference import nets
 
@@ -31,13 +31,17 @@ def test_vgg16_flops_by_hand():
 
 
 def test_trunk_and_head_flops_match_the_flop_counter():
-    for name in ("vgg16.im_propose_b1", "resnet50_1080p.propose_b4"):
+    """On each network that a cell of BENCHMARK.json runs."""
+    cells = {}
+    for (network, _), name in network_cells().items():
+        cells.setdefault(network, name)
+    for name in cells.values():
         model = tiny_cell(name).conf["MODEL"]
         p = inputs.make_weights(model, "az", 1, "cpu")
         x = torch.zeros(1, 64, 96, 3)
         assert counted(lambda: nets.trunk(model, p, x)) == roofline.trunk_flops(model, (64, 96))
         channels = nets.trunk(model, p, x).shape[-1]
-        pooled = torch.zeros(5, 7, 7, channels)
+        pooled = torch.zeros(5, model["POOL_SIZE"], model["POOL_SIZE"], channels)
         assert counted(lambda: nets.head(model, "az", p, pooled)) == roofline.head_flops(model, "az", 5)
 
 
