@@ -12,7 +12,10 @@ top NUM_PROPOSALS.
 
 After the head, a level is :func:`level_step` (plain PyTorch, on the CPU)
 or, for features on the card, one launch of ``csrc/search_level.cu``
-(``ops/cuda/search_level_kernel.py``), equal to it bit for bit.
+(``ops/cuda/search_level_kernel.py``), equal to it bit for bit. Likewise the
+search's seed (:func:`seed_plain` / :func:`seed_cuda`) and its selection
+(:func:`select_plain` / :func:`select_cuda`): on the card one launch before
+the first level and two around the NMS kernel (``csrc/search_select.cu``).
 
 Spans (``utils/profiling.py``, recorded only under ``torch.profiler``): a
 ``search.level`` per level run (``level``, and ``rows``, the padded frontier
@@ -35,7 +38,9 @@ import torch
 from aznet_tpu_torch.config import SearchConfig
 from aznet_tpu_torch.ops.boxes import bbox_transform_inv, clip_boxes
 from aznet_tpu_torch.ops.cuda.search_level_kernel import search_level_cuda
-from aznet_tpu_torch.ops.nms import nms_topk
+from aznet_tpu_torch.ops.cuda.search_select_kernel import (search_cap_cuda, search_seed_cuda,
+                                                           search_topk_cuda)
+from aznet_tpu_torch.ops.nms import nms_mask, nms_topk
 from aznet_tpu_torch.ops.topk import top_k
 from aznet_tpu_torch.search.templates import (
     NUM_DIVISIONS,
@@ -186,6 +191,54 @@ def level_cuda(out: dict, f_boxes, f_valid, next_cap: int, c: LevelConsts,
                              min_size=c.min_size, clip=c.clip, neg_inf=NEG_INF)
 
 
+def seed_plain(im_hw, scfg: SearchConfig, offset: float, cap: int, total: int,
+               device: torch.device):
+    """A search's start, the plain version: ``(extent [2], f_boxes [cap, 4],
+    f_valid [cap], cand_boxes [total, 4], cand_scores [total])``, the valid
+    ``(h, w)`` as float32, the seed frontier (:func:`init_frontier`) and the
+    candidate buffers (zero boxes, NEG_INF scores), on ``device``."""
+    im_h = torch.as_tensor(im_hw[0], dtype=torch.float32, device=device)
+    im_w = torch.as_tensor(im_hw[1], dtype=torch.float32, device=device)
+    cand_boxes = torch.zeros((total, 4), dtype=torch.float32, device=device)
+    cand_scores = torch.full((total,), NEG_INF, dtype=torch.float32, device=device)
+    f_boxes, f_valid = init_frontier(im_h, im_w, scfg, offset, cap=cap)
+    return torch.stack([im_h, im_w]), f_boxes, f_valid, cand_boxes, cand_scores
+
+
+def seed_cuda(im_hw, scfg: SearchConfig, offset: float, cap: int, total: int,
+              device: torch.device):
+    """:func:`seed_plain` on the card: one launch of ``csrc/search_select.cu``."""
+    n = seed_count(scfg.SEED_LEVELS)
+    if n > cap:
+        raise ValueError(f"SEED_LEVELS={scfg.SEED_LEVELS} yields {n} seed regions "
+                         f"> FRONTIER_CAP={cap}")
+    return search_seed_cuda(im_hw[0], im_hw[1], division_table(scfg.DIV_OVERLAP), n, cap,
+                            total, offset=offset, neg_inf=NEG_INF, device=device)
+
+
+def select_plain(c_boxes, c_scores, scfg: SearchConfig, offset: float):
+    """The search's selection, the plain version: the candidates capped at
+    CAND_BUF by score (the one lossy step), those under CONF_THRESH dropped,
+    exact greedy NMS, the top NUM_PROPOSALS: ``(boxes, scores, valid)``."""
+    if c_scores.shape[0] > scfg.CAND_BUF:
+        c_scores, idx = top_k(c_scores, scfg.CAND_BUF)
+        c_boxes = c_boxes[idx]
+
+    final_scores = torch.where(c_scores >= scfg.CONF_THRESH, c_scores, NEG_INF)
+    live = final_scores > NEG_INF
+    return nms_topk(c_boxes, final_scores, scfg.NMS_THRESH, scfg.NUM_PROPOSALS,
+                    valid=live, offset=offset)
+
+
+def select_cuda(c_boxes, c_scores, scfg: SearchConfig, offset: float):
+    """:func:`select_plain` on the card: a launch of ``csrc/search_select.cu``
+    for the cap and threshold, the NMS kernel, a launch for the top-k."""
+    boxes, final, live = search_cap_cuda(c_boxes, c_scores, scfg.CAND_BUF, scfg.CONF_THRESH,
+                                         NEG_INF)
+    keep = nms_mask(boxes, final, scfg.NMS_THRESH, valid=live, offset=offset)
+    return search_topk_cuda(keep, final, boxes, scfg.NUM_PROPOSALS)
+
+
 def search_candidates(roi_forward: Callable, feat: torch.Tensor, im_hw, scfg: SearchConfig,
                       num_templates: int = 11, offset: float = 1.0,
                       collect_frontier: bool = False):
@@ -193,20 +246,17 @@ def search_candidates(roi_forward: Callable, feat: torch.Tensor, im_hw, scfg: Se
     cand_scores [T])`` in the layout of :func:`candidate_starts` (the slots
     of levels not run stay zero boxes at NEG_INF), then, with
     ``collect_frontier``, ``visited`` and ``visited_valid`` as
-    :func:`az_search` returns them. A level after the head is
-    :func:`level_cuda` where ``feat`` is a CUDA tensor, else
-    :func:`level_plain`."""
+    :func:`az_search` returns them. The seed and a level after the head are
+    :func:`seed_cuda` and :func:`level_cuda` where ``feat`` is a CUDA
+    tensor, else :func:`seed_plain` and :func:`level_plain`."""
     dev = feat.device
     r_cap = scfg.FRONTIER_CAP
-    im_h = torch.as_tensor(im_hw[0], dtype=torch.float32, device=dev)
-    im_w = torch.as_tensor(im_hw[1], dtype=torch.float32, device=dev)
     sched = frontier_schedule(scfg)
     starts, total = candidate_starts(scfg, num_templates)
-    consts = level_consts(scfg, num_templates, torch.stack([im_h, im_w]), offset)
-    step = level_cuda if feat.is_cuda else level_plain
-    cand_boxes = torch.zeros((total, 4), dtype=torch.float32, device=dev)
-    cand_scores = torch.full((total,), NEG_INF, dtype=torch.float32, device=dev)
-    f_boxes, f_valid = init_frontier(im_h, im_w, scfg, offset, cap=sched[0])
+    seed, step = (seed_cuda, level_cuda) if feat.is_cuda else (seed_plain, level_plain)
+    extent, f_boxes, f_valid, cand_boxes, cand_scores = seed(im_hw, scfg, offset, sched[0],
+                                                             total, dev)
+    consts = level_consts(scfg, num_templates, extent, offset)
     if collect_frontier:
         vis_b = torch.zeros((scfg.MAX_LEVELS, r_cap, 4), dtype=torch.float32, device=dev)
         vis_v = torch.zeros((scfg.MAX_LEVELS, r_cap), dtype=torch.bool, device=dev)
@@ -244,16 +294,11 @@ def az_search(roi_forward: Callable, feat: torch.Tensor, im_hw, scfg: SearchConf
     [MAX_LEVELS * FRONTIER_CAP, 4]`` and ``visited_valid``, in the
     reference's layout: one block of FRONTIER_CAP rows per level (a level of
     the unrolled prefix padded with zero rows), zero from the level where the
-    frontier emptied."""
+    frontier emptied. The selection is :func:`select_cuda` for candidates on
+    the card, else :func:`select_plain`."""
     c_boxes, c_scores, *visited = search_candidates(
         roi_forward, feat, im_hw, scfg, num_templates, offset, collect_frontier)
     with profiling.span("search.select"):
-        if c_scores.shape[0] > scfg.CAND_BUF:  # the one lossy step: cap by score
-            c_scores, idx = top_k(c_scores, scfg.CAND_BUF)
-            c_boxes = c_boxes[idx]
-
-        final_scores = torch.where(c_scores >= scfg.CONF_THRESH, c_scores, NEG_INF)
-        live = final_scores > NEG_INF
-        out = nms_topk(c_boxes, final_scores, scfg.NMS_THRESH, scfg.NUM_PROPOSALS,
-                       valid=live, offset=offset)
+        select = select_cuda if c_scores.is_cuda else select_plain
+        out = select(c_boxes, c_scores, scfg, offset)
     return (*out, *visited)

@@ -226,7 +226,11 @@ the first search of each path (phases 2, 4, 6, 8-10, 12-15; the first
 harvest in 11) are held bit for bit against ``search/propose.py::
 level_plain`` on the card, on the inputs the path gave the kernel. Phase 5
 also holds it alone at R = 64 and 128 and times it beside the plain version
-and its bound.
+and its bound. The search's seed and selection kernels
+(``csrc/search_select.cu``: three launches a search, counted together) are
+counted beside it on the same paths, the first search's seed and selection
+held bit for bit against ``seed_plain`` and ``select_plain`` with its
+levels, and phase 5 times them alone at both benchmark configurations.
 
 Prints the card's name and power limit, one JSON line of kernel records
 (each with its bound, library yardstick and launches on the eval path, in
@@ -289,6 +293,12 @@ times one search level after the head, the kernel (``csrc/search_level.cu``)
 and the plain version on the card, at the benchmark configurations' schedule
 steps (device time and launches per call, CUDA-event and host time), each
 first held bit for bit.
+
+    python3 chip_smoke.py --search-select-times [ROOT]
+
+does the same for the search's seed and its selection (``csrc/search_select.cu``
+against ``seed_plain`` and ``select_plain``, the NMS kernel in both
+selections) at both benchmark configurations' SEAR and image size.
 """
 
 from __future__ import annotations
@@ -315,6 +325,9 @@ IOU_SOURCE = "aznet_tpu_torch/csrc/iou.cu"
 IOU_REPLACES = "aznet_tpu/ops/pallas/iou_kernel.py:43"
 SEARCH_LEVEL_SOURCE = "aznet_tpu_torch/csrc/search_level.cu"
 SEARCH_LEVEL_PLAIN = "aznet_tpu_torch/search/propose.py::level_plain"
+SEARCH_SELECT_SOURCE = "aznet_tpu_torch/csrc/search_select.cu"
+SEARCH_SELECT_PLAIN = ("aznet_tpu_torch/search/propose.py::seed_plain",
+                       "aznet_tpu_torch/search/propose.py::select_plain")
 # (R, next_cap) of the benchmark configurations' search levels.
 SEARCH_LEVEL_STEPS = ((8, 32), (32, 64), (32, 128), (64, 64), (128, 128))
 BATCH = 2
@@ -583,31 +596,41 @@ def nms_path_err(recorded):
 
 @contextlib.contextmanager
 def recording_search_level(recorded):
-    """Copies the inputs and results of the search-level kernel's launches
-    in the first search while active, as one record ``("search_level",
-    [level, ...], None)``; later searches run untouched (the count is kept
-    by the wrapper itself). The head's logits keep their strides."""
+    """Copies the inputs and results of the first search's seed, levels and
+    selection on the card (``propose.seed_cuda``, ``level_cuda``,
+    ``select_cuda``) while active, as one record ``("search_level", [level,
+    ...], {"seed": [...], "select": [...]})``; later searches run untouched
+    (the counts are kept by the wrappers themselves). The head's logits keep
+    their strides."""
     import torch
 
     from aznet_tpu_torch.search import propose
 
-    real, levels, searches = propose.level_cuda, [], []
+    real = propose.seed_cuda, propose.level_cuda, propose.select_cuda
+    levels, ends, searches = [], {"seed": [], "select": []}, []
 
     def same_layout(t):
         return torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
                                    device=t.device).copy_(t)
 
+    def seed(im_hw, scfg, offset, cap, total, device):
+        searches.append(cap)
+        if len(searches) == 1:
+            recorded.append(("search_level", levels, ends))
+        out = real[0](im_hw, scfg, offset, cap, total, device)
+        if len(searches) == 1:
+            hw = tuple(v.clone() if isinstance(v, torch.Tensor) else v for v in im_hw)
+            ends["seed"].append(((hw, scfg, offset, cap, total, device),
+                                 tuple(t.clone() for t in out)))
+        return out
+
     def level(out, f_boxes, f_valid, next_cap, consts, cand_boxes, cand_scores, start):
-        if start == 0:  # a search's first level
-            searches.append(start)
-            if len(searches) == 1:
-                recorded.append(("search_level", levels, None))
         first = len(searches) == 1
         if first:
             args = ({k: same_layout(out[k]) for k in ("zoom", "adj_score", "adj_delta")},
                     f_boxes.clone(), f_valid.clone(), next_cap, consts)
-        next_boxes, next_valid = real(out, f_boxes, f_valid, next_cap, consts, cand_boxes,
-                                      cand_scores, start)
+        next_boxes, next_valid = real[1](out, f_boxes, f_valid, next_cap, consts, cand_boxes,
+                                         cand_scores, start)
         if first:
             n = f_boxes.shape[0] * out["adj_score"].shape[1]
             levels.append((*args, (cand_boxes[start:start + n].clone(),
@@ -615,37 +638,72 @@ def recording_search_level(recorded):
                                    next_valid.clone())))
         return next_boxes, next_valid
 
-    propose.level_cuda = level
+    def select(c_boxes, c_scores, scfg, offset):
+        first = len(searches) == 1 and not ends["select"]
+        if first:
+            args = (c_boxes.clone(), c_scores.clone(), scfg, offset)
+        out = real[2](c_boxes, c_scores, scfg, offset)
+        if first:
+            ends["select"].append((args, tuple(t.clone() for t in out)))
+        return out
+
+    propose.seed_cuda, propose.level_cuda, propose.select_cuda = seed, level, select
     try:
         yield
     finally:
-        propose.level_cuda = real
+        propose.seed_cuda, propose.level_cuda, propose.select_cuda = real
+
+
+def equal_bits(got, want) -> bool:
+    """Equal shapes, dtypes and bits (so -0 and +0 differ)."""
+    import torch
+
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return False
+    if got.dtype == torch.float32:
+        return torch.equal(got.view(torch.int32), want.view(torch.int32))
+    return torch.equal(got, want)
 
 
 def search_level_path_err(recorded):
-    """Each recorded search level: the kernel's outputs on the path (the
-    candidate rows it wrote, the next frontier) against ``level_plain`` on
-    the same inputs on the card, checked bit for bit. Returns (max |kernel -
-    plain|, the levels' sorted (R, next_cap), the number of levels)."""
+    """Each recorded search: its seed, its levels (the candidate rows each
+    wrote, the next frontier) and its selection on the path against
+    ``seed_plain``, ``level_plain`` and ``select_plain`` on the same inputs on
+    the card, checked bit for bit. Returns (max |kernel - plain|, the
+    levels' sorted (R, next_cap), the number of levels)."""
     import torch
 
     from aznet_tpu_torch.search import propose
 
     err, shapes, n = 0.0, set(), 0
-    for kind, levels, _ in recorded:
+
+    def held(got, want, names, where):
+        nonlocal err
+        for g, w, name in zip(got, want, names):
+            check(equal_bits(g, w), f"{name} differs from the plain version {where} on the "
+                                    f"path's inputs")
+            diff = (g.float() - w.float()).abs().nan_to_num(0.0)  # equal bits: NaN - NaN
+            err = max(err, diff.max().item() if diff.numel() else 0.0)
+
+    for kind, levels, ends in recorded:
         if kind != "search_level":
             continue
+        check(len(ends["seed"]) == 1 and len(ends["select"]) == 1,
+              f"the first search's seed and selection were recorded {len(ends['seed'])} and "
+              f"{len(ends['select'])} times")
+        for args, got in ends["seed"]:
+            held(got, propose.seed_plain(*args), ("seed extent", "seed f_boxes", "seed f_valid",
+                                                  "seed cand_boxes", "seed cand_scores"),
+                 f"at cap={args[3]}, total={args[4]}")
+        for args, got in ends["select"]:
+            held(got, propose.select_plain(*args), ("select boxes", "select scores",
+                                                    "select valid"),
+                 f"at {args[1].shape[0]} candidates")
         for out, f_boxes, f_valid, next_cap, consts, got in levels:
             cand = (torch.empty_like(got[0]), torch.empty_like(got[1]))
             want = (*cand, *propose.level_plain(out, f_boxes, f_valid, next_cap, consts, *cand, 0))
-            for g, w, name in zip(got, want, ("cand_boxes", "cand_scores", "next_boxes",
-                                              "next_valid")):
-                same = (torch.equal(g.view(torch.int32), w.view(torch.int32))
-                        if g.dtype == torch.float32 else torch.equal(g, w))
-                check(same, f"search-level kernel: {name} differs from the plain version at "
-                            f"R={f_boxes.shape[0]}, next_cap={next_cap} on the path's inputs")
-                diff = (g.float() - w.float()).abs().nan_to_num(0.0)  # equal bits: NaN - NaN
-                err = max(err, diff.max().item())
+            held(got, want, ("search-level kernel: cand_boxes", "cand_scores", "next_boxes",
+                             "next_valid"), f"at R={f_boxes.shape[0]}, next_cap={next_cap}")
             shapes.add((f_boxes.shape[0], next_cap))
             n += 1
     return err, sorted(shapes), n
@@ -664,7 +722,7 @@ def phase2_propose(dev, net, tag="phase2", recorders=(), counters=(), raw_hw=RAW
     import torch
 
     from aznet_tpu_torch import api
-    from aznet_tpu_torch.ops.cuda import nms_kernel, search_level_kernel
+    from aznet_tpu_torch.ops.cuda import nms_kernel, search_level_kernel, search_select_kernel
 
     cfg = net.cfg
     rng = np.random.RandomState(0)
@@ -680,17 +738,21 @@ def phase2_propose(dev, net, tag="phase2", recorders=(), counters=(), raw_hw=RAW
             stack.enter_context(rec)
         for _, reset, _ in counters:
             reset()
-        nms_kernel.LAUNCHES = search_level_kernel.LAUNCHES = 0
+        nms_kernel.LAUNCHES = search_level_kernel.LAUNCHES = search_select_kernel.LAUNCHES = 0
         boxes, scores, valid = fn(images)
         dets = api.im_propose(net, ims_np[0])
         torch.cuda.synchronize()
         launches, levels = nms_kernel.LAUNCHES, search_level_kernel.LAUNCHES
+        selects = search_select_kernel.LAUNCHES
         counts = {name: read() for name, _, read in counters}
-    print(f"{tag} main path: nms launches {launches}, search_level launches {levels}"
+    print(f"{tag} main path: nms launches {launches}, search_level launches {levels}, "
+          f"search_select launches {selects}"
           + "".join(f", {k} launches {v}" for k, v in counts.items()), flush=True)
     check(launches >= BATCH + 1, f"NMS kernel launched {launches} times, expected >= {BATCH + 1}")
     check(levels >= BATCH + 1, f"search-level kernel launched {levels} times in {BATCH + 1} "
                                "searches")
+    check(selects >= 3 * (BATCH + 1) and selects % 3 == 0, f"search seed and selection kernels "
+          f"launched {selects} times in {BATCH + 1} or more searches")
 
     h, w = raw_hw
     check(boxes.shape == (BATCH, cfg.SEAR.NUM_PROPOSALS, 4), f"boxes shape {tuple(boxes.shape)}")
@@ -714,8 +776,9 @@ def phase2_propose(dev, net, tag="phase2", recorders=(), counters=(), raw_hw=RAW
           f"kernel vs plain max_abs_err {nms_err}", flush=True)
     check(nms_err == 0.0, "NMS kernel disagrees with the plain version on the path's inputs")
     level_err, shapes, n = search_level_path_err(recorded_levels)
-    print(f"{tag} search level on the first search's {n} levels ((R, next_cap) in {shapes}): "
-          f"kernel vs plain max_abs_err {level_err}, bit for bit", flush=True)
+    print(f"{tag} search seed, level and selection kernels on the first search's seed, {n} "
+          f"levels ((R, next_cap) in {shapes}) and selection: kernel vs plain max_abs_err "
+          f"{level_err}, bit for bit", flush=True)
     check(n >= 1, f"{tag}: no search level recorded")
 
     ms = cuda_ms(lambda: fn(images), 5, 2)
@@ -729,7 +792,8 @@ def phase2_propose(dev, net, tag="phase2", recorders=(), counters=(), raw_hw=RAW
     ips = BATCH / (ms / 1e3)
     print(f"{tag} make_propose_batch b={BATCH}: {ms:.3f} ms/call, {ips:.2f} img/s; "
           f"peak {peak:.2f} GiB", flush=True)
-    return launches, ips, nms_err, counts, blobs, {"launches": levels, "err": level_err}
+    return launches, ips, nms_err, counts, blobs, {"launches": levels, "err": level_err,
+                                                   "select_launches": selects}
 
 
 def breakdown(tag, net, blobs):
@@ -1578,7 +1642,7 @@ def phase6_detect(dev):
     from aznet_tpu_torch import api
     from aznet_tpu_torch.ops import conv1_fused as tconv1
     from aznet_tpu_torch.ops.cuda import (conv1_kernel, nms_kernel, roi_align_kernel,
-                                          search_level_kernel)
+                                          search_level_kernel, search_select_kernel)
 
     cfg = detect_config()
     t0 = time.perf_counter()
@@ -1601,14 +1665,15 @@ def phase6_detect(dev):
     recorded = []
     with recording_detect_kernels(recorded), recording_search_level(recorded):
         roi_align_kernel.LAUNCHES = conv1_kernel.LAUNCHES = nms_kernel.LAUNCHES = 0
-        search_level_kernel.LAUNCHES = 0
+        search_level_kernel.LAUNCHES = search_select_kernel.LAUNCHES = 0
         p_boxes, p_scores, p_valid, d_scores, d_boxes = fused(images, src_hw, scales)
         t_scores, t_boxes = detect(images, src_hw, scales, p_boxes)
         props = api.im_propose(az, ims_np[0])
         s1, b1 = api.im_detect(fr, ims_np[0], props)
         torch.cuda.synchronize()
         counts = {"roi_align": roi_align_kernel.LAUNCHES, "conv1": conv1_kernel.LAUNCHES,
-                  "nms": nms_kernel.LAUNCHES, "search_level": search_level_kernel.LAUNCHES}
+                  "nms": nms_kernel.LAUNCHES, "search_level": search_level_kernel.LAUNCHES,
+                  "search_select": search_select_kernel.LAUNCHES}
     print(f"phase6 main path: launches {counts}", flush=True)
     n_iter = max(int(cfg.TEST.BBOX_ITER), 1)
     searches, detects, trunk_calls = BATCH + 1, 2 * BATCH + 1, 4
@@ -1619,6 +1684,9 @@ def phase6_detect(dev):
     check(counts["nms"] >= searches, f"NMS kernel launched {counts['nms']} times")
     check(counts["search_level"] >= searches,
           f"search-level kernel launched {counts['search_level']} times in {searches} searches")
+    check(counts["search_select"] >= 3 * searches and counts["search_select"] % 3 == 0,
+          f"search seed and selection kernels launched {counts['search_select']} times in "
+          f"{searches} or more searches")
 
     for i in range(BATCH):
         n = int(p_valid[i].sum())
@@ -1658,9 +1726,10 @@ def phase6_detect(dev):
     check(errs["roi"] == 0.0, "ROI-align kernel disagrees with the plain version on the path's "
                               "inputs")
     errs["search_level"], shapes, n = search_level_path_err(recorded)
-    print(f"phase6 search level ({counts['search_level']} launches) on the first search's {n} "
-          f"levels ((R, next_cap) in {shapes}): max_abs_err {errs['search_level']}, bit for bit",
-          flush=True)
+    print(f"phase6 search seed, level ({counts['search_level']} launches) and selection "
+          f"({counts['search_select']} seed and selection launches) on the first search's seed, "
+          f"{n} levels ((R, next_cap) in {shapes}) and selection: max_abs_err "
+          f"{errs['search_level']}, bit for bit", flush=True)
     check(n >= 1, "phase6: no search level recorded")
     recorded.clear()
 
@@ -1959,6 +2028,99 @@ def phase5_search_level(dev):
     for r in (64, 128):
         out[r] = search_level_timing(dev, r, r, seed=r)
         print(search_level_line("phase5 search level", r, r, out[r]), flush=True)
+    return out
+
+
+def search_select_inputs(config, dev):
+    """The seed's and the selection's arguments of one search at a benchmark
+    configuration's SEAR and image (``tests/_search_level_cases.py``): the
+    extents as int32 card tensors, as the preprocess hands them over, and the
+    candidate buffer of a whole search with the stand-in head."""
+    import torch
+    from pathlib import Path
+
+    tests = str(Path(__file__).resolve().parent / "tests")
+    if tests not in sys.path:
+        sys.path.append(tests)
+    from _search_level_cases import K, SEARCH_CONFIGS, stand_in_head
+
+    from aznet_tpu_torch.search import propose
+
+    scfg, (h, w) = SEARCH_CONFIGS[config]
+    hw = tuple(torch.tensor(v, dtype=torch.int32, device=dev) for v in (h, w))
+    feat = torch.zeros((h // 16, w // 16, 8), device=dev)
+    c_boxes, c_scores = propose.search_candidates(stand_in_head(), feat, hw, scfg, K)
+    seed = (hw, scfg, 1.0, propose.frontier_schedule(scfg)[0],
+            propose.candidate_starts(scfg, K)[1], dev)
+    return seed, (c_boxes, c_scores, scfg, 1.0)
+
+
+def search_select_timing(dev, config):
+    """The search's seed and its selection at a benchmark configuration, the
+    kernels (``propose.seed_cuda``, ``select_cuda``) and the plain versions
+    on the card (``seed_plain``, ``select_plain``; both selections run the
+    NMS kernel), first held bit for bit. Returns {(part, "kernel" |
+    "plain"): {"device_us": the card's events a call, "launches": kernels a
+    call, "copies": copies and fills by the copy engine a call, "ms":
+    CUDA-event time a call over back-to-back calls, "host_us": the host's
+    time a call}}, part "seed" or "select"."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from aznet_tpu_torch.search import propose
+
+    res = {}
+    for part, args in zip(("seed", "select"), search_select_inputs(config, dev)):
+        fns = {"kernel": getattr(propose, f"{part}_cuda"),
+               "plain": getattr(propose, f"{part}_plain")}
+        for g, w in zip(fns["kernel"](*args), fns["plain"](*args)):
+            check(equal_bits(g, w), f"search {part} kernel differs from the plain version at "
+                                    f"{config}")
+        for name, fn in fns.items():
+            run = lambda: fn(*args)  # noqa: E731
+            run()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(20):
+                    run()
+                torch.cuda.synchronize()
+            events = [(e.name(), e.duration_ns()) for e in prof.profiler.kineto_results.events()
+                      if e.device_type() == torch.autograd.DeviceType.CUDA]
+            copies = sum(n.startswith(("Memcpy", "Memset")) for n, _ in events)
+            res[part, name] = {"device_us": sum(d for _, d in events) / 20 / 1e3,
+                               "launches": (len(events) - copies) / 20, "copies": copies / 20,
+                               "ms": cuda_ms(run, 100, 3), "host_us": host_us(run, 100)}
+    return res
+
+
+def search_select_lines(tag, config, t):
+    return [f"{tag} {config} {part}: " + "; ".join(
+        f"{name} device {v['device_us']:.2f} us in {v['launches']:.1f} launches and "
+        f"{v['copies']:.1f} copies, {v['ms']:.4f} ms per call by events, host "
+        f"{v['host_us']:.2f} us per call"
+        for (p, name), v in t.items() if p == part) for part in ("seed", "select")]
+
+
+def search_select_times(dev, root):
+    """``--search-select-times [ROOT]``: :func:`search_select_timing` at
+    both benchmark configurations. Needs a checkout with the kernels
+    (``search/propose.py::seed_cuda`` and ``select_cuda``)."""
+    for config in ("vgg16", "resnet50_1080p"):
+        for line in search_select_lines(f"search-select-times {root}", config,
+                                        search_select_timing(dev, config)):
+            print(line, flush=True)
+
+
+def phase5_search_select(dev):
+    """The seed and selection kernels alone at both benchmark
+    configurations, bit for bit against the plain versions on the card and
+    timed beside them. Returns {config: :func:`search_select_timing`'s
+    result}."""
+    out = {}
+    for config in ("vgg16", "resnet50_1080p"):
+        out[config] = search_select_timing(dev, config)
+        for line in search_select_lines("phase5 search select", config, out[config]):
+            print(line, flush=True)
     return out
 
 
@@ -2372,7 +2534,7 @@ def phase10_eval(dev, card):
     from aznet_tpu_torch.data import SyntheticImdb, get_imdb
     from aznet_tpu_torch.eval import detection as tdet
     from aznet_tpu_torch.ops.cuda import (conv1_kernel, iou_kernel, nms_kernel, roi_align_kernel,
-                                          search_level_kernel)
+                                          search_level_kernel, search_select_kernel)
     from aznet_tpu_torch.ops.cuda import conv_int8_kernel as ck
     from aznet_tpu_torch.ops.quant import calibrate_net_on_imdb
     from aznet_tpu_torch.utils import native
@@ -2407,7 +2569,8 @@ def phase10_eval(dev, card):
         return {"nms": nms_kernel.LAUNCHES, "roi_align": roi_align_kernel.LAUNCHES,
                 "conv1": conv1_kernel.LAUNCHES, "chain": ck.LAUNCHES["chain"],
                 "strip": ck.LAUNCHES["strip"], "iou": iou_kernel.LAUNCHES,
-                "search_level": search_level_kernel.LAUNCHES}
+                "search_level": search_level_kernel.LAUNCHES,
+                "search_select": search_select_kernel.LAUNCHES}
 
     host_nms = {"calls": 0, "s": 0.0}
     props, fused_calls, times = {}, [], {}
@@ -2434,7 +2597,7 @@ def phase10_eval(dev, card):
 
     nms_kernel.LAUNCHES = roi_align_kernel.LAUNCHES = conv1_kernel.LAUNCHES = 0
     iou_kernel.LAUNCHES = ck.LAUNCHES["chain"] = ck.LAUNCHES["strip"] = 0
-    search_level_kernel.LAUNCHES = 0
+    search_level_kernel.LAUNCHES = search_select_kernel.LAUNCHES = 0
     with wrapped(tdet, "nms", after=count_nms):
         with first_batch("make_propose_batch_padded",
                          [recording_nms(recorded), recording_detect_kernels(recorded),
@@ -2764,25 +2927,27 @@ def check_metrics(tag, metrics, keys):
 
 def train_launch_counts():
     from aznet_tpu_torch.ops.cuda import (conv1_kernel, iou_kernel, nms_kernel, roi_align_kernel,
-                                          search_level_kernel)
+                                          search_level_kernel, search_select_kernel)
     from aznet_tpu_torch.ops.cuda import conv_int8_kernel as ck
 
     return {"nms": nms_kernel.LAUNCHES, "roi_align": roi_align_kernel.LAUNCHES,
             "conv1": conv1_kernel.LAUNCHES, "chain": ck.LAUNCHES["chain"],
             "strip": ck.LAUNCHES["strip"], "iou": iou_kernel.LAUNCHES,
-            "search_level": search_level_kernel.LAUNCHES}
+            "search_level": search_level_kernel.LAUNCHES,
+            "search_select": search_select_kernel.LAUNCHES}
 
 
 def set_launch_counts(counts):
     """Sets every kernel's launch count to ``counts`` (the keys of
     :func:`train_launch_counts`)."""
     from aznet_tpu_torch.ops.cuda import (conv1_kernel, iou_kernel, nms_kernel, roi_align_kernel,
-                                          search_level_kernel)
+                                          search_level_kernel, search_select_kernel)
     from aznet_tpu_torch.ops.cuda import conv_int8_kernel as ck
 
     for mod, k in ((nms_kernel, "nms"), (roi_align_kernel, "roi_align"),
                    (conv1_kernel, "conv1"), (iou_kernel, "iou"),
-                   (search_level_kernel, "search_level")):
+                   (search_level_kernel, "search_level"),
+                   (search_select_kernel, "search_select")):
         mod.LAUNCHES = counts[k]
     ck.LAUNCHES["chain"], ck.LAUNCHES["strip"] = counts["chain"], counts["strip"]
 
@@ -4130,7 +4295,8 @@ def main(argv) -> int:
         return 2
     timers = {"--conv-times": conv_times, "--conv1-times": conv1_times,
               "--roi-times": roi_times, "--nms-times": nms_times, "--iou-times": iou_times,
-              "--search-level-times": search_level_times}
+              "--search-level-times": search_level_times,
+              "--search-select-times": search_select_times}
     if argv[:1] and argv[0] in timers:
         root = argv[1] if len(argv) > 1 else "."
         sys.path.insert(0, root)
@@ -4185,6 +4351,7 @@ def main(argv) -> int:
 
     new = phase5_kernels(dev)
     level_alone = phase5_search_level(dev)
+    select_alone = phase5_search_select(dev)
     det = phase6_detect(dev)
     phase6_reference(dev)
 
@@ -4300,6 +4467,21 @@ def main(argv) -> int:
         "r64": {k: level_alone[64][name][key] for k, name, key in (
             ("ms", "kernel", "ms"), ("device_us", "kernel", "device_us"),
             ("plain_ms", "plain", "ms"), ("plain_device_us", "plain", "device_us"))}})
+    records.append({
+        "name": "search_select", "route": "cuda", "source": SEARCH_SELECT_SOURCE,
+        "replaces": None, "plain": SEARCH_SELECT_PLAIN,
+        "launches": level2["select_launches"],
+        "int8_launches": int8["search_level"]["select_launches"],
+        "detect_launches": det["launches"]["search_select"],
+        "resnet50_launches": res["bf16"]["search_level"]["select_launches"],
+        "eval_launches": ev["launches"]["search_select"],
+        "train_launches": train["search_select"], "tools_launches": tools["search_select"],
+        "mesh_launches": mesh["search_select"], "bench_launches": bench_full["search_select"],
+        "max_abs_err": records[-1]["max_abs_err"], "bound_ms": None, "library_ms": None,
+        "alone": {config: {f"{part}_{name}": {k: v[k] for k in ("ms", "device_us", "launches",
+                                                                  "host_us")}
+                           for (part, name), v in t.items()}
+                  for config, t in select_alone.items()}})
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
