@@ -36,8 +36,9 @@ TILE_COLS = 64  # output columns per block (the wgmma M)
 CO_TILE = 128  # output channels per block (the wgmma N)
 GRID_MAX_YZ = 65535
 
-# Launches per entry point (one per call that reaches the card).
-LAUNCHES = {"chain": 0, "strip": 0}
+# Launches of the chain and the strip entry (one per call that reaches the card).
+LAUNCHES_CHAIN = 0
+LAUNCHES_STRIP = 0
 
 _fns = None
 
@@ -140,6 +141,7 @@ def conv3x3_int8_chain(x: torch.Tensor, s_x: float, w_k: torch.Tensor,
     """Chain entry: ``x [B, H, W, C]`` int8 (H, W even) -> int8
     ``[B, H/2, W/2, Co]``, conv + ReLU + 2x2/2 max-pool, requantized at
     ``s_out``."""
+    global LAUNCHES_CHAIN
     b, h, w, c, cp, co, rows = _check(x, w_k, s_w, bias)
     if s_out is None:
         raise ValueError("the fused pool is only for chain-interior layers (s_out given)")
@@ -152,7 +154,7 @@ def conv3x3_int8_chain(x: torch.Tensor, s_x: float, w_k: torch.Tensor,
         err = chain(x.data_ptr(), w_k.data_ptr(), s_w.data_ptr(), bias.data_ptr(),
                     b, h, w, c, cp, co, rows, float(s_x), 1.0 / s_out, out.data_ptr(), stream)
     _raise_on(err, "chain")
-    LAUNCHES["chain"] += 1
+    LAUNCHES_CHAIN += 1
     return out
 
 
@@ -162,6 +164,7 @@ def conv3x3_int8_strip(x: torch.Tensor, s_x: float, w_k: torch.Tensor,
                        out_dtype=torch.bfloat16) -> torch.Tensor:
     """Strip entry: ``x [B, H, W, C]`` int8 -> ``[B, H, W, Co]``, conv + ReLU,
     int8 at ``s_out``, or ``out_dtype`` (bf16 only) when ``s_out`` is None."""
+    global LAUNCHES_STRIP
     b, h, w, c, cp, co, rows = _check(x, w_k, s_w, bias)
     if s_out is None and out_dtype != torch.bfloat16:
         raise TypeError(f"the kernel's float exit is bf16, got {out_dtype}")
@@ -175,5 +178,5 @@ def conv3x3_int8_strip(x: torch.Tensor, s_x: float, w_k: torch.Tensor,
                     0.0 if s_out is None else 1.0 / s_out, int(s_out is None),
                     out.data_ptr(), stream)
     _raise_on(err, "strip")
-    LAUNCHES["strip"] += 1
+    LAUNCHES_STRIP += 1
     return out

@@ -15,10 +15,10 @@
 3. Phase 2: the bf16 VGG-16 propose path at full width (seeded random
    weights), ``make_propose_batch`` on two raw 375x500 uint8 images on a
    608x800 canvas and one ``im_propose`` call, with the NMS launch count
-   reset just before and read just after; checks the proposals, holds the
-   kernel against the plain version on the NMS inputs that run produced,
-   and holds the port on the card against the port on the CPU on a small
-   f32 smallnet config. Prints img/s from CUDA events after two warmups.
+   reset just before and read just after; checks the proposals, holds
+   every kernel launch of that run against its plain version, and holds
+   the port on the card against the port on the CPU on a small f32
+   smallnet config. Prints img/s from CUDA events after two warmups.
    Every card-vs-CPU check runs under PyTorch's default precision flags (the
    port scopes its own float32 precision, ``utils/precision.py``). Then
    two precision probes: which TF32 settings (the legacy ``allow_tf32``
@@ -219,18 +219,23 @@
    set to 0 just before each tool and read just after; the first launch of
    each kernel a tool makes is held against its plain version.
 
-The search-level kernel (``csrc/search_level.cu``, one launch a level of
-every search on the card) runs in every phase that searches: its count is
-set to 0 and read with the others' (phases 2, 4, 6, 8-13, 14a-c, 15), and the levels of
-the first search of each path (phases 2, 4, 6, 8-10, 12-15; the first
-harvest in 11) are held bit for bit against ``search/propose.py::
-level_plain`` on the card, on the inputs the path gave the kernel. Phase 5
-also holds it alone at R = 64 and 128 and times it beside the plain version
-and its bound. The search's seed and selection kernels
+The kernels on a path are reached through their table
+(``aznet_tpu_torch/kernels.py``): ``kernels.recording`` copies what each
+card entry is given and gives back, and ``kernels.held`` replays every copy
+through the row's plain version on the card (bit for bit; conv1 within one
+bf16 ulp). Every launch of the propose and detect paths is held (phases 2,
+4, 6, 8, 9, 14a-c), every launch of the first batches in phase 10 and of the
+first harvest in 11, and the first launch of each kernel, with every level
+of the first search, in phases 12, 13 and 15. The launch counts are
+``ops/cuda/__init__.py::launch_counts`` / ``set_launch_counts``. The
+search-level kernel (``csrc/search_level.cu``, one launch a level of every
+search on the card) runs in every phase that searches, its count set to 0
+and read with the others' (phases 2, 4, 6, 8-13, 14a-c, 15); phase 5 also
+holds it alone at R = 64 and 128 and times it beside the plain version and
+its bound. The search's seed and selection kernels
 (``csrc/search_select.cu``: three launches a search, counted together) are
-counted beside it on the same paths, the first search's seed and selection
-held bit for bit against ``seed_plain`` and ``select_plain`` with its
-levels, and phase 5 times them alone at both benchmark configurations.
+counted and held beside it on the same paths, and phase 5 times them alone
+at both benchmark configurations.
 
 Prints the card's name and power limit, one JSON line of kernel records
 (each with its bound, library yardstick and launches on the eval path, in
@@ -562,167 +567,38 @@ def build_net(tag, cfg, dev, state_dict=None):
     return net
 
 
-@contextlib.contextmanager
-def recording_nms(recorded):
-    """Copies the arguments of every NMS kernel launch while active (the
-    count is kept by the wrapper itself)."""
-    from aznet_tpu_torch.ops.cuda import nms_kernel
 
-    launch = nms_kernel.nms_cuda_batched
+def hold(tag, records, what="the path's inputs"):
+    """Every launch in ``records`` (``kernels.recording``) against its plain
+    version on the same inputs (``kernels.held``): one line, and a check
+    that each kernel keeps its row's rule (bit for bit; conv1 within one
+    bf16 ulp). Returns {kernel: max_abs_err}."""
+    from aznet_tpu_torch import kernels
 
-    def record(boxes, scores, thresh, valid, offset=1.0):
-        recorded.append(("nms", (boxes.clone(), scores.clone(), thresh, valid.clone(), offset),
-                         None))
-        return launch(boxes, scores, thresh, valid, offset)
-
-    nms_kernel.nms_cuda_batched = record
-    try:
-        yield
-    finally:
-        nms_kernel.nms_cuda_batched = launch
+    seen = kernels.held(records)
+    print(f"{tag} kernels on {what}: " + ("; ".join(
+        f"{k} ({v['n']} launches held, shapes {v['shapes']}) max_abs_err {v['err']}"
+        + (f", {v['differ']:.4%} of elements differ" if v["differ"] else "")
+        for k, v in seen.items()) or "no kernel launched"), flush=True)
+    bad = sorted(k for k, v in seen.items() if not v["ok"])
+    check(not bad, f"{tag}: {bad} disagree with their plain versions on {what}")
+    return {k: v["err"] for k, v in seen.items()}
 
 
-def nms_path_err(recorded):
-    """Max |kernel - plain| over the recorded NMS launches."""
-    from aznet_tpu_torch.ops import nms as tnms
-
-    err = 0.0
-    for kind, args, _ in recorded:
-        if kind == "nms":
-            got, want = tnms.nms_mask_batched(*args), tnms.nms_mask_reference(*args)
-            err = max(err, (got.float() - want.float()).abs().max().item())
-    return err
-
-
-@contextlib.contextmanager
-def recording_search_level(recorded):
-    """Copies the inputs and results of the first search's seed, levels and
-    selection on the card (``propose.seed_cuda``, ``level_cuda``,
-    ``select_cuda``) while active, as one record ``("search_level", [level,
-    ...], {"seed": [...], "select": [...]})``; later searches run untouched
-    (the counts are kept by the wrappers themselves). The head's logits keep
-    their strides."""
-    import torch
-
-    from aznet_tpu_torch.search import propose
-
-    real = propose.seed_cuda, propose.level_cuda, propose.select_cuda
-    levels, ends, searches = [], {"seed": [], "select": []}, []
-
-    def same_layout(t):
-        return torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
-                                   device=t.device).copy_(t)
-
-    def seed(im_hw, scfg, offset, cap, total, device):
-        searches.append(cap)
-        if len(searches) == 1:
-            recorded.append(("search_level", levels, ends))
-        out = real[0](im_hw, scfg, offset, cap, total, device)
-        if len(searches) == 1:
-            hw = tuple(v.clone() if isinstance(v, torch.Tensor) else v for v in im_hw)
-            ends["seed"].append(((hw, scfg, offset, cap, total, device),
-                                 tuple(t.clone() for t in out)))
-        return out
-
-    def level(out, f_boxes, f_valid, next_cap, consts, cand_boxes, cand_scores, start):
-        first = len(searches) == 1
-        if first:
-            args = ({k: same_layout(out[k]) for k in ("zoom", "adj_score", "adj_delta")},
-                    f_boxes.clone(), f_valid.clone(), next_cap, consts)
-        next_boxes, next_valid = real[1](out, f_boxes, f_valid, next_cap, consts, cand_boxes,
-                                         cand_scores, start)
-        if first:
-            n = f_boxes.shape[0] * out["adj_score"].shape[1]
-            levels.append((*args, (cand_boxes[start:start + n].clone(),
-                                   cand_scores[start:start + n].clone(), next_boxes.clone(),
-                                   next_valid.clone())))
-        return next_boxes, next_valid
-
-    def select(c_boxes, c_scores, scfg, offset):
-        first = len(searches) == 1 and not ends["select"]
-        if first:
-            args = (c_boxes.clone(), c_scores.clone(), scfg, offset)
-        out = real[2](c_boxes, c_scores, scfg, offset)
-        if first:
-            ends["select"].append((args, tuple(t.clone() for t in out)))
-        return out
-
-    propose.seed_cuda, propose.level_cuda, propose.select_cuda = seed, level, select
-    try:
-        yield
-    finally:
-        propose.seed_cuda, propose.level_cuda, propose.select_cuda = real
-
-
-def equal_bits(got, want) -> bool:
-    """Equal shapes, dtypes and bits (so -0 and +0 differ)."""
-    import torch
-
-    if got.shape != want.shape or got.dtype != want.dtype:
-        return False
-    if got.dtype == torch.float32:
-        return torch.equal(got.view(torch.int32), want.view(torch.int32))
-    return torch.equal(got, want)
-
-
-def search_level_path_err(recorded):
-    """Each recorded search: its seed, its levels (the candidate rows each
-    wrote, the next frontier) and its selection on the path against
-    ``seed_plain``, ``level_plain`` and ``select_plain`` on the same inputs on
-    the card, checked bit for bit. Returns (max |kernel - plain|, the
-    levels' sorted (R, next_cap), the number of levels)."""
-    import torch
-
-    from aznet_tpu_torch.search import propose
-
-    err, shapes, n = 0.0, set(), 0
-
-    def held(got, want, names, where):
-        nonlocal err
-        for g, w, name in zip(got, want, names):
-            check(equal_bits(g, w), f"{name} differs from the plain version {where} on the "
-                                    f"path's inputs")
-            diff = (g.float() - w.float()).abs().nan_to_num(0.0)  # equal bits: NaN - NaN
-            err = max(err, diff.max().item() if diff.numel() else 0.0)
-
-    for kind, levels, ends in recorded:
-        if kind != "search_level":
-            continue
-        check(len(ends["seed"]) == 1 and len(ends["select"]) == 1,
-              f"the first search's seed and selection were recorded {len(ends['seed'])} and "
-              f"{len(ends['select'])} times")
-        for args, got in ends["seed"]:
-            held(got, propose.seed_plain(*args), ("seed extent", "seed f_boxes", "seed f_valid",
-                                                  "seed cand_boxes", "seed cand_scores"),
-                 f"at cap={args[3]}, total={args[4]}")
-        for args, got in ends["select"]:
-            held(got, propose.select_plain(*args), ("select boxes", "select scores",
-                                                    "select valid"),
-                 f"at {args[1].shape[0]} candidates")
-        for out, f_boxes, f_valid, next_cap, consts, got in levels:
-            cand = (torch.empty_like(got[0]), torch.empty_like(got[1]))
-            want = (*cand, *propose.level_plain(out, f_boxes, f_valid, next_cap, consts, *cand, 0))
-            held(got, want, ("search-level kernel: cand_boxes", "cand_scores", "next_boxes",
-                             "next_valid"), f"at R={f_boxes.shape[0]}, next_cap={next_cap}")
-            shapes.add((f_boxes.shape[0], next_cap))
-            n += 1
-    return err, sorted(shapes), n
-
-
-def phase2_propose(dev, net, tag="phase2", recorders=(), counters=(), raw_hw=RAW_HW,
-                   canvas=CANVAS):
+def phase2_propose(dev, net, tag="phase2", counters=(), raw_hw=RAW_HW, canvas=CANVAS,
+                   records=None, recorders=()):
     """The propose path of ``net`` on two raw ``raw_hw`` images on a
-    ``canvas``. ``recorders`` are context managers that wrap other kernels of
-    the path while it runs; ``counters`` are ``(name, reset, read)`` launch
-    counters, reset just before the path and read just after. The
-    search-level kernel's count is reset and read with the NMS kernel's, and
-    its first search held against the plain version. Returns (NMS launches,
-    img/s, nms_err, {name: count}, the preprocessed blobs of the two images,
-    {"launches", "err"} of the search-level kernel)."""
+    ``canvas``, every kernel launch recorded into ``records`` (a new list if
+    None) and held against its plain version. The launch counts of NMS, the
+    search's kernels and ``counters`` are set to 0 just before the path and
+    read just after; ``recorders`` are context managers that wrap other
+    calls of the path while it runs. Returns {"launches": {name: count},
+    "err": {kernel: max_abs_err}, "ips", "blobs": the preprocessed blobs of
+    the two images}."""
     import torch
 
-    from aznet_tpu_torch import api
-    from aznet_tpu_torch.ops.cuda import nms_kernel, search_level_kernel, search_select_kernel
+    from aznet_tpu_torch import api, kernels
+    from aznet_tpu_torch.ops.cuda import launch_counts, set_launch_counts
 
     cfg = net.cfg
     rng = np.random.RandomState(0)
@@ -730,29 +606,26 @@ def phase2_propose(dev, net, tag="phase2", recorders=(), counters=(), raw_hw=RAW
     images = torch.from_numpy(ims_np).to(dev)
     fn = api.make_propose_batch(net.model, cfg, canvas)
 
-    # Record the NMS inputs of the measured run (the kernel's count is kept
-    # by the wrapper itself; the recorder only copies its arguments).
-    recorded, recorded_levels = [], []
+    names = ("nms", "search_level", "search_select", *counters)
     with contextlib.ExitStack() as stack:
-        for rec in [recording_nms(recorded), recording_search_level(recorded_levels), *recorders]:
+        records = stack.enter_context(kernels.recording(records=records))
+        for rec in recorders:
             stack.enter_context(rec)
-        for _, reset, _ in counters:
-            reset()
-        nms_kernel.LAUNCHES = search_level_kernel.LAUNCHES = search_select_kernel.LAUNCHES = 0
+        set_launch_counts(dict.fromkeys(names, 0))
         boxes, scores, valid = fn(images)
         dets = api.im_propose(net, ims_np[0])
         torch.cuda.synchronize()
-        launches, levels = nms_kernel.LAUNCHES, search_level_kernel.LAUNCHES
-        selects = search_select_kernel.LAUNCHES
-        counts = {name: read() for name, _, read in counters}
-    print(f"{tag} main path: nms launches {launches}, search_level launches {levels}, "
-          f"search_select launches {selects}"
-          + "".join(f", {k} launches {v}" for k, v in counts.items()), flush=True)
-    check(launches >= BATCH + 1, f"NMS kernel launched {launches} times, expected >= {BATCH + 1}")
-    check(levels >= BATCH + 1, f"search-level kernel launched {levels} times in {BATCH + 1} "
-                               "searches")
-    check(selects >= 3 * (BATCH + 1) and selects % 3 == 0, f"search seed and selection kernels "
-          f"launched {selects} times in {BATCH + 1} or more searches")
+        now = launch_counts()
+        counts = {k: now[k] for k in names}
+    print(f"{tag} main path: " + ", ".join(f"{k} launches {v}" for k, v in counts.items()),
+          flush=True)
+    check(counts["nms"] >= BATCH + 1,
+          f"NMS kernel launched {counts['nms']} times, expected >= {BATCH + 1}")
+    check(counts["search_level"] >= BATCH + 1, f"search-level kernel launched "
+          f"{counts['search_level']} times in {BATCH + 1} searches")
+    check(counts["search_select"] >= 3 * (BATCH + 1) and counts["search_select"] % 3 == 0,
+          f"search seed and selection kernels launched {counts['search_select']} times in "
+          f"{BATCH + 1} or more searches")
 
     h, w = raw_hw
     check(boxes.shape == (BATCH, cfg.SEAR.NUM_PROPOSALS, 4), f"boxes shape {tuple(boxes.shape)}")
@@ -771,15 +644,8 @@ def phase2_propose(dev, net, tag="phase2", recorders=(), counters=(), raw_hw=RAW
           and np.isfinite(dets).all(), f"im_propose gave {dets.shape}")
     print(f"{tag} im_propose: {dets.shape[0]} proposals", flush=True)
 
-    nms_err = nms_path_err(recorded)
-    print(f"{tag} NMS on the path's {len(recorded)} inputs ({tuple(recorded[0][1][1].shape)}): "
-          f"kernel vs plain max_abs_err {nms_err}", flush=True)
-    check(nms_err == 0.0, "NMS kernel disagrees with the plain version on the path's inputs")
-    level_err, shapes, n = search_level_path_err(recorded_levels)
-    print(f"{tag} search seed, level and selection kernels on the first search's seed, {n} "
-          f"levels ((R, next_cap) in {shapes}) and selection: kernel vs plain max_abs_err "
-          f"{level_err}, bit for bit", flush=True)
-    check(n >= 1, f"{tag}: no search level recorded")
+    errs = hold(tag, records)
+    check("search_level" in errs, f"{tag}: no search level recorded")
 
     ms = cuda_ms(lambda: fn(images), 5, 2)
     blobs = torch.stack([api.preprocess_image(
@@ -792,8 +658,7 @@ def phase2_propose(dev, net, tag="phase2", recorders=(), counters=(), raw_hw=RAW
     ips = BATCH / (ms / 1e3)
     print(f"{tag} make_propose_batch b={BATCH}: {ms:.3f} ms/call, {ips:.2f} img/s; "
           f"peak {peak:.2f} GiB", flush=True)
-    return launches, ips, nms_err, counts, blobs, {"launches": levels, "err": level_err,
-                                                   "select_launches": selects}
+    return {"launches": counts, "err": errs, "ips": ips, "blobs": blobs}
 
 
 def breakdown(tag, net, blobs):
@@ -1142,28 +1007,6 @@ def conv_times(dev, root):
           flush=True)
 
 
-@contextlib.contextmanager
-def recording_conv(recorded):
-    """Copies the arguments and the result of every conv kernel launch while
-    active (the count is kept by the wrapper itself)."""
-    from aznet_tpu_torch.ops.cuda import conv_int8_kernel as ck
-
-    real = {"chain": ck.conv3x3_int8_chain, "strip": ck.conv3x3_int8_strip}
-
-    def wrap(entry):
-        def call(x, s_x, w_k, s_w, bias, s_out, *rest):
-            out = real[entry](x, s_x, w_k, s_w, bias, s_out, *rest)
-            recorded.append((entry, x.clone(), s_x, w_k, s_w, bias, s_out, out.clone()))
-            return out
-        return call
-
-    ck.conv3x3_int8_chain, ck.conv3x3_int8_strip = wrap("chain"), wrap("strip")
-    try:
-        yield
-    finally:
-        ck.conv3x3_int8_chain, ck.conv3x3_int8_strip = real["chain"], real["strip"]
-
-
 def calibrated_int8(tag, net, dev):
     """The bf16 ``net`` calibrated on two random canvases (``RandomState(7)``
     minus the pixel means) and rebuilt int8 from its float32 parameters, with
@@ -1190,31 +1033,20 @@ def calibrated_int8(tag, net, dev):
     return build_net(tag, cfg8, dev, state_dict=net.params)
 
 
+
 def phase4_int8(dev, net, blobs, bf16_ips):
     """Calibrate the bf16 ``net``, rebuild it int8 from its float32
-    parameters, drive the int8 propose path. Returns launches per entry,
-    the conv and NMS errors on the path's inputs, and img/s."""
+    parameters, drive the int8 propose path. Returns its launches, the
+    kernels' errors on the path's inputs, and img/s."""
     import torch
 
-    from aznet_tpu_torch.ops import conv_int8 as tconv
-    from aznet_tpu_torch.ops.cuda import conv_int8_kernel as ck
-
     net8 = calibrated_int8("phase4", net, dev)
-
-    def reset():
-        ck.LAUNCHES["chain"] = ck.LAUNCHES["strip"] = 0
-
-    recorded = []
-    counters = [(e, reset, lambda e=e: ck.LAUNCHES[e]) for e in ("chain", "strip")]
-    nms_launches, ips, nms_err, counts, _, level = phase2_propose(
-        dev, net8, "phase4", recorders=[recording_conv(recorded)], counters=counters)
+    p = phase2_propose(dev, net8, "phase4", counters=("chain", "strip"))
+    counts = p["launches"]
     trunk_calls = 2  # make_propose_batch on the batch, then im_propose
     check(counts["chain"] + counts["strip"] >= 10 * trunk_calls,
           f"int8 conv kernel launched {counts} times in {trunk_calls} trunk calls")
     check(counts["chain"] > 0 and counts["strip"] > 0, f"an int8 conv entry never ran: {counts}")
-    check(nms_launches >= BATCH + 1, f"NMS launched {nms_launches} times")
-
-    conv_err, _ = conv_path_err("phase4", recorded)
 
     with torch.inference_mode():
         f16 = net.model.features(blobs).float()
@@ -1222,33 +1054,13 @@ def phase4_int8(dev, net, blobs, bf16_ips):
     cos = cosine(f16, f8)
     print(f"phase4 int8 vs bf16 trunk features: cosine {cos:.6f}", flush=True)
     check(cos > 0.98, f"int8 trunk features drift from the bf16 trunk: cosine {cos}")
-    print(f"phase4 img/s at b={BATCH}: int8 {ips:.2f} vs bf16 {bf16_ips:.2f} (same call)",
+    print(f"phase4 img/s at b={BATCH}: int8 {p['ips']:.2f} vs bf16 {bf16_ips:.2f} (same call)",
           flush=True)
-    return {"launches": counts, "conv_err": conv_err, "nms_err": nms_err, "ips": ips,
-            "net": net8, "bf16_feat": f16, "blobs": blobs, "search_level": level}
+    return {**p, "net": net8, "bf16_feat": f16, "blobs": blobs}
 
 
 def cosine(a, b):
     return (a * b).sum().item() / max(a.norm().item() * b.norm().item(), 1e-9)
-
-
-def conv_path_err(tag, recorded):
-    """Every recorded int8 conv launch against the plain version on its
-    inputs, bit for bit. Returns ({entry: max_abs_err}, the (entry, input
-    shape) pairs seen)."""
-    from aznet_tpu_torch.ops import conv_int8 as tconv
-
-    conv_err = {"chain": 0.0, "strip": 0.0}
-    for entry, x, s_x, w_k, s_w, bias, s_out, out in recorded:
-        want = tconv.conv3x3_int8_reference(x, s_x, tconv.Int8Conv(w_k, s_w, bias), s_out,
-                                            pool=entry == "chain")
-        conv_err[entry] = max(conv_err[entry], (out.float() - want.float()).abs().max().item())
-    shapes = sorted({(e, tuple(x.shape)) for e, x, *_ in recorded})
-    print(f"{tag} conv on the path's {len(recorded)} inputs {shapes}: kernel vs plain "
-          f"max_abs_err {conv_err}", flush=True)
-    check(max(conv_err.values()) == 0.0,
-          "int8 conv kernel disagrees with the plain version on the path's inputs")
-    return conv_err, shapes
 
 
 def phase4_reference(dev, backend="pallas"):
@@ -1284,14 +1096,14 @@ def int8_card_vs_cpu(tag, cpu_trunk, gpu_trunk, x, dev, launches):
     largest value."""
     import torch
 
-    from aznet_tpu_torch.ops.cuda import conv_int8_kernel as ck
+    from aznet_tpu_torch.ops.cuda import launch_counts
 
     with torch.inference_mode():
         codes_cpu = cpu_trunk.int8_prefix(x)
         codes_gpu = gpu_trunk.int8_prefix(x.to(dev))
-        before = dict(ck.LAUNCHES)
+        before = launch_counts()
         got = gpu_trunk.int8_body(codes_gpu).cpu()
-        launched = {e: ck.LAUNCHES[e] - before[e] for e in before}
+        launched = {e: launch_counts()[e] - before[e] for e in launches}
         want = cpu_trunk.int8_body(codes_gpu.cpu())
         full_gpu = gpu_trunk(x.to(dev)).float().cpu()
         full_cpu = cpu_trunk(x).float()
@@ -1582,31 +1394,6 @@ def conv1_times(dev, root):
               f"{k_us:.2f} us ({tf:.1f} TFLOP/s, {share}), events {k_ms:.4f} ms", flush=True)
 
 
-@contextlib.contextmanager
-def recording_detect_kernels(recorded):
-    """Copies the arguments and results of every ROI-align and conv1 kernel
-    launch while active (the counts are kept by the wrappers themselves)."""
-    from aznet_tpu_torch.ops.cuda import conv1_kernel, roi_align_kernel
-
-    real_roi, real_conv1 = roi_align_kernel.roi_align_cuda, conv1_kernel.conv1_2_pool_cuda
-
-    def roi(feat, rois, scale, pool, w_first):
-        out = real_roi(feat, rois, scale, pool, w_first)
-        recorded.append(("roi", (feat, rois.clone(), scale, pool, w_first), out))
-        return out
-
-    def conv1(y, w_k, bias):
-        out = real_conv1(y, w_k, bias)
-        recorded.append(("conv1", (y, w_k, bias), out))
-        return out
-
-    roi_align_kernel.roi_align_cuda, conv1_kernel.conv1_2_pool_cuda = roi, conv1
-    try:
-        yield
-    finally:
-        roi_align_kernel.roi_align_cuda, conv1_kernel.conv1_2_pool_cuda = real_roi, real_conv1
-
-
 def detect_config():
     """VGG-16 bf16 at full width (FC_DIM 4096, 21 classes) with the
     reference's fused options: every ROI pool through the fused ROI align,
@@ -1634,15 +1421,14 @@ def check_detections(tag, scores, boxes, hw, n_classes):
 def phase6_detect(dev):
     """The detection path at full width: make_fused_detect_batch_padded,
     make_detect_batch_padded on the fused run's proposals, im_propose and
-    im_detect, with the ROI-align, conv1, NMS and search-level launch counts
-    reset just before and read just after. Returns the counts, the kernels'
-    errors on the path's inputs, and img/s."""
+    im_detect, with the ROI-align, conv1, NMS and search launch counts
+    reset just before and read just after and every kernel launch held
+    against its plain version. Returns the counts, the kernels' errors on
+    the path's inputs, and img/s."""
     import torch
 
-    from aznet_tpu_torch import api
-    from aznet_tpu_torch.ops import conv1_fused as tconv1
-    from aznet_tpu_torch.ops.cuda import (conv1_kernel, nms_kernel, roi_align_kernel,
-                                          search_level_kernel, search_select_kernel)
+    from aznet_tpu_torch import api, kernels
+    from aznet_tpu_torch.ops.cuda import launch_counts, set_launch_counts
 
     cfg = detect_config()
     t0 = time.perf_counter()
@@ -1662,18 +1448,16 @@ def phase6_detect(dev):
     fused = api.make_fused_detect_batch_padded(az.model, fr.model, cfg, cfg, CANVAS)
     detect = api.make_detect_batch_padded(fr.model, cfg, CANVAS)
 
-    recorded = []
-    with recording_detect_kernels(recorded), recording_search_level(recorded):
-        roi_align_kernel.LAUNCHES = conv1_kernel.LAUNCHES = nms_kernel.LAUNCHES = 0
-        search_level_kernel.LAUNCHES = search_select_kernel.LAUNCHES = 0
+    names = ("roi_align", "conv1", "nms", "search_level", "search_select")
+    with kernels.recording() as recorded:
+        set_launch_counts(dict.fromkeys(names, 0))
         p_boxes, p_scores, p_valid, d_scores, d_boxes = fused(images, src_hw, scales)
         t_scores, t_boxes = detect(images, src_hw, scales, p_boxes)
         props = api.im_propose(az, ims_np[0])
         s1, b1 = api.im_detect(fr, ims_np[0], props)
         torch.cuda.synchronize()
-        counts = {"roi_align": roi_align_kernel.LAUNCHES, "conv1": conv1_kernel.LAUNCHES,
-                  "nms": nms_kernel.LAUNCHES, "search_level": search_level_kernel.LAUNCHES,
-                  "search_select": search_select_kernel.LAUNCHES}
+        now = launch_counts()
+        counts = {k: now[k] for k in names}
     print(f"phase6 main path: launches {counts}", flush=True)
     n_iter = max(int(cfg.TEST.BBOX_ITER), 1)
     searches, detects, trunk_calls = BATCH + 1, 2 * BATCH + 1, 4
@@ -1706,31 +1490,9 @@ def phase6_detect(dev):
           f"max |d box| / max |box| {d_b:.3g}", flush=True)
     check(d_s <= 1e-2 and d_b <= 1e-2, "the fused program disagrees with the two-program path")
 
-    errs = {"conv1": 0.0}
-    frac = 0.0
-    for kind, args, out in recorded:
-        if kind == "conv1":
-            y, w_k, bias = args
-            w12 = tconv1.unpack_kernel_layout(w_k, y.shape[3], bias.shape[0])
-            want = tconv1.conv1_2_pool_reference(y, w12, bias)
-            ok, f = tconv1.within_one_bf16_ulp(out, want)
-            check(ok, "conv1 kernel is more than one bf16 ulp from the plain version on the "
-                      "path's inputs")
-            frac = max(frac, f)
-            errs["conv1"] = max(errs["conv1"], (out.float() - want.float()).abs().max().item())
-    errs["roi"], rs, _ = roi_path_errs(recorded)
-    print(f"phase6 kernels on the path's inputs: ROI align ({counts['roi_align']} launches, R in "
-          f"{rs}) max_abs_err {errs['roi']}; conv1 ({counts['conv1']} launches) max_abs_err "
-          f"{errs['conv1']}, within one bf16 ulp, at most {frac:.4%} of elements differ",
-          flush=True)
-    check(errs["roi"] == 0.0, "ROI-align kernel disagrees with the plain version on the path's "
-                              "inputs")
-    errs["search_level"], shapes, n = search_level_path_err(recorded)
-    print(f"phase6 search seed, level ({counts['search_level']} launches) and selection "
-          f"({counts['search_select']} seed and selection launches) on the first search's seed, "
-          f"{n} levels ((R, next_cap) in {shapes}) and selection: max_abs_err "
-          f"{errs['search_level']}, bit for bit", flush=True)
-    check(n >= 1, "phase6: no search level recorded")
+    errs = hold("phase6", recorded)
+    check(errs.keys() >= {"roi_align", "conv1", "search_level"},
+          f"phase6: a kernel of the path was not recorded: {sorted(errs)}")
     recorded.clear()
 
     fused_ms = cuda_ms(lambda: fused(images, src_hw, scales), 5, 2)
@@ -1765,7 +1527,7 @@ def phase6_reference(dev):
     import dataclasses
 
     from aznet_tpu_torch import api
-    from aznet_tpu_torch.ops.cuda import conv1_kernel, roi_align_kernel
+    from aznet_tpu_torch.ops.cuda import launch_counts
 
     cfg = detect_config()
     cfg = dataclasses.replace(cfg, MODEL=dataclasses.replace(cfg.MODEL, WIDTH=0.25, FC_DIM=64),
@@ -1777,9 +1539,10 @@ def phase6_reference(dev):
     xy = rng.uniform(0, 80, (40, 2))
     boxes = np.concatenate([xy, np.minimum(xy + rng.uniform(8, 60, (40, 2)), 120)], 1)
     boxes = boxes.astype(np.float32)
-    before = (roi_align_kernel.LAUNCHES, conv1_kernel.LAUNCHES)
+    before = launch_counts()
     got = api.im_detect(gpu_net, im, boxes)
-    launched = (roi_align_kernel.LAUNCHES - before[0], conv1_kernel.LAUNCHES - before[1])
+    after = launch_counts()
+    launched = tuple(after[k] - before[k] for k in ("roi_align", "conv1"))
     want = api.im_detect(cpu_net, im, boxes)
     d_s = float(np.abs(got[0] - want[0]).max())
     d_b = float(np.abs(got[1] - want[1]).max())
@@ -2067,6 +1830,7 @@ def search_select_timing(dev, config):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from aznet_tpu_torch.kernels import equal_bits
     from aznet_tpu_torch.search import propose
 
     res = {}
@@ -2074,8 +1838,8 @@ def search_select_timing(dev, config):
         fns = {"kernel": getattr(propose, f"{part}_cuda"),
                "plain": getattr(propose, f"{part}_plain")}
         for g, w in zip(fns["kernel"](*args), fns["plain"](*args)):
-            check(equal_bits(g, w), f"search {part} kernel differs from the plain version at "
-                                    f"{config}")
+            check(equal_bits(g, w)[0], f"search {part} kernel differs from the plain version "
+                                       f"at {config}")
         for name, fn in fns.items():
             run = lambda: fn(*args)  # noqa: E731
             run()
@@ -2171,49 +1935,25 @@ def cfg_file(name, **model):
     return cfg_from_dict(cfg_from_file(Config(), str(path)), {"MODEL": model})
 
 
-def roi_path_errs(recorded):
-    """Each recorded ROI-align launch against the plain version on the same
-    inputs: (max_abs_err, sorted R values, {(dtype, P, order) seen})."""
-    from aznet_tpu_torch.ops import roi_pool as troi
-
-    err, rs, modes = 0.0, set(), set()
-    for kind, args, out in recorded:
-        if kind != "roi":
-            continue
-        feat, rois, scale, pool, w_first = args
-        want = troi.roi_align_fused_reference(feat, rois, scale, pool, w_first)
-        err = max(err, (out.float() - want.float()).abs().max().item())
-        rs.add(int(rois.shape[0]))
-        modes.add((str(feat.dtype)[6:], tuple(feat.shape), pool, "W-first" if w_first else "H-first"))
-    return err, sorted(rs), modes
-
 
 def propose_phase(dev, tag, net, raw_hw, canvas):
     """The propose path of ``net`` (``POOLING_MODE='align_pallas'``) with the
-    NMS and ROI-align launch counts reset just before and read just after,
-    and both kernels held against their plain versions on that run's own
-    inputs. Returns {"nms", "roi"} launches, the errors and img/s."""
-    from aznet_tpu_torch.ops.cuda import roi_align_kernel
-
-    def reset():
-        roi_align_kernel.LAUNCHES = 0
-
-    recorded = []
-    nms_launches, ips, nms_err, counts, blobs, level = phase2_propose(
-        dev, net, tag, recorders=[recording_detect_kernels(recorded)],
-        counters=[("roi_align", reset, lambda: roi_align_kernel.LAUNCHES)],
-        raw_hw=raw_hw, canvas=canvas)
+    ROI-align launch count reset just before and read just after, beside
+    phase 2's. Returns phase 2's result and the ROI-align launches' modes
+    {(dtype, feature shape, P, order)}."""
+    records = []
+    p = phase2_propose(dev, net, tag, counters=("roi_align",), raw_hw=raw_hw, canvas=canvas,
+                       records=records)
     levels = net.cfg.SEAR.MAX_LEVELS
-    check(counts["roi_align"] >= BATCH + 1, f"ROI-align kernel launched "
-          f"{counts['roi_align']} times in {BATCH + 1} searches of up to {levels} levels")
-    roi_err, rs, modes = roi_path_errs(recorded)
-    print(f"{tag} ROI align on the path's {counts['roi_align']} inputs (R in {rs}; {sorted(modes)}): "
-          f"kernel vs plain max_abs_err {roi_err}", flush=True)
-    check(roi_err == 0.0, f"{tag}: ROI-align kernel disagrees with the plain version on the "
-                          "path's inputs")
-    return {"nms": nms_launches, "roi": counts["roi_align"], "nms_err": nms_err,
-            "roi_err": roi_err, "modes": modes, "ips": ips, "blobs": blobs,
-            "search_level": level}
+    check(p["launches"]["roi_align"] >= BATCH + 1, f"ROI-align kernel launched "
+          f"{p['launches']['roi_align']} times in {BATCH + 1} searches of up to {levels} levels")
+    rois = [r.args for r in records if r.name == "roi_align"]
+    modes = {(str(feat.dtype)[6:], tuple(feat.shape), pool, "W-first" if w_first else "H-first")
+             for feat, _, _, pool, w_first in rois}
+    print(f"{tag} ROI align on the path's {len(rois)} inputs (R in "
+          f"{sorted({int(a[1].shape[0]) for a in rois})}; {sorted(modes)}): kernel vs plain "
+          f"max_abs_err {p['err']['roi_align']}", flush=True)
+    return {**p, "modes": modes}
 
 
 def card_vs_cpu(tag, cfg, dev, int8=False):
@@ -2438,34 +2178,6 @@ def wrapped(module, name, before=None, after=None):
         setattr(module, name, real)
 
 
-def path_kernel_errs(recorded, recorded_conv=()):
-    """Each recorded launch against its plain version on the same inputs:
-    {kernel: max_abs_err} (conv1 within one bf16 ulp, the search level bit
-    for bit, checked here; the others bit for bit, checked by the caller),
-    and the share of conv1 elements that differ."""
-    from aznet_tpu_torch.ops import conv1_fused as tconv1
-    from aznet_tpu_torch.ops import conv_int8 as tconv
-
-    errs = {"roi": roi_path_errs(recorded)[0], "nms": nms_path_err(recorded),
-            "search_level": search_level_path_err(recorded)[0]}
-    frac = 0.0
-    for kind, args, out in recorded:
-        if kind == "conv1":
-            y, w_k, bias = args
-            want = tconv1.conv1_2_pool_reference(
-                y, tconv1.unpack_kernel_layout(w_k, y.shape[3], bias.shape[0]), bias)
-            ok, f = tconv1.within_one_bf16_ulp(out, want)
-            check(ok, "conv1 kernel is more than one bf16 ulp from the plain version on the "
-                      "eval path's inputs")
-            frac = max(frac, f)
-            errs["conv1"] = max(errs.get("conv1", 0.0), (out.float() - want.float()).abs().max().item())
-    for entry, x, s_x, w_k, s_w, bias, s_out, out in recorded_conv:
-        want = tconv.conv3x3_int8_reference(x, s_x, tconv.Int8Conv(w_k, s_w, bias), s_out,
-                                            pool=entry == "chain")
-        errs[entry] = max(errs.get(entry, 0.0), (out.float() - want.float()).abs().max().item())
-    return errs, frac
-
-
 def check_proposals(tag, props, imdb, n_max):
     for i, p in enumerate(props):
         e = imdb.roidb[i]
@@ -2530,12 +2242,10 @@ def phase10_eval(dev, card):
     the plain versions. Returns the launches and errors."""
     import torch
 
-    from aznet_tpu_torch import api
+    from aznet_tpu_torch import api, kernels
     from aznet_tpu_torch.data import SyntheticImdb, get_imdb
     from aznet_tpu_torch.eval import detection as tdet
-    from aznet_tpu_torch.ops.cuda import (conv1_kernel, iou_kernel, nms_kernel, roi_align_kernel,
-                                          search_level_kernel, search_select_kernel)
-    from aznet_tpu_torch.ops.cuda import conv_int8_kernel as ck
+    from aznet_tpu_torch.ops.cuda import launch_counts, set_launch_counts
     from aznet_tpu_torch.ops.quant import calibrate_net_on_imdb
     from aznet_tpu_torch.utils import native
 
@@ -2565,25 +2275,18 @@ def phase10_eval(dev, card):
     tdet.propose_all_batched(az, imdb, batch_size=EVAL_BATCH, max_images=EVAL_BATCH)
     torch.cuda.synchronize()
 
-    def counts():
-        return {"nms": nms_kernel.LAUNCHES, "roi_align": roi_align_kernel.LAUNCHES,
-                "conv1": conv1_kernel.LAUNCHES, "chain": ck.LAUNCHES["chain"],
-                "strip": ck.LAUNCHES["strip"], "iou": iou_kernel.LAUNCHES,
-                "search_level": search_level_kernel.LAUNCHES,
-                "search_select": search_select_kernel.LAUNCHES}
-
     host_nms = {"calls": 0, "s": 0.0}
     props, fused_calls, times = {}, [], {}
-    recorded, recorded8, recorded_conv = [], [], []
+    recorded = []
 
     def run(name, n, fn):
-        before = counts()
+        before = launch_counts()
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         s = time.perf_counter() - t0
         times[name] = (s, n)
-        delta = {k: v - before[k] for k, v in counts().items()}
+        delta = {k: v - before[k] for k, v in launch_counts().items()}
         print(f"phase10 {name}: {s * 1e3:.1f} ms for {n} images, {s * 1e3 / n:.2f} ms/image, "
               f"{n / s:.2f} img/s ({card}); launches {delta}", flush=True)
         return out
@@ -2595,13 +2298,9 @@ def phase10_eval(dev, card):
         host_nms["calls"] += 1
         host_nms["s"] += s
 
-    nms_kernel.LAUNCHES = roi_align_kernel.LAUNCHES = conv1_kernel.LAUNCHES = 0
-    iou_kernel.LAUNCHES = ck.LAUNCHES["chain"] = ck.LAUNCHES["strip"] = 0
-    search_level_kernel.LAUNCHES = search_select_kernel.LAUNCHES = 0
+    set_launch_counts()
     with wrapped(tdet, "nms", after=count_nms):
-        with first_batch("make_propose_batch_padded",
-                         [recording_nms(recorded), recording_detect_kernels(recorded),
-                          recording_search_level(recorded)]), \
+        with first_batch("make_propose_batch_padded", [kernels.recording(records=recorded)]), \
                 wrapped(tdet, "propose_all_batched", after=keep("bf16")):
             rec_bf16 = run("evaluate_recall batched", EVAL_IMAGES, lambda: tdet.evaluate_recall(
                 az, imdb, max_images=EVAL_IMAGES, batched=True, batch_size=EVAL_BATCH))
@@ -2612,7 +2311,7 @@ def phase10_eval(dev, card):
             rec_seq = run("evaluate_recall per image", EVAL_SEQ, lambda: tdet.evaluate_recall(
                 az, imdb, max_images=EVAL_SEQ, batched=False))
         with first_batch("make_fused_detect_batch_padded",
-                         [recording_detect_kernels(recorded), recording_search_level(recorded)]), \
+                         [kernels.recording(records=recorded)]), \
                 wrapped(tdet, "detect_all_fused", before=lambda *a: fused_calls.append(1)):
             nms0 = dict(host_nms)
             dets = run("detect_all_batched fused=None", EVAL_IMAGES, lambda: tdet.detect_all_batched(
@@ -2628,21 +2327,19 @@ def phase10_eval(dev, card):
     aps = imdb.evaluate_detections(dets, "")
     print(f"phase10 evaluate_detections: {(time.perf_counter() - t0) * 1e3:.1f} ms; "
           + ", ".join(f"{k} {v:.4f}" for k, v in aps.items()), flush=True)
-    bf16_counts = counts()
+    bf16_counts = launch_counts()
     check(bf16_counts["chain"] == bf16_counts["strip"] == 0, f"int8 conv ran in bf16: {bf16_counts}")
     net8 = run("calibrate_net_on_imdb", EVAL_CALIB,
                lambda: calibrate_net_on_imdb(az, imdb, n_images=EVAL_CALIB))
     print(f"phase10 int8 scales: trunk {[round(s, 6) for s in net8.cfg.MODEL.INT8_SCALES]}, "
           f"head {[round(s, 6) for s in net8.cfg.MODEL.INT8_HEAD_SCALES]}", flush=True)
-    with first_batch("make_propose_batch_padded",
-                     [recording_conv(recorded_conv), recording_nms(recorded8),
-                      recording_detect_kernels(recorded8), recording_search_level(recorded8)]), \
+    with first_batch("make_propose_batch_padded", [kernels.recording(records=recorded)]), \
             wrapped(tdet, "propose_all_batched", after=keep("int8")):
         rec_int8 = run("evaluate_recall batched int8", EVAL_IMAGES, lambda: tdet.evaluate_recall(
             net8, imdb, max_images=EVAL_IMAGES, batched=True, batch_size=EVAL_BATCH))
-    launches = counts()
+    launches = launch_counts()
     print(f"phase10 main path: launches {launches}", flush=True)
-    check(all(v > 0 for k, v in launches.items() if k != "iou"),
+    check(all(v > 0 for k, v in launches.items() if k not in ("iou", "conv1_f32")),
           f"a kernel never ran on the eval path: {launches}")
     # Recall takes its IoU from the host (eval/recall.py): no driver calls the IoU kernel.
     check(launches["iou"] == 0, f"the IoU kernel ran on the eval path: {launches}")
@@ -2666,19 +2363,11 @@ def phase10_eval(dev, card):
           f"rows unmatched within {FUSED_S_TOL} / {FUSED_B_TOL} px", flush=True)
     check(miss <= FUSED_MISS, "fused and two-program detect_all_batched disagree")
 
-    errs, frac = path_kernel_errs(recorded)
-    errs8, _ = path_kernel_errs(recorded8, recorded_conv)
-    path_kinds = ("nms", "roi", "conv1", "search_level")
-    n_rec = {k: sum(r[0] == k for r in recorded + recorded8) for k in path_kinds}
-    n_rec.update({e: sum(r[0] == e for r in recorded_conv) for e in ("chain", "strip")})
-    errs = {k: max(errs.get(k, 0.0), errs8.get(k, 0.0)) for k in path_kinds} | {
-        e: errs8.get(e, 0.0) for e in ("chain", "strip")}
-    print(f"phase10 kernels on the first batches' inputs ({n_rec} launches): max_abs_err {errs}; "
-          f"conv1 within one bf16 ulp, at most {frac:.4%} of elements differ", flush=True)
-    check(all(n_rec.values()), f"a kernel was not recorded on the first batches: {n_rec}")
-    check(all(errs[k] == 0.0 for k in ("nms", "roi", "chain", "strip", "search_level")),
-          "a kernel disagrees with its plain version on the eval path's inputs")
-    del az, fr, net8, recorded, recorded8, recorded_conv
+    errs = hold("phase10", recorded, "the first batches' inputs")
+    check(errs.keys() >= {"nms", "roi_align", "conv1", "chain", "strip", "search_seed",
+                          "search_level", "search_select"},
+          f"a kernel was not recorded on the first batches: {sorted(errs)}")
+    del az, fr, net8, recorded
     torch.cuda.empty_cache()
     return {"launches": launches, "err": errs, "times": times}
 
@@ -2696,7 +2385,7 @@ def phase10_reference(dev):
     from aznet_tpu_torch.config import cfg_from_dict
     from aznet_tpu_torch.data import get_imdb
     from aznet_tpu_torch.eval import detection as tdet
-    from aznet_tpu_torch.ops.cuda import nms_kernel, roi_align_kernel
+    from aznet_tpu_torch.ops.cuda import launch_counts
 
     cfg = cfg_from_dict(eval_config(), {
         "MODEL": {"WIDTH": 0.125, "FC_DIM": 64, "COMPUTE_DTYPE": "float32", "FUSE_CONV1": False},
@@ -2711,7 +2400,7 @@ def phase10_reference(dev):
                    else {"state_dict": nets["cpu"][1].params})
         nets[d] = (az, api.share_trunk(api.build_frcnn_net(cfg, device=d, **fr_seed), az))
     out = {}
-    before = (nms_kernel.LAUNCHES, roi_align_kernel.LAUNCHES)
+    before = launch_counts()
     for d, (az, fr) in nets.items():
         out[d] = {
             "props": tdet.propose_all_batched(az, imdb, batch_size=2, max_images=EVAL_SEQ),
@@ -2721,7 +2410,8 @@ def phase10_reference(dev):
             "seq": tdet.detect_all(az, fr, imdb, max_images=EVAL_SEQ),
             "recall": tdet.evaluate_recall(az, imdb, top_ks=(5, 10), max_images=EVAL_SEQ,
                                            batched=True, batch_size=2)}
-    launched = (nms_kernel.LAUNCHES - before[0], roi_align_kernel.LAUNCHES - before[1])
+    after = launch_counts()
+    launched = tuple(after[k] - before[k] for k in ("nms", "roi_align"))
     got, want = out[dev], out["cpu"]
     check(all(launched), f"the small config did not run the kernels: {launched}")
     d_s, near = 0.0, 1.0
@@ -2777,14 +2467,13 @@ class TrainProbe:
     """While active, every train step that ``train/loop.py`` builds is timed
     by CUDA events and its metrics kept; the loop's waits on either
     prefetcher are timed; each harvest is timed (synchronised), its NMS
-    launches counted, and the first one's NMS inputs recorded; the steps of
+    launches counted, and the first one's kernel launches recorded; the steps of
     each ``windows`` pair (first, last) run under ``torch.profiler`` for the
     card's busy share."""
 
     def __init__(self, windows=()):
         self.windows = windows
-        self.steps, self.waits, self.harvests, self.nms_inputs = [], [], [], []
-        self.level_inputs = []
+        self.steps, self.waits, self.harvests, self.records = [], [], [], []
         self.profiles, self.window_s = [], 0.0  # profilers of the windows, their wall s
         self.first_batches, self.builds = [], []  # the loop's own batch builds, s
         self.worker_env = {}
@@ -2796,8 +2485,9 @@ class TrainProbe:
         import torch
         from torch.profiler import ProfilerActivity, profile
 
+        from aznet_tpu_torch import kernels
         from aznet_tpu_torch.data import prefetch
-        from aznet_tpu_torch.ops.cuda import nms_kernel
+        from aznet_tpu_torch.ops.cuda import launch_counts
         from aznet_tpu_torch.train import loop, mining
 
         probe, self._stack = self, contextlib.ExitStack()
@@ -2848,14 +2538,13 @@ class TrainProbe:
         def harvest(miner, model):
             probe.dirty.add(len(probe.steps) - 1)
             torch.cuda.synchronize()
-            n0, t0 = nms_kernel.LAUNCHES, time.perf_counter()
+            n0, t0 = launch_counts()["nms"], time.perf_counter()
             with contextlib.ExitStack() as stack:
                 if not probe.harvests:
-                    stack.enter_context(recording_nms(probe.nms_inputs))
-                    stack.enter_context(recording_search_level(probe.level_inputs))
+                    stack.enter_context(kernels.recording(records=probe.records))
                 n = real_harvest(miner, model)
             torch.cuda.synchronize()
-            probe.harvests.append((time.perf_counter() - t0, n, nms_kernel.LAUNCHES - n0))
+            probe.harvests.append((time.perf_counter() - t0, n, launch_counts()["nms"] - n0))
             return n
 
         for name in ("make_az_train_step", "make_frcnn_train_step"):
@@ -2925,37 +2614,6 @@ def check_metrics(tag, metrics, keys):
               f"{tag} step {i + 1}: metrics {m}")
 
 
-def train_launch_counts():
-    from aznet_tpu_torch.ops.cuda import (conv1_kernel, iou_kernel, nms_kernel, roi_align_kernel,
-                                          search_level_kernel, search_select_kernel)
-    from aznet_tpu_torch.ops.cuda import conv_int8_kernel as ck
-
-    return {"nms": nms_kernel.LAUNCHES, "roi_align": roi_align_kernel.LAUNCHES,
-            "conv1": conv1_kernel.LAUNCHES, "chain": ck.LAUNCHES["chain"],
-            "strip": ck.LAUNCHES["strip"], "iou": iou_kernel.LAUNCHES,
-            "search_level": search_level_kernel.LAUNCHES,
-            "search_select": search_select_kernel.LAUNCHES}
-
-
-def set_launch_counts(counts):
-    """Sets every kernel's launch count to ``counts`` (the keys of
-    :func:`train_launch_counts`)."""
-    from aznet_tpu_torch.ops.cuda import (conv1_kernel, iou_kernel, nms_kernel, roi_align_kernel,
-                                          search_level_kernel, search_select_kernel)
-    from aznet_tpu_torch.ops.cuda import conv_int8_kernel as ck
-
-    for mod, k in ((nms_kernel, "nms"), (roi_align_kernel, "roi_align"),
-                   (conv1_kernel, "conv1"), (iou_kernel, "iou"),
-                   (search_level_kernel, "search_level"),
-                   (search_select_kernel, "search_select")):
-        mod.LAUNCHES = counts[k]
-    ck.LAUNCHES["chain"], ck.LAUNCHES["strip"] = counts["chain"], counts["strip"]
-
-
-def zero_counts():
-    set_launch_counts(dict.fromkeys(train_launch_counts(), 0))
-
-
 def phase11_train(dev, card):
     """Training at full VGG-16 width on ``synthetic_hard_train``: (a) AZ-Net,
     12 steps with mining every 4 steps over 8 images, timed; (b) a resume to
@@ -2978,7 +2636,7 @@ def phase11_train(dev, card):
     from aznet_tpu_torch.data.prefetch import MPPrefetcher, az_batch_builder
     from aznet_tpu_torch.data.synthetic import SyntheticImdb
     from aznet_tpu_torch.eval.detection import propose_all
-    from aznet_tpu_torch.ops.cuda import nms_kernel
+    from aznet_tpu_torch.ops.cuda import launch_counts, set_launch_counts
     from aznet_tpu_torch.train import loop
     from aznet_tpu_torch.train.train_az import make_az_train_state, make_az_train_step
     from aznet_tpu_torch.utils.checkpoint import Checkpointer
@@ -2990,7 +2648,7 @@ def phase11_train(dev, card):
     print(f"phase11 {TRAIN_IMDB}: {len(roidb)} images made in {time.perf_counter() - t0:.2f} s",
           flush=True)
     out_root = tempfile.mkdtemp(prefix="aznet_train_")
-    zero_counts()
+    set_launch_counts()
     try:
         # (a) AZ-Net with mining.
         cfg = train_config(MINE_INTERVAL=MINE_INTERVAL, MINE_IMAGES=MINE_IMAGES)
@@ -3034,18 +2692,10 @@ def phase11_train(dev, card):
         print(f"phase11a harvests: {len(probe.harvests)} x {MINE_IMAGES} images, "
               f"{harvest_ms:.2f} ms/image after the first, NMS launches {harvest_nms} "
               f"({[round(h[0] * 1e3, 1) for h in probe.harvests]} ms each)", flush=True)
-        check(harvest_nms > 0 and probe.nms_inputs, "11a: the harvests launched no NMS kernel")
-        n0 = nms_kernel.LAUNCHES
-        nms_err = nms_path_err(probe.nms_inputs)
-        nms_kernel.LAUNCHES = n0  # the comparison's own launches are not the path's
-        print(f"phase11a NMS kernel on the first harvest's {len(probe.nms_inputs)} inputs: "
-              f"max_abs_err {nms_err}", flush=True)
-        check(nms_err == 0.0, "11a: NMS kernel disagrees with its plain version on the "
-                              "harvest's inputs")
-        level_err, shapes, n_levels = search_level_path_err(probe.level_inputs)
-        print(f"phase11a search level on the first harvest's first search ({n_levels} levels, "
-              f"(R, next_cap) in {shapes}): max_abs_err {level_err}, bit for bit", flush=True)
-        check(n_levels >= 1, "11a: the harvests ran no search level on the card")
+        check(harvest_nms > 0, "11a: the harvests launched no NMS kernel")
+        errs = hold("phase11a", probe.records, "the first harvest's inputs")
+        check(errs.keys() >= {"nms", "search_level"},
+              f"11a: the first harvest ran no NMS kernel or no search level: {sorted(errs)}")
         ckpt = Checkpointer(out)
         check(ckpt.all_steps() == [TRAIN_STEPS], f"11a: snapshots {ckpt.all_steps()}")
         deploy = Checkpointer(f"{out}/deploy")
@@ -3073,12 +2723,12 @@ def phase11_train(dev, card):
         az = api.build_az_net(eval_config(), state_dict=params["params"], device=dev)
         chain_imdb = SyntheticImdb(split="train", seed=base.seed, num_images=CHAIN_IMAGES,
                                    image_hw=base.image_hw, hard=base.hard)
-        before = train_launch_counts()
+        before = launch_counts()
         t0 = time.perf_counter()
         props = propose_all(az, chain_imdb)
         torch.cuda.synchronize()
         s = time.perf_counter() - t0
-        delta = {k: v - before[k] for k, v in train_launch_counts().items()}
+        delta = {k: v - before[k] for k, v in launch_counts().items()}
         check_proposals("11c", props, chain_imdb, az.cfg.SEAR.NUM_PROPOSALS)
         check(all(delta[k] > 0 for k in ("nms", "roi_align", "conv1")),
               f"11c: propose_all did not launch every kernel: {delta}")
@@ -3166,14 +2816,13 @@ def phase11_train(dev, card):
                   for e in pf.worker_env.values()), "11d: a prefetch worker touched CUDA or JAX")
 
         # (e) card against CPU.
-        errs = train_card_vs_cpu(dev)
+        card_errs = train_card_vs_cpu(dev)
     finally:
         shutil.rmtree(out_root, ignore_errors=True)
-    launches = train_launch_counts()
+    launches = launch_counts()
     print(f"phase11 launches {launches}; {time.perf_counter() - t_phase:.1f} s", flush=True)
     check(launches["nms"] > 0, "phase 11 launched no NMS kernel")
-    return {"launches": launches, "nms_err": nms_err, "search_level_err": level_err,
-            "card_vs_cpu": errs}
+    return {"launches": launches, "err": errs, "card_vs_cpu": card_errs}
 
 
 def step_breakdown(dev, cfg, batch, steps=3):
@@ -3288,12 +2937,6 @@ def register_tools_imdbs():
             split=split, seed=seed, num_images=n, image_hw=RAW_HW, hard=True))
 
 
-def first_of_each(log):
-    """Keeps, in place, the first record of each kind in ``log``."""
-    seen = set()
-    log[:] = [r for r in log if r[0] not in seen and not seen.add(r[0])]
-
-
 def tool_json(text):
     """The JSON object a tool printed last (``test_net``'s table, indented)."""
     lines = text.splitlines()
@@ -3350,7 +2993,9 @@ def phase12_tools(dev, card):
 
     import torch
 
+    from aznet_tpu_torch import kernels
     from aznet_tpu_torch.eval import detection as tdet
+    from aznet_tpu_torch.ops.cuda import launch_counts, set_launch_counts
     from aznet_tpu_torch.utils import profiling
     from aznet_tpu_torch.utils.checkpoint import Checkpointer
     from tools_torch import _common
@@ -3362,20 +3007,20 @@ def phase12_tools(dev, card):
     out = tempfile.mkdtemp(prefix="aznet_tools_")
     base = ["--cfg", cfg_path]
     fused = ["MODEL.POOLING_MODE", "align_pallas", "MODEL.FUSE_CONV1", "True"]
-    legs, recorded, recorded_conv, fused_calls = {}, [], [], []
+    legs, fused_calls = {}, []
 
     def tool(leg, name, argv):
         """``tools_torch.<name>.main(argv)``: its wall time, launches and
         standard output (echoed, the long progress lines left out)."""
         mod = importlib.import_module(f"tools_torch.{name}")
-        before = train_launch_counts()
+        before = launch_counts()
         buf = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
             rc = mod.main(argv)
         torch.cuda.synchronize()
         s = time.perf_counter() - t0
-        delta = {k: v - before[k] for k, v in train_launch_counts().items()}
+        delta = {k: v - before[k] for k, v in launch_counts().items()}
         text = buf.getvalue()
         for line in text.splitlines():
             if not line.startswith(("propose_batched", "refined")):
@@ -3383,15 +3028,12 @@ def phase12_tools(dev, card):
         print(f"phase12{leg} {name} {' '.join(argv)}: {s:.2f} s ({card}); launches {delta}",
               flush=True)
         check(rc == 0, f"phase12{leg}: {name} returned {rc}")
-        first_of_each(recorded)
-        first_of_each(recorded_conv)
         legs.setdefault(leg, []).append((name, s, delta))
         return text, delta
 
-    zero_counts()
+    set_launch_counts()
     try:
-        with recording_nms(recorded), recording_detect_kernels(recorded), \
-                recording_search_level(recorded), recording_conv(recorded_conv), \
+        with kernels.recording(first_only=True) as recorded, \
                 wrapped(tdet, "detect_all_fused", before=lambda *a: fused_calls.append(1)):
             # (a) AZ-Net with mining, then a resume.
             az = f"{out}/az"
@@ -3497,21 +3139,15 @@ def phase12_tools(dev, card):
                   f"{check_recall('converted', tool_json(text))}", flush=True)
     finally:
         shutil.rmtree(out, ignore_errors=True)
-    launches = train_launch_counts()
+    launches = launch_counts()
     print(f"phase12 tools launches {launches}; {time.perf_counter() - t_phase:.1f} s", flush=True)
     check(all(launches[k] > 0 for k in TOOLS_KERNELS), f"a kernel never ran in the tools: "
                                                        f"{launches}")
     check(launches["iou"] == 0, f"the IoU kernel ran in the tools: {launches}")
 
-    n0 = train_launch_counts()
-    errs, frac = path_kernel_errs(recorded, recorded_conv)
-    set_launch_counts(n0)  # the comparisons' launches are not the path's
-    kinds = sorted({r[0] for r in recorded} | {r[0] for r in recorded_conv})
-    print(f"phase12 kernels on the tools' first inputs ({kinds}): max_abs_err {errs}; conv1 "
-          f"within one bf16 ulp, {frac:.4%} of elements differ", flush=True)
-    check(kinds == ["chain", "conv1", "nms", "roi", "search_level", "strip"], f"recorded {kinds}")
-    check(all(errs[k] == 0.0 for k in ("nms", "roi", "chain", "strip", "search_level")),
-          "a kernel disagrees with its plain version on the tools' inputs")
+    errs = hold("phase12", recorded, "the tools' first inputs")
+    check(sorted(errs) == ["chain", "conv1", "nms", "roi_align", "search_level", "search_seed",
+                           "search_select", "strip"], f"recorded {sorted(errs)}")
     return {"launches": launches, "err": errs, "legs": legs}
 
 
@@ -3553,10 +3189,11 @@ def phase13_mesh(dev, card):
     import torch
     import torch.distributed as dist
 
-    from aznet_tpu_torch import api
+    from aznet_tpu_torch import api, kernels
     from aznet_tpu_torch.config import Config
     from aznet_tpu_torch.data.imdb import get_imdb
     from aznet_tpu_torch.data.minibatch import fixed_canvas, get_az_minibatch
+    from aznet_tpu_torch.ops.cuda import launch_counts, set_launch_counts
     from aznet_tpu_torch.parallel import make_mesh
     from aznet_tpu_torch.parallel.inference import (make_latency_propose, make_sharded_detect,
                                                     make_sharded_propose)
@@ -3611,19 +3248,14 @@ def phase13_mesh(dev, card):
         mst = make_az_train_state(cfg_t, device=dev, mesh=mesh)
         mesh_step = make_az_train_step(mst.model, mesh=mesh)
 
-        recorded, recorded_conv = [], []
-        zero_counts()
+        set_launch_counts()
         COLLECTIVES.update(all_gather=0, all_reduce=0)
         got = {}
-        with recording_nms(recorded), recording_detect_kernels(recorded), \
-                recording_search_level(recorded), recording_conv(recorded_conv):
+        with kernels.recording(first_only=True) as recorded:
             for key in ("propose", "region", "int8"):
                 got[key] = mesh_fns[key](images)
-                first_of_each(recorded)
-                first_of_each(recorded_conv)
             got["latency"] = mesh_fns["latency"](images[0])
             got["detect"] = mesh_fns["detect"](images, boxes)
-            first_of_each(recorded)
             got_m = mesh_step(mst, tb, cfg_t.RNG_SEED)
             buf = io.StringIO()
             with contextlib.redirect_stdout(buf):
@@ -3631,9 +3263,8 @@ def phase13_mesh(dev, card):
                                      "--output", f"{out_dir}/tool", "--mesh", "1", "--cfg",
                                      tools_cfg, "--set", "TRAIN.MINE_INTERVAL", "2",
                                      "TRAIN.MINE_IMAGES", "2"])
-            first_of_each(recorded)
             torch.cuda.synchronize()
-        launches = train_launch_counts()
+        launches = launch_counts()
         calls = dict(COLLECTIVES)
         text = buf.getvalue()
         print(f"phase13 mesh launches {launches}; collectives {calls}", flush=True)
@@ -3670,13 +3301,7 @@ def phase13_mesh(dev, card):
             check(launches[k] > 0, f"13g: {k} kernel never launched on the mesh paths")
         check(launches["iou"] == 0, f"13g: the IoU kernel launched: {launches}")
 
-        n0 = train_launch_counts()
-        errs, frac = path_kernel_errs(recorded, recorded_conv)
-        set_launch_counts(n0)
-        print(f"phase13g kernels on the mesh paths' first inputs: max_abs_err {errs}; conv1 "
-              f"within one bf16 ulp, {frac:.4%} of elements differ", flush=True)
-        check(all(errs[k] == 0.0 for k in ("nms", "roi", "chain", "strip", "search_level")),
-              "13g: a kernel disagrees with its plain version on the mesh paths' inputs")
+        errs = hold("phase13g", recorded, "the mesh paths' first inputs")
 
         # Times: each mesh call beside its plain path, in this call, in
         # alternating rounds (the host-bound search moves between rounds).
@@ -3747,24 +3372,18 @@ def phase14a_chain_from_conv1_2(dev, int8):
     bf16 trunk, and the trunk timed against the trunk from conv2_2."""
     import torch
 
-    from aznet_tpu_torch.ops.cuda import conv_int8_kernel as ck
-
     net8, blobs = int8["net"], int8["blobs"]
     net12 = int8_variant("phase14a", net8, dev, INT8_CHAIN_FROM="conv1_2")
     trunk = net12.model.trunk
     check(trunk.int8_bf16_prefix == ("conv1_1",), f"the trunk from conv1_2 kept the prefix "
                                                   f"{trunk.int8_bf16_prefix}")
 
-    def reset():
-        ck.LAUNCHES["chain"] = ck.LAUNCHES["strip"] = 0
-
-    recorded = []
-    counters = [(e, reset, lambda e=e: ck.LAUNCHES[e]) for e in ("chain", "strip")]
-    nms_launches, ips, nms_err, counts, _, level = phase2_propose(
-        dev, net12, "phase14a", recorders=[recording_conv(recorded)], counters=counters)
+    records = []
+    p = phase2_propose(dev, net12, "phase14a", counters=("chain", "strip"), records=records)
+    counts = {e: p["launches"][e] for e in ("chain", "strip")}
     check(counts == {"chain": 8, "strip": 16},
           f"trunk from conv1_2: launches {counts}, expected chain 8 and strip 16 in 2 trunk calls")
-    conv_err, shapes = conv_path_err("phase14a", recorded)
+    shapes = {(r.name, tuple(r.args[0].shape)) for r in records if r.name in counts}
     for entry, shape in (("chain", (BATCH,) + CANVAS + (64,)),
                          ("strip", (BATCH, CANVAS[0] // 2, CANVAS[1] // 2, 64))):
         check((entry, shape) in shapes, f"no {entry} launch at {shape} on the path")
@@ -3780,8 +3399,8 @@ def phase14a_chain_from_conv1_2(dev, int8):
     check(cos > 0.98, f"the int8 trunk from conv1_2 drifts from the bf16 trunk: cosine {cos}")
     print(f"phase14a int8 trunk at b={BATCH}, medians of 3 alternating rounds (events): "
           + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items())
-          + f"; propose {ips:.2f} img/s vs {int8['ips']:.2f} from conv2_2", flush=True)
-    return {"launches": counts, "conv_err": conv_err, "nms_err": nms_err, "search_level": level}
+          + f"; propose {p['ips']:.2f} img/s vs {int8['ips']:.2f} from conv2_2", flush=True)
+    return {"launches": p["launches"], "err": p["err"]}
 
 
 def phase14b_xla(dev, int8):
@@ -3792,7 +3411,6 @@ def phase14b_xla(dev, int8):
 
     from aznet_tpu_torch.models.vgg import VGG16_LAYOUT
     from aznet_tpu_torch.ops import conv_int8 as tconv
-    from aznet_tpu_torch.ops.cuda import conv_int8_kernel as ck
 
     net8, blobs = int8["net"], int8["blobs"]
     netx = int8_variant("phase14b", net8, dev, INT8_BACKEND="xla")
@@ -3801,15 +3419,9 @@ def phase14b_xla(dev, int8):
     def tick(*_):
         int_mm[0] += 1
 
-    def reset():
-        ck.LAUNCHES["chain"] = ck.LAUNCHES["strip"] = int_mm[0] = 0
-
-    counters = [("chain", reset, lambda: ck.LAUNCHES["chain"]),
-                ("strip", lambda: None, lambda: ck.LAUNCHES["strip"]),
-                ("_int_mm", lambda: None, lambda: int_mm[0])]
-    _, ips, nms_err, counts, _, level = phase2_propose(
-        dev, netx, "phase14b", recorders=[wrapped(torch, "_int_mm", before=tick)],
-        counters=counters)
+    p = phase2_propose(dev, netx, "phase14b", counters=("chain", "strip"),
+                       recorders=[wrapped(torch, "_int_mm", before=tick)])
+    counts = {**p["launches"], "_int_mm": int_mm[0]}
     check(counts["chain"] == 0 and counts["strip"] == 0, f"'xla' launched conv kernels: {counts}")
     with torch.inference_mode(), wrapped(torch, "_int_mm", before=tick):
         int_mm[0] = 0
@@ -3836,9 +3448,9 @@ def phase14b_xla(dev, int8):
           f"'pallas' chain on {share:.3e} of {d.numel()} (max {d.max().item()}); trunk cosine "
           f"against 'pallas' {cos:.7f}; trunk medians of 3 alternating rounds (events) "
           + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items())
-          + f"; propose {ips:.2f} img/s vs 'pallas' {int8['ips']:.2f}", flush=True)
+          + f"; propose {p['ips']:.2f} img/s vs 'pallas' {int8['ips']:.2f}", flush=True)
     check(cos > 0.999, f"'xla' trunk drifts from the 'pallas' trunk: cosine {cos}")
-    return {"nms_err": nms_err, "search_level": level}
+    return {"launches": p["launches"], "err": p["err"]}
 
 
 def conv1_f32_sass():
@@ -3917,26 +3529,16 @@ def phase14c_conv1_f32(dev):
     cfg = cfg_from_dict(Config(), {"MODEL": {"COMPUTE_DTYPE": "float32",
                                              "POOLING_MODE": "align_pallas", "FUSE_CONV1": True}})
     netf = build_net("phase14c", cfg, dev)
-    first = []
-
-    def reset():
-        conv1_kernel.LAUNCHES_F32 = 0
-
-    def record(y, w_k, bias):
-        if not first:
-            first.append((y.clone(), w_k, bias))
-
-    counters = [("conv1_f32", reset, lambda: conv1_kernel.LAUNCHES_F32)]
-    _, ips, nms_err, counts, blobs, level = phase2_propose(
-        dev, netf, "phase14c", counters=counters,
-        recorders=[wrapped(conv1_kernel, "conv1_2_pool_cuda_f32", before=record)])
+    records = []
+    p = phase2_propose(dev, netf, "phase14c", counters=("conv1_f32",), records=records)
+    counts, blobs = p["launches"], p["blobs"]
     check(counts["conv1_f32"] == 2, f"float32 conv1 launched {counts} times in 2 trunk calls")
-    y0, w0, bias0 = first[0]
+    first = next(r for r in records if r.name == "conv1_f32")
+    y0, w0, bias0 = first.args
     w12_0 = tconv1.unpack_kernel_layout_f32(w0, bias0.shape[0])
-    out0 = conv1_kernel.conv1_2_pool_cuda_f32(y0, w0, bias0)
-    ok0, errs0 = tconv1.float64_errors(out0, y0, w12_0, bias0)
+    ok0, errs0 = tconv1.float64_errors(first.out, y0, w12_0, bias0)
     check(ok0, f"float32 conv1 kernel outside its float64 bound on the path's input: {errs0}")
-    err = max(err, (out0 - tconv1.conv1_2_pool_reference(y0, w12_0, bias0)).abs().max().item())
+    del records, first, y0
     netu = build_net("phase14c unfused", dataclasses.replace(
         cfg, MODEL=dataclasses.replace(cfg.MODEL, FUSE_CONV1=False)), dev,
         state_dict=netf.params)
@@ -3944,13 +3546,12 @@ def phase14c_conv1_f32(dev):
         ff, fu = netf.model.features(blobs), netu.model.features(blobs)
     rel = ((ff - fu).abs().max() / fu.abs().max()).item()
     print(f"phase14c float32 FUSE_CONV1 net: {counts['conv1_f32']} launches on the propose path "
-          f"({ips:.2f} img/s); the path's first input against float64 {errs0}; trunk features "
-          f"fused vs unfused max rel err {rel:.3e}", flush=True)
+          f"({p['ips']:.2f} img/s); the path's first input against float64 {errs0}; trunk "
+          f"features fused vs unfused max rel err {rel:.3e}", flush=True)
     check(rel <= 1e-5, f"float32 FUSE_CONV1 trunk disagrees with the unfused trunk: {rel}")
-    return {"err": err, "errs": errs, "ms": k_ms, "device_us": k_us, "plain_ms": p_ms,
-            "library_ms": l_ms, "bound": (b_ms, b_by), "launches": counts["conv1_f32"],
-            "search_level": level,
-            "nms_err": nms_err}
+    return {"err": {**p["err"], "conv1_f32": max(err, p["err"]["conv1_f32"])}, "errs": errs,
+            "ms": k_ms, "device_us": k_us, "plain_ms": p_ms, "library_ms": l_ms,
+            "bound": (b_ms, b_by), "launches": counts}
 
 
 def phase14d_card_vs_cpu(dev, int8):
@@ -4046,52 +3647,6 @@ def phase15a_nms_large(dev):
     return err, cases
 
 
-@contextlib.contextmanager
-def recording_first(recorded, recorded_conv):
-    """Copies the inputs (and the result) of the first launch of the NMS,
-    ROI-align and both int8 conv kernels, and of the first search's levels,
-    while active, for :func:`path_kernel_errs`; later launches run
-    untouched."""
-    from aznet_tpu_torch.ops.cuda import nms_kernel, roi_align_kernel
-    from aznet_tpu_torch.ops.cuda import conv_int8_kernel as ck
-
-    real_nms, real_roi = nms_kernel.nms_cuda_batched, roi_align_kernel.roi_align_cuda
-    real_conv = {"chain": ck.conv3x3_int8_chain, "strip": ck.conv3x3_int8_strip}
-    seen = set()
-
-    def nms(boxes, scores, thresh, valid, offset=1.0):
-        if "nms" not in seen:
-            seen.add("nms")
-            recorded.append(("nms", (boxes.clone(), scores.clone(), thresh, valid.clone(),
-                                     offset), None))
-        return real_nms(boxes, scores, thresh, valid, offset)
-
-    def roi(feat, rois, scale, pool, w_first):
-        out = real_roi(feat, rois, scale, pool, w_first)
-        if "roi" not in seen:
-            seen.add("roi")
-            recorded.append(("roi", (feat.clone(), rois.clone(), scale, pool, w_first),
-                             out.clone()))
-        return out
-
-    def conv(entry):
-        def call(x, s_x, w_k, s_w, bias, s_out, *rest):
-            out = real_conv[entry](x, s_x, w_k, s_w, bias, s_out, *rest)
-            if entry not in seen:
-                seen.add(entry)
-                recorded_conv.append((entry, x.clone(), s_x, w_k, s_w, bias, s_out, out.clone()))
-            return out
-        return call
-
-    nms_kernel.nms_cuda_batched, roi_align_kernel.roi_align_cuda = nms, roi
-    ck.conv3x3_int8_chain, ck.conv3x3_int8_strip = conv("chain"), conv("strip")
-    try:
-        with recording_search_level(recorded):
-            yield
-    finally:
-        nms_kernel.nms_cuda_batched, roi_align_kernel.roi_align_cuda = real_nms, real_roi
-        ck.conv3x3_int8_chain, ck.conv3x3_int8_strip = real_conv["chain"], real_conv["strip"]
-
 
 def run_tool(tag, name, argv, card, env=None):
     """``tools_torch.<name>.main(argv)`` in this process under the environment
@@ -4104,19 +3659,21 @@ def run_tool(tag, name, argv, card, env=None):
 
     import torch
 
+    from aznet_tpu_torch import kernels
+    from aznet_tpu_torch.ops.cuda import launch_counts, set_launch_counts
+
     mod = importlib.import_module(f"tools_torch.{name}")
     saved = {k: os.environ.get(k) for k in (env or {})}
     os.environ.update(env or {})
-    recorded, recorded_conv = [], []
     buf = io.StringIO()
     try:
-        with recording_first(recorded, recorded_conv):
-            zero_counts()
+        with kernels.recording(first_only=True) as recorded:
+            set_launch_counts()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(buf):
                 rc = mod.main(argv)
             torch.cuda.synchronize()
-            launches = train_launch_counts()
+            launches = launch_counts()
             s = time.perf_counter() - t0
     finally:
         for k, v in saved.items():
@@ -4127,12 +3684,10 @@ def run_tool(tag, name, argv, card, env=None):
     text = buf.getvalue()
     for line in text.splitlines():
         print(f"{tag}   {line}")
-    errs, _ = path_kernel_errs(recorded, recorded_conv)
-    print(f"{tag} {name} {' '.join(argv)} {env or ''}: {s:.2f} s ({card}); launches {launches}; "
-          f"first launch of each kernel vs plain {errs}", flush=True)
+    print(f"{tag} {name} {' '.join(argv)} {env or ''}: {s:.2f} s ({card}); launches {launches}",
+          flush=True)
     check(rc == 0, f"{tag}: {name} returned {rc}")
-    check(max(errs.values(), default=0.0) == 0.0,
-          f"{tag}: a kernel disagrees with its plain version on the tool's inputs")
+    errs = hold(tag, recorded, "the tool's first inputs")
     return text, launches, errs
 
 
@@ -4243,12 +3798,13 @@ def phase15e_entry(card):
     import torch
 
     from aznet_tpu_torch import entry as tentry
+    from aznet_tpu_torch.ops.cuda import launch_counts, set_launch_counts
 
-    zero_counts()
+    set_launch_counts()
     fn, args = tentry.entry()
     boxes, scores, valid = fn(*args)
     torch.cuda.synchronize()
-    launches = train_launch_counts()
+    launches = launch_counts()
     check(tuple(boxes.shape) == (1, 300, 4) and tuple(scores.shape) == (1, 300)
           and tuple(valid.shape) == (1, 300), f"phase15e entry(): shapes {boxes.shape}")
     check(bool(torch.isfinite(boxes).all()) and bool(torch.isfinite(scores[valid]).all())
@@ -4305,7 +3861,7 @@ def main(argv) -> int:
         return 0
     from aznet_tpu_torch import _build
     from aznet_tpu_torch.config import Config
-    from aznet_tpu_torch.ops.cuda import iou_kernel
+    from aznet_tpu_torch.ops.cuda import launch_counts, set_launch_counts
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -4329,8 +3885,8 @@ def main(argv) -> int:
         return 0
     if argv[:1] == ["--settings-phase"]:
         net = build_net("phase2", Config(), dev)
-        _, ips, _, _, blobs, _ = phase2_propose(dev, net)
-        int8 = phase4_int8(dev, net, blobs, ips)
+        p2 = phase2_propose(dev, net)
+        int8 = phase4_int8(dev, net, p2["blobs"], p2["ips"])
         del net
         phase14_settings(dev, int8)
         return 0
@@ -4338,13 +3894,13 @@ def main(argv) -> int:
     err1, times = phase1_nms(dev)
     # VGG-16 at full width, bf16 (Config()'s default), default search.
     net = build_net("phase2", Config(), dev)
-    launches, ips, err2, _, blobs, level2 = phase2_propose(dev, net)
+    p2 = phase2_propose(dev, net)
     phase2_reference(dev)
     precision_probe(dev)
     bf16_reduction_probe(dev)
 
     conv = phase3_conv(dev)
-    int8 = phase4_int8(dev, net, blobs, ips)
+    int8 = phase4_int8(dev, net, p2["blobs"], p2["ips"])
     phase4_reference(dev)
     del net
     torch.cuda.empty_cache()
@@ -4356,16 +3912,16 @@ def main(argv) -> int:
     phase6_reference(dev)
 
     # The IoU kernel is on no path: its launches outside phase 7 stay 0.
-    iou_path_launches = iou_kernel.LAUNCHES
+    iou_path_launches = launch_counts()["iou"]
     iou = phase7_iou(dev)
-    iou_kernel.LAUNCHES = 0
+    set_launch_counts({"iou": 0})
     res = phase8_resnet(dev)
     small = phase9_small(dev)
-    iou_path_launches += iou_kernel.LAUNCHES
+    iou_path_launches += launch_counts()["iou"]
     ev = phase10_eval(dev, card)  # sets the IoU count to 0 and reads it with the others
-    iou_kernel.LAUNCHES = 0
+    set_launch_counts({"iou": 0})
     phase10_reference(dev)
-    iou_path_launches += ev["launches"]["iou"] + iou_kernel.LAUNCHES
+    iou_path_launches += ev["launches"]["iou"] + launch_counts()["iou"]
     tr = phase11_train(dev, card)  # sets every count to 0 and reads them at its end
     train = tr["launches"]
     tl = phase12_tools(dev, card)  # the same
@@ -4377,21 +3933,27 @@ def main(argv) -> int:
     bench_full = p15["bench"]["full"]["launches"]
     paths = [res["bf16"], res["int8"], small["caffenet"], small["vgg_cnn_m_1024"]]
     print(f"phase7-10 launches: IoU kernel {iou_path_launches} on the main paths (no path calls "
-          f"it); " + "; ".join(f"{tag} nms {p['nms']}, roi_align {p['roi']}" for tag, p in zip(
+          f"it); " + "; ".join(f"{tag} nms {p['launches']['nms']}, roi_align "
+                               f"{p['launches']['roi_align']}" for tag, p in zip(
               ("resnet50 bf16", "resnet50 int8", "caffenet", "vgg_cnn_m_1024"), paths)),
           flush=True)
+    # Each kernel's largest error on the paths' own inputs, phases 2, 4, 6 and 8-15.
+    path_errs = [p2["err"], int8["err"], det["err"], ev["err"], tr["err"], tl["err"], mp["err"],
+                 p15["path_errs"], *(p["err"] for p in paths),
+                 *(last[k]["err"] for k in ("c12", "xla", "conv1_f32"))]
+
+    def path_err(*names):
+        return max(e.get(k, 0.0) for e in path_errs for k in names)
 
     nms_t = times["path_1x2048"]
     nms_b = nms_bound(1, 2048)
     records = [{
         "name": "nms_exact_greedy", "route": "cuda", "source": NMS_SOURCE,
-        "replaces": NMS_REPLACES, "launches": launches, "eval_launches": ev["launches"]["nms"],
-        "train_launches": train["nms"], "tools_launches": tools["nms"],
-        "mesh_launches": mesh["nms"], "bench_launches": bench_full["nms"],
-        "max_abs_err": max(err1, err2, int8["nms_err"], ev["err"]["nms"], tr["nms_err"],
-                           tl["err"]["nms"], mp["err"]["nms"], *(p["nms_err"] for p in paths),
-                           *(last[k]["nms_err"] for k in ("c12", "xla", "conv1_f32")),
-                           p15["nms_err"], p15["path_errs"]["nms"]),
+        "replaces": NMS_REPLACES, "launches": p2["launches"]["nms"],
+        "eval_launches": ev["launches"]["nms"], "train_launches": train["nms"],
+        "tools_launches": tools["nms"], "mesh_launches": mesh["nms"],
+        "bench_launches": bench_full["nms"],
+        "max_abs_err": max(err1, p15["nms_err"], path_err("nms")),
         "ms": nms_t["ms"], "device_us": nms_t["device_us"], "plain_ms": nms_t["plain_ms"],
         "bound_ms": nms_b[0], "bound_by": nms_b[1], "library_ms": None,
         "large": {name: {k: t[k] for k in ("ms", "device_us", "passes", "plain_ms", "bound_ms",
@@ -4406,34 +3968,27 @@ def main(argv) -> int:
             "tools_launches": tools[entry], "mesh_launches": mesh[entry],
             "conv1_2_launches": last["c12"]["launches"][entry],
             "bench_launches": bench_full[entry],
-            "max_abs_err": max(conv["err"][entry], int8["conv_err"][entry], ev["err"][entry],
-                               tl["err"][entry], mp["err"][entry],
-                               last["c12"]["conv_err"][entry],
-                               p15["path_errs"].get(entry, 0.0)),
+            "max_abs_err": max(conv["err"][entry], path_err(entry)),
             "ms": conv["ms"][entry], "plain_ms": conv["plain_ms"][entry],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": conv["library_ms"][entry],
             "c64": conv["c64"][entry]})
     for key, name, source, replaces in (
-            ("roi", "roi_align_fused", ROI_SOURCE, ROI_REPLACES),
+            ("roi_align", "roi_align_fused", ROI_SOURCE, ROI_REPLACES),
             ("conv1", "conv1_fused_pool", CONV1_SOURCE, CONV1_REPLACES)):
-        rec = new[key]
+        rec = new["roi" if key == "roi_align" else key]
         records.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": det["launches"]["roi_align" if key == "roi" else "conv1"],
-            "eval_launches": ev["launches"]["roi_align" if key == "roi" else "conv1"],
-            "train_launches": train["roi_align" if key == "roi" else "conv1"],
-            "tools_launches": tools["roi_align" if key == "roi" else "conv1"],
-            "mesh_launches": mesh["roi_align" if key == "roi" else "conv1"],
-            "max_abs_err": max(rec["err"], det["err"][key], ev["err"][key], tl["err"][key],
-                               mp["err"][key], *(p["roi_err"] for p in paths if key == "roi"),
-                               p15["path_errs"].get(key, 0.0)),
+            "launches": det["launches"][key], "eval_launches": ev["launches"][key],
+            "train_launches": train[key], "tools_launches": tools[key],
+            "mesh_launches": mesh[key], "max_abs_err": max(rec["err"], path_err(key)),
             "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound"][0],
             "bound_by": rec["bound"][1], "library_ms": rec["library_ms"]})
     rec = last["conv1_f32"]
     records.append({
         "name": "conv1_fused_pool_f32", "route": "cuda", "source": CONV1_F32_SOURCE,
-        "replaces": CONV1_REPLACES, "launches": rec["launches"], "max_abs_err": rec["err"],
+        "replaces": CONV1_REPLACES, "launches": rec["launches"]["conv1_f32"],
+        "max_abs_err": path_err("conv1_f32"),
         "float64_err": rec["errs"], "ms": rec["ms"], "device_us": rec["device_us"],
         "plain_ms": rec["plain_ms"], "bound_ms": rec["bound"][0], "bound_by": rec["bound"][1],
         "library_ms": rec["library_ms"]})
@@ -4447,19 +4002,14 @@ def main(argv) -> int:
     lv, (b_ms, b_by) = level_alone[128], search_level_bound(128, 11, 128)
     records.append({
         "name": "search_level", "route": "cuda", "source": SEARCH_LEVEL_SOURCE,
-        "replaces": None, "plain": SEARCH_LEVEL_PLAIN, "launches": level2["launches"],
-        "int8_launches": int8["search_level"]["launches"],
+        "replaces": None, "plain": SEARCH_LEVEL_PLAIN, "launches": p2["launches"]["search_level"],
+        "int8_launches": int8["launches"]["search_level"],
         "detect_launches": det["launches"]["search_level"],
-        "resnet50_launches": res["bf16"]["search_level"]["launches"],
+        "resnet50_launches": res["bf16"]["launches"]["search_level"],
         "eval_launches": ev["launches"]["search_level"], "train_launches": train["search_level"],
         "tools_launches": tools["search_level"], "mesh_launches": mesh["search_level"],
         "bench_launches": bench_full["search_level"],
-        "max_abs_err": max(level2["err"], int8["search_level"]["err"],
-                           det["err"]["search_level"], ev["err"]["search_level"],
-                           tr["search_level_err"], tl["err"]["search_level"],
-                           mp["err"]["search_level"], p15["path_errs"].get("search_level", 0.0),
-                           *(p["search_level"]["err"] for p in paths),
-                           *(last[k]["search_level"]["err"] for k in ("c12", "xla", "conv1_f32"))),
+        "max_abs_err": path_err("search_seed", "search_level", "search_select"),
         "ms": lv["kernel"]["ms"], "device_us": lv["kernel"]["device_us"],
         "host_us": lv["kernel"]["host_us"], "plain_ms": lv["plain"]["ms"],
         "plain_device_us": lv["plain"]["device_us"], "plain_launches": lv["plain"]["launches"],
@@ -4470,10 +4020,10 @@ def main(argv) -> int:
     records.append({
         "name": "search_select", "route": "cuda", "source": SEARCH_SELECT_SOURCE,
         "replaces": None, "plain": SEARCH_SELECT_PLAIN,
-        "launches": level2["select_launches"],
-        "int8_launches": int8["search_level"]["select_launches"],
+        "launches": p2["launches"]["search_select"],
+        "int8_launches": int8["launches"]["search_select"],
         "detect_launches": det["launches"]["search_select"],
-        "resnet50_launches": res["bf16"]["search_level"]["select_launches"],
+        "resnet50_launches": res["bf16"]["launches"]["search_select"],
         "eval_launches": ev["launches"]["search_select"],
         "train_launches": train["search_select"], "tools_launches": tools["search_select"],
         "mesh_launches": mesh["search_select"], "bench_launches": bench_full["search_select"],

@@ -22,8 +22,8 @@ from aznet_tpu_torch.ops import conv1_fused as tconv1
 from aznet_tpu_torch.ops import conv_int8 as tconv
 from aznet_tpu_torch.ops import nms as tnms
 from aznet_tpu_torch.ops import roi_pool as troi
-from aznet_tpu_torch.ops.cuda import (conv1_kernel, conv_int8_kernel, iou_kernel, nms_kernel,
-                                      roi_align_kernel)
+from aznet_tpu_torch.ops.cuda import (conv1_kernel, conv_int8_kernel, iou_kernel, launch_counts,
+                                      nms_kernel, roi_align_kernel)
 from aznet_tpu_torch.ops.iou import bbox_overlaps
 from aznet_tpu_torch.utils.precision import float32_precision
 
@@ -203,9 +203,9 @@ def test_conv_int8_kernel_equals_plain(dev, bsz, h, w, c, co, pool, s_out):
     x, layer = _conv_case(h * 31 + c, bsz, h, w, c, co, dev)
     s_x = 0.0419
     entry = "chain" if pool else "strip"
-    before = conv_int8_kernel.LAUNCHES[entry]
+    before = launch_counts()[entry]
     got = tconv.conv3x3_int8(x, s_x, layer, s_out, pool=pool)
-    assert conv_int8_kernel.LAUNCHES[entry] == before + 1
+    assert launch_counts()[entry] == before + 1
     want = tconv.conv3x3_int8_reference(x, s_x, layer, s_out, pool=pool)
     torch.cuda.synchronize()
     assert got.dtype == want.dtype and got.shape == want.shape
@@ -266,9 +266,9 @@ def test_int8_trunk_on_card_equals_cpu(dev, backend, chain_from, width, hw):
     want = trunk.int8_body(x8)
     gpu = trunk.to(dev)
     gpu.prepare_int8()
-    before = dict(conv_int8_kernel.LAUNCHES)
+    before = launch_counts()
     got = gpu.int8_body(x8.to(dev))
-    launched = {e: conv_int8_kernel.LAUNCHES[e] - before[e] for e in before}
+    launched = {e: launch_counts()[e] - before[e] for e in ("chain", "strip")}
     assert launched == ({"chain": 0, "strip": 0} if backend == "xla"
                         else {"chain": 4, "strip": 8}), launched
     assert got.dtype == torch.bfloat16
@@ -297,9 +297,9 @@ def test_int8_trunk_body_on_card_equals_cpu(dev):
     want = trunk.int8_body(x8)
     gpu = trunk.to(dev)
     gpu.prepare_int8()
-    before = dict(conv_int8_kernel.LAUNCHES)
+    before = launch_counts()["strip"]
     got = gpu.int8_body(x8.to(dev))
-    assert conv_int8_kernel.LAUNCHES["strip"] - before["strip"] == 10
+    assert launch_counts()["strip"] - before == 10
     assert got.dtype == torch.bfloat16
     assert torch.equal(got.cpu(), want)
 
@@ -741,9 +741,10 @@ def test_detect_on_card_equals_cpu(dev):
     im = rng.randint(0, 256, (96, 128, 3)).astype(np.uint8)
     xy = rng.uniform(0, 80, (40, 2))
     boxes = np.concatenate([xy, np.minimum(xy + rng.uniform(8, 60, (40, 2)), 120)], 1)
-    before = (roi_align_kernel.LAUNCHES, conv1_kernel.LAUNCHES)
+    before = launch_counts()
     got = tapi.im_detect(gpu_net, im, boxes.astype(np.float32))
-    assert roi_align_kernel.LAUNCHES - before[0] == 2 and conv1_kernel.LAUNCHES - before[1] == 1
+    after = launch_counts()
+    assert after["roi_align"] - before["roi_align"] == 2 and after["conv1"] - before["conv1"] == 1
     want = tapi.im_detect(cpu_net, im, boxes.astype(np.float32))
     np.testing.assert_allclose(got[0], want[0], atol=1e-2, rtol=0)
     np.testing.assert_allclose(got[1], want[1], atol=0.5, rtol=0)
@@ -781,7 +782,7 @@ def test_eval_drivers_on_card_equal_cpu(dev):
     gpu_fr = tapi.share_trunk(tapi.build_frcnn_net(cfg, state_dict=cpu_fr.params, device=dev),
                               gpu_az)
     out = {}
-    before = (nms_kernel.LAUNCHES, roi_align_kernel.LAUNCHES)
+    before = launch_counts()
     for key, (az, fr) in (("card", (gpu_az, gpu_fr)), ("cpu", (cpu_az, cpu_fr))):
         out[key] = [tdet.propose_all(az, imdb), tdet.propose_all_batched(az, imdb, batch_size=2),
                     tdet.detect_all(az, fr, imdb),
@@ -790,7 +791,8 @@ def test_eval_drivers_on_card_equal_cpu(dev):
                     tdet.evaluate_recall(az, imdb, top_ks=(5, 10), batched=True, batch_size=2,
                                          refine_net=fr)]
         if key == "card":
-            launched = (nms_kernel.LAUNCHES - before[0], roi_align_kernel.LAUNCHES - before[1])
+            after = launch_counts()
+            launched = tuple(after[k] - before[k] for k in ("nms", "roi_align"))
     assert launched[0] >= 12 and launched[1] >= 12, launched
     got, want = out["card"], out["cpu"]
     for g_props, w_props in zip(got[:2], want[:2]):
