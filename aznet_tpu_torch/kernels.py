@@ -15,9 +15,10 @@ from typing import Callable, NamedTuple
 import torch
 from torch.utils._pytree import tree_leaves, tree_map
 
-from aznet_tpu_torch.ops import conv1_fused, conv_int8, iou, nms, roi_pool
-from aznet_tpu_torch.ops.cuda import (conv1_kernel, conv_int8_kernel, iou_kernel, launch_counts,
-                                      nms_kernel, roi_align_kernel, set_launch_counts)
+from aznet_tpu_torch.ops import conv1_fused, conv_int8, frozen_bn, iou, nms, roi_pool
+from aznet_tpu_torch.ops.cuda import (conv1_kernel, conv_int8_kernel, frozen_bn_kernel,
+                                      iou_kernel, launch_counts, nms_kernel, roi_align_kernel,
+                                      set_launch_counts)
 from aznet_tpu_torch.search import propose
 
 
@@ -70,6 +71,8 @@ KERNELS = {
     "search_level": Kernel(propose, "level_cuda", propose.level_plain, "search_level",
                            writes=(5, 6), within="search_seed"),
     "search_select": Kernel(propose, "select_cuda", propose.select_plain, "search_select"),
+    "frozen_bn": Kernel(frozen_bn_kernel, "frozen_bn_relu_cuda",
+                        frozen_bn.frozen_bn_relu_reference, "frozen_bn"),
 }
 
 

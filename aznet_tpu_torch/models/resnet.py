@@ -11,7 +11,11 @@ inside, the NHWC tensor is viewed as NCHW in channels-last memory.
   ``STEM_S2D`` rewrite computes the same terms (its own tests hold the two
   equal), so the port ignores it (``models/aznet.py`` warns once).
 - ``FrozenBN`` is the inference BatchNorm, ``x * scale + bias`` in the
-  compute dtype (two roundings in bf16, as the reference's).
+  compute dtype (two roundings in bf16, as the reference's). After each
+  convolution, its affine, the residual add and the ReLU run as one step,
+  ``bn(y, relu=True, ...)`` (``ops/frozen_bn.py``): on the card one kernel
+  launch that writes into the convolution's output, bit for bit with the
+  separate operations, which run on the CPU and while autograd records.
 - The first block of stages 2 and 3 has a stride-2 3x3 conv with XLA's
   SAME padding: (0, 1) on an even size (``pad_same``), not (1, 1).
 - Compute dtype: ``dtype`` (the config's; None: the parameters' dtype),
@@ -40,6 +44,7 @@ from torch import nn
 from aznet_tpu_torch.models.small import pad_same
 from aznet_tpu_torch.ops import refuse_grad
 from aznet_tpu_torch.ops.conv_int8 import conv1x1_int8, quantize_acts, quantize_weights_1x1
+from aznet_tpu_torch.ops.frozen_bn import frozen_bn_relu
 from aznet_tpu_torch.utils.precision import float32_precision
 
 STAGE_SIZES = (3, 4, 6)  # C2, C3, C4 (C5 is not used at stride 16)
@@ -47,16 +52,28 @@ STAGE_SIZES = (3, 4, 6)  # C2, C3, C4 (C5 is not used at stride 16)
 
 class FrozenBN(nn.Module):
     """Per-channel affine on NCHW ``x``: ``x * scale + bias``, both cast to
-    ``x``'s dtype first."""
+    ``x``'s dtype first; with ``relu``, the epilogue after a convolution:
+    ``relu(x * scale + bias + residual)``, ``residual`` passed through
+    ``residual_bn``'s affine first where given, by
+    ``ops/frozen_bn.py::frozen_bn_relu`` (on the card one kernel that writes
+    into ``x``, a convolution's output that nothing else holds). A module
+    call either way, so that forward hooks see the result (the int8
+    calibration reads ``bn2``'s)."""
 
     def __init__(self, channels: int):
         super().__init__()
         self.scale = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return (x * self.scale.to(x.dtype)[:, None, None]
-                + self.bias.to(x.dtype)[:, None, None])
+    def forward(self, x: torch.Tensor, relu: bool = False,
+                residual: torch.Tensor | None = None,
+                residual_bn: FrozenBN | None = None) -> torch.Tensor:
+        s, b = self.scale.to(x.dtype), self.bias.to(x.dtype)
+        if not relu:
+            return x * s[:, None, None] + b[:, None, None]
+        affine = () if residual_bn is None else (residual_bn.scale.to(x.dtype),
+                                                 residual_bn.bias.to(x.dtype))
+        return frozen_bn_relu(x, s, b, residual, *affine)
 
 
 def _conv1x1(c_in: int, c_out: int, stride: int = 1) -> nn.Conv2d:
@@ -96,14 +113,13 @@ class Bottleneck(nn.Module):
         if int8_scales:
             return self._int8_forward(x, *int8_scales)
         dt = x.dtype
-        y = F.relu(self.bn1(F.conv2d(x, self.conv1.weight.to(dt))))
-        y = F.relu(self.bn2(self._conv2(y)))
-        y = self.bn3(F.conv2d(y, self.conv3.weight.to(dt)))
-        residual = x
-        if self.downsample is not None:
-            residual = self.downsample_bn(
-                F.conv2d(x, self.downsample.weight.to(dt), stride=self.stride))
-        return F.relu(y + residual)
+        y = self.bn1(F.conv2d(x, self.conv1.weight.to(dt)), relu=True)
+        y = self.bn2(self._conv2(y), relu=True)
+        y = F.conv2d(y, self.conv3.weight.to(dt))
+        if self.downsample is None:
+            return self.bn3(y, relu=True, residual=x)
+        d = F.conv2d(x, self.downsample.weight.to(dt), stride=self.stride)
+        return self.bn3(y, relu=True, residual=d, residual_bn=self.downsample_bn)
 
     def prepare_int8(self) -> None:
         """Quantize the 1x1 weights once, per output channel, from their
@@ -126,13 +142,13 @@ class Bottleneck(nn.Module):
             return conv1x1_int8(x8, s_x, w_q, s_w, out_dtype=dt).permute(0, 3, 1, 2)
 
         xq = quantize_acts(x, s_in)
-        y = F.relu(self.bn1(conv(xq, s_in, "conv1")))
-        y = F.relu(self.bn2(self._conv2(y)))
-        y = self.bn3(conv(quantize_acts(y, s_mid), s_mid, "conv3"))
-        residual = x
-        if self.downsample is not None:
-            residual = self.downsample_bn(conv(xq, s_in, "downsample", self.stride))
-        return F.relu(y + residual)
+        y = self.bn1(conv(xq, s_in, "conv1"), relu=True)
+        y = self.bn2(self._conv2(y), relu=True)
+        y = conv(quantize_acts(y, s_mid), s_mid, "conv3")
+        if self.downsample is None:
+            return self.bn3(y, relu=True, residual=x)
+        return self.bn3(y, relu=True, residual=conv(xq, s_in, "downsample", self.stride),
+                        residual_bn=self.downsample_bn)
 
 
 class ResNet50Trunk(nn.Module):
@@ -184,7 +200,7 @@ class ResNet50Trunk(nn.Module):
             refuse_grad("COMPUTE_DTYPE='int8' (the int8 trunk)", x, *self.parameters())
         dt = torch.bfloat16 if self.int8_mode else self.dtype or self.conv1.weight.dtype
         x = x.to(dt).permute(0, 3, 1, 2)
-        x = F.relu(self.bn1(F.conv2d(x, self.conv1.weight.to(dt), stride=2, padding=3)))
+        x = self.bn1(F.conv2d(x, self.conv1.weight.to(dt), stride=2, padding=3), relu=True)
         x = F.max_pool2d(x, 3, 2, padding=1)
         for i, block in enumerate(self.blocks()):
             x = block(x, tuple(scales[2 * i:2 * i + 2]))

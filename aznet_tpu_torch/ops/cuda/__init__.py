@@ -12,8 +12,9 @@ def sm_count(index: int) -> int:
 
 
 # The wrappers import sm_count from here.
-from aznet_tpu_torch.ops.cuda import (conv1_kernel, conv_int8_kernel, iou_kernel,  # noqa: E402
-                                      nms_kernel, roi_align_kernel, search_level_kernel,
+from aznet_tpu_torch.ops.cuda import (conv1_kernel, conv_int8_kernel,  # noqa: E402
+                                      frozen_bn_kernel, iou_kernel, nms_kernel,
+                                      roi_align_kernel, search_level_kernel,
                                       search_select_kernel)
 
 # Every launch counter the wrappers keep (one a call that reaches the card).
@@ -22,7 +23,8 @@ COUNTERS = {"nms": (nms_kernel, "LAUNCHES"), "roi_align": (roi_align_kernel, "LA
             "chain": (conv_int8_kernel, "LAUNCHES_CHAIN"),
             "strip": (conv_int8_kernel, "LAUNCHES_STRIP"), "iou": (iou_kernel, "LAUNCHES"),
             "search_level": (search_level_kernel, "LAUNCHES"),
-            "search_select": (search_select_kernel, "LAUNCHES")}
+            "search_select": (search_select_kernel, "LAUNCHES"),
+            "frozen_bn": (frozen_bn_kernel, "LAUNCHES")}
 
 
 def launch_counts() -> dict[str, int]:

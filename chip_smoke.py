@@ -5,7 +5,8 @@
 
 1. Builds the CUDA kernels from ``aznet_tpu_torch/csrc`` (into the
    git-ignored ``build/``): NMS, the int8 conv, ROI align, fused conv1
-   (bf16 and float32), IoU, the search level.
+   (bf16 and float32), IoU, the search level, the frozen BatchNorm
+   epilogue.
 2. Phase 1: holds the kernel's keep masks against its plain PyTorch version
    on the card, bit for bit: the search's shape (1 x 2048, IoU 0.7), the
    16 x 4096 stream shape (boxes uniform in [0, 2000] plus wh in [5, 300],
@@ -304,6 +305,18 @@ first held bit for bit.
 does the same for the search's seed and its selection (``csrc/search_select.cu``
 against ``seed_plain`` and ``select_plain``, the NMS kernel in both
 selections) at both benchmark configurations' SEAR and image size.
+
+    python3 chip_smoke.py --frozen-bn-times [ROOT]
+
+records the 40 frozen BatchNorm epilogues (``csrc/frozen_bn.cu``) of one
+bf16 ResNet-50 trunk call at the ``resnet50_1080p`` cell's shapes (4 frames on
+1088x1920), holds them bit for bit against the plain version, and prints each
+launch's device time inside the trunk call beside its bytes bound and its host
+time alone, the plain chain's device time and launches, and the trunk call
+with the kernel against the plain chain in alternating rounds, with each
+one's peak memory; phase 5 runs the same in the full run, and phase 8 counts
+the kernel's launches on the ResNet-50 bf16 and int8 paths (40 a trunk call)
+and holds every one of them.
 """
 
 from __future__ import annotations
@@ -333,6 +346,8 @@ SEARCH_LEVEL_PLAIN = "aznet_tpu_torch/search/propose.py::level_plain"
 SEARCH_SELECT_SOURCE = "aznet_tpu_torch/csrc/search_select.cu"
 SEARCH_SELECT_PLAIN = ("aznet_tpu_torch/search/propose.py::seed_plain",
                        "aznet_tpu_torch/search/propose.py::select_plain")
+FROZEN_BN_SOURCE = "aznet_tpu_torch/csrc/frozen_bn.cu"
+FROZEN_BN_PLAIN = "aznet_tpu_torch/ops/frozen_bn.py::frozen_bn_relu_reference"
 # (R, next_cap) of the benchmark configurations' search levels.
 SEARCH_LEVEL_STEPS = ((8, 32), (32, 64), (32, 128), (64, 64), (128, 128))
 BATCH = 2
@@ -1888,6 +1903,146 @@ def phase5_search_select(dev):
     return out
 
 
+
+FROZEN_BN_BATCH = 4  # the resnet50_1080p cell's call: 4 frames on a 1088x1920 canvas
+
+
+def card_ops(fn, iters):
+    """The CUDA events of ``iters`` calls of ``fn`` under ``torch.profiler``,
+    in the order they started: ``[(name, microseconds)]``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = sorted((e.start_ns(), e.name(), e.duration_ns() / 1e3)
+                    for e in prof.profiler.kineto_results.events()
+                    if e.device_type() == torch.autograd.DeviceType.CUDA)
+    return [(name, us) for _, name, us in events]
+
+
+def frozen_bn_timing(dev):
+    """The frozen BatchNorm epilogues of one bf16 ResNet-50 trunk call at the
+    ``resnet50_1080p`` cell's shapes (4 frames on 1088x1920; seeded weights,
+    scales 1 + 0.1 N), recorded through the kernel table and held bit for
+    bit against the plain version. Then, inside whole trunk calls (each
+    epilogue reading the conv output the conv just wrote, as on the path;
+    alone, a small output stays in L2 and reads faster than the memory), each
+    launch's device time (``torch.profiler``, the median of 3 calls) beside
+    its bytes bound, and the plain chain's elementwise device time and
+    launches in its place (the elementwise kernels of a call with it, less
+    those of a call with the kernel); each launch's host time alone; the
+    trunk call with the kernel and with the plain chain in alternating
+    rounds (CUDA events, medians of 3), and each one's peak memory."""
+    import torch
+
+    from aznet_tpu_torch import kernels
+    from aznet_tpu_torch.models.resnet import ResNet50Trunk
+    from aznet_tpu_torch.ops import frozen_bn
+    from aznet_tpu_torch.ops.cuda import frozen_bn_kernel
+
+    g = torch.Generator(dev).manual_seed(25)
+    trunk = ResNet50Trunk(dtype=torch.bfloat16).to(dev)
+    with torch.no_grad():
+        for name, p in trunk.named_parameters():
+            r = torch.randn(p.shape, generator=g, device=dev)
+            p.copy_(r / p[0].numel() ** 0.5 if p.ndim == 4
+                    else 1 + 0.1 * r if name.endswith("scale") else 0.1 * r)
+    trunk = trunk.to(torch.bfloat16)
+    x = 128 * (2 * torch.rand((FROZEN_BN_BATCH,) + RESNET_CANVAS + (3,), generator=g,
+                              device=dev) - 1)
+    kernel = frozen_bn_kernel.frozen_bn_relu_cuda
+
+    @contextlib.contextmanager
+    def plain_chain():
+        frozen_bn_kernel.frozen_bn_relu_cuda = frozen_bn.frozen_bn_relu_reference
+        try:
+            yield
+        finally:
+            frozen_bn_kernel.frozen_bn_relu_cuda = kernel
+
+    with torch.inference_mode():
+        with kernels.recording(["frozen_bn"]) as recs:
+            trunk(x)
+            torch.cuda.synchronize()
+        check(len(recs) == 40, f"{len(recs)} frozen BatchNorm launches in a trunk call, not 40")
+        held = kernels.held(recs)["frozen_bn"]
+        check(held["ok"], "the frozen BatchNorm kernel differs from its plain version")
+        shapes = []
+        for rec in recs:
+            y = rec.args[0].clone(memory_format=torch.channels_last)
+            rest = rec.args[1:]
+            form = 0 if rest[2] is None else 1 if rest[3] is None else 2
+            shapes.append({"shape": tuple(y.shape), "form": form,
+                           "bound_us": (2 + (form > 0)) * y.numel() * y.element_size()
+                           / HBM_BYTES_PER_S * 1e6,
+                           "host_us": host_us(lambda: kernel(y, *rest), 40)})
+        del recs, y, rest
+        ops = card_ops(lambda: trunk(x), 3)
+        mine = [us for name, us in ops if "frozen_bn_epilogue" in name]
+        check(len(mine) == 3 * 40, f"{len(mine)} epilogue launches profiled in 3 trunk calls")
+        for i, t in enumerate(shapes):
+            t["device_us"] = float(np.median(mine[i::40]))
+        with plain_chain():
+            plain_ops = card_ops(lambda: trunk(x), 3)
+        elementwise = [[us for name, us in o if "elementwise_kernel" in name]
+                       for o in (ops, plain_ops)]
+        trunk_ms, peak = {"kernel": [], "plain": []}, {}
+        for _ in range(3):
+            for side in ("kernel", "plain"):
+                with plain_chain() if side == "plain" else contextlib.nullcontext():
+                    trunk_ms[side].append(cuda_ms(lambda: trunk(x), 5, 2))
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    trunk(x)
+                    torch.cuda.synchronize()
+                    peak[side] = torch.cuda.max_memory_allocated()
+    tot = {k: sum(t[k] for t in shapes) for k in ("device_us", "bound_us", "host_us")}
+    tot["plain_device_us"] = (sum(elementwise[1]) - sum(elementwise[0])) / 3
+    tot["plain_launches"] = (len(elementwise[1]) - len(elementwise[0])) / 3
+    return {"shapes": shapes, "sum": tot, "host_us_max": max(t["host_us"] for t in shapes),
+            "trunk_ms": {k: float(np.median(v)) for k, v in trunk_ms.items()},
+            "trunk_ms_rounds": trunk_ms, "peak_bytes": peak, "err": held["err"]}
+
+
+def frozen_bn_lines(tag, t):
+    lines = [f"{tag} {s['shape']} form {s['form']}: device {s['device_us']:.2f} us in the "
+             f"trunk (bound {s['bound_us']:.2f} us, {s['bound_us'] / s['device_us']:.1%}), "
+             f"host {s['host_us']:.2f} us" for s in t["shapes"]]
+    s, tr = t["sum"], t["trunk_ms"]
+    lines.append(
+        f"{tag} trunk call of {FROZEN_BN_BATCH}: kernel {s['device_us']:.1f} us of device time in "
+        f"40 launches against a bound of {s['bound_us']:.1f} us "
+        f"({s['bound_us'] / s['device_us']:.1%} of the bytes bound, "
+        f"{s['device_us'] / s['bound_us']:.3f}x), host {s['host_us']:.1f} us "
+        f"({s['host_us'] / 40:.2f} us a call, at most {t['host_us_max']:.2f}); plain chain "
+        f"{s['plain_device_us']:.1f} us in {s['plain_launches']:.1f} more elementwise launches; "
+        f"trunk {tr['kernel']:.3f} ms with the kernel, {tr['plain']:.3f} ms with the plain chain "
+        f"({tr['kernel'] / FROZEN_BN_BATCH:.3f} and {tr['plain'] / FROZEN_BN_BATCH:.3f} ms an "
+        f"image; rounds {t['trunk_ms_rounds']}); peak {t['peak_bytes']}; max_abs_err {t['err']}")
+    return lines
+
+
+def frozen_bn_times(dev, root):
+    """``--frozen-bn-times [ROOT]``: :func:`frozen_bn_timing`. Needs a
+    checkout with the kernel (``ops/frozen_bn.py``)."""
+    for line in frozen_bn_lines(f"frozen-bn-times {root}", frozen_bn_timing(dev)):
+        print(line, flush=True)
+
+
+def phase5_frozen_bn(dev):
+    """The frozen BatchNorm kernel alone at a ResNet-50 trunk call's 40
+    epilogues of the ``resnet50_1080p`` cell, bit for bit and timed
+    (:func:`frozen_bn_timing`)."""
+    out = frozen_bn_timing(dev)
+    for line in frozen_bn_lines("phase5 frozen bn", out):
+        print(line, flush=True)
+    return out
+
 def iou_times(dev, root):
     """``--iou-times [ROOT]``: the IoU kernel at phase 7's shapes
     (:data:`IOU_SHAPES`), device, CUDA-event and host time per call, with
@@ -1938,12 +2093,12 @@ def cfg_file(name, **model):
 
 def propose_phase(dev, tag, net, raw_hw, canvas):
     """The propose path of ``net`` (``POOLING_MODE='align_pallas'``) with the
-    ROI-align launch count reset just before and read just after, beside
-    phase 2's. Returns phase 2's result and the ROI-align launches' modes
+    ROI-align and frozen BatchNorm launch counts reset just before and read
+    just after, beside phase 2's. Returns phase 2's result and the ROI-align launches' modes
     {(dtype, feature shape, P, order)}."""
     records = []
-    p = phase2_propose(dev, net, tag, counters=("roi_align",), raw_hw=raw_hw, canvas=canvas,
-                       records=records)
+    p = phase2_propose(dev, net, tag, counters=("roi_align", "frozen_bn"), raw_hw=raw_hw,
+                       canvas=canvas, records=records)
     levels = net.cfg.SEAR.MAX_LEVELS
     check(p["launches"]["roi_align"] >= BATCH + 1, f"ROI-align kernel launched "
           f"{p['launches']['roi_align']} times in {BATCH + 1} searches of up to {levels} levels")
@@ -2025,6 +2180,11 @@ def phase8_resnet(dev):
     check(api._canvas_for(*raw_hw, cfg) == canvas, "the 1080p canvas is not 1088x1920")
     net = build_net("phase8", cfg, dev)
     out = {"bf16": propose_phase(dev, "phase8 bf16", net, raw_hw, canvas)}
+    # A trunk call runs the stem's epilogue and three a block; the path makes
+    # two (the batch, then im_propose's image).
+    check(out["bf16"]["launches"]["frozen_bn"] == 2 * 40 and "frozen_bn" in out["bf16"]["err"],
+          f"frozen BatchNorm launches {out['bf16']['launches']['frozen_bn']} on the bf16 "
+          f"path, not 80")
     check(("bfloat16", (canvas[0] // 16, canvas[1] // 16, 1024), 7, "W-first")
           in out["bf16"]["modes"], "the 68x120x1024 bf16 map did not take the W-first order")
 
@@ -2041,6 +2201,9 @@ def phase8_resnet(dev):
     cfg8 = dataclasses.replace(cfg8, MODEL=dataclasses.replace(cfg8.MODEL, INT8_ROI=True))
     net8 = build_net("phase8 int8", cfg8, dev, state_dict=net.params)
     out["int8"] = propose_phase(dev, "phase8 int8", net8, raw_hw, canvas)
+    check(out["int8"]["launches"]["frozen_bn"] == 2 * 40,
+          f"frozen BatchNorm launches {out['int8']['launches']['frozen_bn']} on the int8 "
+          f"path, not 80")
     blobs = out["bf16"]["blobs"]
     with torch.inference_mode():
         f16 = net.model.features(blobs).float()
@@ -2339,10 +2502,12 @@ def phase10_eval(dev, card):
             net8, imdb, max_images=EVAL_IMAGES, batched=True, batch_size=EVAL_BATCH))
     launches = launch_counts()
     print(f"phase10 main path: launches {launches}", flush=True)
-    check(all(v > 0 for k, v in launches.items() if k not in ("iou", "conv1_f32")),
+    check(all(v > 0 for k, v in launches.items() if k not in ("iou", "conv1_f32", "frozen_bn")),
           f"a kernel never ran on the eval path: {launches}")
     # Recall takes its IoU from the host (eval/recall.py): no driver calls the IoU kernel.
-    check(launches["iou"] == 0, f"the IoU kernel ran on the eval path: {launches}")
+    # The nets are VGG-16, which has no frozen BatchNorm.
+    check(launches["iou"] == 0 and launches["frozen_bn"] == 0,
+          f"the IoU or frozen BatchNorm kernel ran on the eval path: {launches}")
     print(f"phase10 host NMS (per class, host library): {host_nms['calls']} calls, "
           f"{host_nms['s'] * 1e3 / host_nms['calls']:.4f} ms per call; fused detect "
           f"{nms_fused[1] * 1e3 / EVAL_IMAGES:.3f} ms per image ({nms_fused[0]} calls)", flush=True)
@@ -3698,7 +3863,7 @@ def last_json(text):
 BENCH_PRESETS = (  # preset, metric, the kernels its main path must launch
     ("full", "propose_images_per_sec_vgg16_600x800", ("nms", "chain", "strip")),
     ("coco_deep", "propose_images_per_sec_coco_deep_tree", ("nms", "chain", "strip")),
-    ("resnet50_1080p", "propose_images_per_sec_resnet50_1080p", ("nms",)),
+    ("resnet50_1080p", "propose_images_per_sec_resnet50_1080p", ("nms", "frozen_bn")),
 )
 
 
@@ -3852,7 +4017,8 @@ def main(argv) -> int:
     timers = {"--conv-times": conv_times, "--conv1-times": conv1_times,
               "--roi-times": roi_times, "--nms-times": nms_times, "--iou-times": iou_times,
               "--search-level-times": search_level_times,
-              "--search-select-times": search_select_times}
+              "--search-select-times": search_select_times,
+              "--frozen-bn-times": frozen_bn_times}
     if argv[:1] and argv[0] in timers:
         root = argv[1] if len(argv) > 1 else "."
         sys.path.insert(0, root)
@@ -3908,6 +4074,7 @@ def main(argv) -> int:
     new = phase5_kernels(dev)
     level_alone = phase5_search_level(dev)
     select_alone = phase5_search_select(dev)
+    fbn = phase5_frozen_bn(dev)
     det = phase6_detect(dev)
     phase6_reference(dev)
 
@@ -4032,6 +4199,21 @@ def main(argv) -> int:
                                                                   "host_us")}
                            for (part, name), v in t.items()}
                   for config, t in select_alone.items()}})
+    fsum = fbn["sum"]
+    records.append({
+        "name": "frozen_bn", "route": "cuda", "source": FROZEN_BN_SOURCE, "replaces": None,
+        "plain": FROZEN_BN_PLAIN, "launches": res["bf16"]["launches"]["frozen_bn"],
+        "int8_launches": res["int8"]["launches"]["frozen_bn"],
+        "bench_launches": p15["bench"]["resnet50_1080p"]["launches"]["frozen_bn"],
+        "eval_launches": ev["launches"]["frozen_bn"], "train_launches": train["frozen_bn"],
+        "tools_launches": tools["frozen_bn"], "mesh_launches": mesh["frozen_bn"],
+        "max_abs_err": max(fbn["err"], path_err("frozen_bn")),
+        "device_us": fsum["device_us"], "host_us": fsum["host_us"] / 40,
+        "host_us_max": fbn["host_us_max"], "plain_device_us": fsum["plain_device_us"],
+        "plain_launches": fsum["plain_launches"],
+        "bound_ms": fsum["bound_us"] / 1e3, "bound_by": "bytes", "library_ms": None,
+        "trunk_ms": fbn["trunk_ms"], "peak_bytes": fbn["peak_bytes"],
+        "batch": FROZEN_BN_BATCH, "canvas": RESNET_CANVAS})
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

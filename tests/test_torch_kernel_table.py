@@ -62,6 +62,11 @@ def kernel_args(name: str, seed: int = 0) -> tuple:
         total = 8 * K + 24
         return (out, f_boxes, f_valid, next_cap, consts, torch.zeros(total, 4),
                 torch.full((total,), propose.NEG_INF), 16)
+    if name == "frozen_bn":  # the three forms by seed: + nothing, + r, + r's affine
+        y, r = (torch.randn(2, 3, 5, 16, generator=g).to(torch.bfloat16).permute(0, 3, 1, 2)
+                for _ in range(2))
+        s, b, sr, br = (torch.randn(16, generator=g).to(torch.bfloat16) for _ in range(4))
+        return ((y, s, b), (y, s, b, r), (y, s, b, r, sr, br))[seed % 3]
     if name == "search_select":
         return _boxes(rng, 96, 500.0), torch.from_numpy(rng.rand(96).astype(np.float32)), \
             SCFG, 1.0
@@ -143,8 +148,10 @@ def test_record_and_replay_bit_for_bit(plain_entries, name):
 
 
 def _one_ulp(t: torch.Tensor) -> None:
-    """Moves the first element of ``t`` by one ulp (one code, or a flip), in place."""
-    flat = t.view(-1)
+    """Moves the first element in memory of ``t`` (dense, in any order of
+    its dimensions: the epilogue's are channels-last) by one ulp (one code,
+    or a flip), in place."""
+    flat = t.permute(sorted(range(t.ndim), key=lambda d: -t.stride(d))).view(-1)
     if t.dtype == torch.bool:
         flat[0] = ~flat[0]
     elif t.is_floating_point():
