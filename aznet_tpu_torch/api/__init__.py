@@ -26,7 +26,8 @@ passed; without a card that default raises. Everything runs eagerly on
 Each entry call records its spans (``utils/profiling.py``) while a
 ``torch.profiler`` session runs: a root (``propose``, ``detect``,
 ``fused_detect``, ``im_propose``, ``im_detect``) with ``upload``,
-``preprocess``, ``trunk``, ``search``, ``heads`` and ``download`` under it.
+``preprocess``, ``trunk``, ``search``, ``heads`` and ``download`` under it
+(and ``heads.conv5`` around each call of a conv5_x head).
 
 Int8 (``COMPUTE_DTYPE='int8'``, scales from ``ops/quant.py``): the trunk
 keeps float32 parameters and quantizes its int8 layers once at build time;

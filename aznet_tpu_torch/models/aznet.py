@@ -15,29 +15,36 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from aznet_tpu_torch.config import ModelConfig
-from aznet_tpu_torch.models.backbones import compute_dtype, get_backbone
+from aznet_tpu_torch.models.backbones import BACKBONES, compute_dtype, get_backbone
 from aznet_tpu_torch.models.heads import AZHead
-from aznet_tpu_torch.models.resnet import FrozenBN
+from aznet_tpu_torch.models.resnet import FrozenBN, ResNet50Trunk
 from aznet_tpu_torch.models.vgg import VGG16Trunk
 from aznet_tpu_torch.ops.roi_pool import POOLING_MODES, roi_pool
 
 
 def check_supported(mc: ModelConfig) -> None:
     """Raise on MODEL settings this port does not implement; warn once for
-    ``CONV1_S2D`` (VGG-16) and ``STEM_S2D`` (ResNet-50), whose space-to-depth
-    rewrites are term-identical to the plain convs.
+    ``CONV1_S2D`` (VGG-16) and ``STEM_S2D`` (the ResNets), whose
+    space-to-depth rewrites are term-identical to the plain convs.
 
     The backbone factory raises on int8 for a trunk other than vgg16 and
     resnet50, as the reference's; the VGG trunk checks its own int8
-    settings (``models/vgg.py``)."""
+    settings (``models/vgg.py``). A conv5_x head (a trunk class's
+    ``conv5_head``) has no int8 form: ``COMPUTE_DTYPE='int8'`` and
+    ``INT8_HEAD_SCALES`` raise here, naming the backbone."""
     if mc.COMPUTE_DTYPE not in ("float32", "bfloat16", "int8"):
         raise NotImplementedError(f"COMPUTE_DTYPE={mc.COMPUTE_DTYPE!r} is not ported")
     if mc.POOLING_MODE not in POOLING_MODES:
         raise ValueError(f"unknown POOLING_MODE {mc.POOLING_MODE!r}; options: {POOLING_MODES}")
+    trunk = BACKBONES.get(mc.BACKBONE, nn.Module)  # get_backbone refuses an unknown name
+    if getattr(trunk, "conv5_head", False) and (mc.COMPUTE_DTYPE == "int8"
+                                                 or mc.INT8_HEAD_SCALES):
+        raise NotImplementedError(f"backbone {mc.BACKBONE!r}: its conv5_x head has no int8 form "
+                                  "(COMPUTE_DTYPE='int8', INT8_HEAD_SCALES)")
     if mc.CONV1_S2D and mc.BACKBONE == "vgg16":
         warnings.warn("MODEL.CONV1_S2D is ignored: the plain conv1_1 computes "
                       "the same function", stacklevel=3)
-    if mc.STEM_S2D and mc.BACKBONE == "resnet50":
+    if mc.STEM_S2D and issubclass(trunk, ResNet50Trunk):
         warnings.warn("MODEL.STEM_S2D is ignored: the plain 7x7/2 stem computes "
                       "the same function", stacklevel=3)
 
@@ -60,7 +67,10 @@ class RoiNet(nn.Module):
         # INT8_HEAD_SCALES alone selects the int8 fc stack, except in float32.
         self.head_scales = (tuple(model_cfg.INT8_HEAD_SCALES)
                             if model_cfg.COMPUTE_DTYPE != "float32" else ())
-        self.pooled_dim = model_cfg.POOL_SIZE ** 2 * self.trunk.out_channels
+        # A conv5_x head takes the pools' channels, fc6 the flattened pool.
+        self.conv5 = getattr(self.trunk, "conv5_head", False)
+        self.pooled_dim = (self.trunk.out_channels if self.conv5
+                           else model_cfg.POOL_SIZE ** 2 * self.trunk.out_channels)
 
     def features(self, images: torch.Tensor, remat: bool = False) -> torch.Tensor:
         """``remat`` recomputes the trunk's activations in the backward pass
@@ -94,10 +104,11 @@ class RoiNet(nn.Module):
         return self.head(self.roi_pool_only(feat, rois), train, generator)
 
     def head_kwargs(self) -> dict:
-        """The head settings of the config that both heads take."""
+        """The head settings of the config that both heads take (a conv5_x
+        head reads none of fc6/fc7's)."""
         mc = self.model_cfg
         return {"fc_dim": mc.FC_DIM, "fc7_dim": mc.FC7_DIM, "int8_scales": self.head_scales,
-                "dropout": mc.DROPOUT, "dtype": compute_dtype(mc)}
+                "dropout": mc.DROPOUT, "dtype": compute_dtype(mc), "conv5": self.conv5}
 
 
 class AZNet(RoiNet):

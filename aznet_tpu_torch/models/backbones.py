@@ -6,13 +6,16 @@ from __future__ import annotations
 import torch
 
 from aznet_tpu_torch.config import ModelConfig
-from aznet_tpu_torch.models.resnet import ResNet50Trunk
+from aznet_tpu_torch.models.resnet import ResNet50Trunk, ResNet101Trunk
 from aznet_tpu_torch.models.small import CaffeNetTrunk, SmallTrunk, VGGCNNM1024Trunk
 from aznet_tpu_torch.models.vgg import VGG16Trunk
 
 BACKBONES = {
     "vgg16": VGG16Trunk,
     "resnet50": ResNet50Trunk,
+    # ResNet-101 to conv4_x; its heads run conv5_x on each pooled roi (the
+    # C4 detector; MODEL.POOL_SIZE 14).
+    "resnet101_c4": ResNet101Trunk,
     "smallnet": SmallTrunk,
     # The reference fork's smaller nets: pair them with MODEL.POOL_SIZE 6,
     # vgg_cnn_m_1024 also with MODEL.FC7_DIM 1024.
@@ -24,8 +27,9 @@ BACKBONES = {
 def get_backbone(model_cfg: ModelConfig):
     """The trunk module for a MODEL config, computing in
     :func:`compute_dtype`. Int8 (``COMPUTE_DTYPE='int8'``) exists for vgg16
-    and resnet50 only, as in the reference; ``FUSE_CONV1`` reaches the
-    VGG-16 trunk's float path."""
+    and resnet50 only, as in the reference (``models/aznet.py::check_supported``
+    refuses it for resnet101_c4 first); ``FUSE_CONV1`` reaches the VGG-16
+    trunk's float path."""
     try:
         cls = BACKBONES[model_cfg.BACKBONE]
     except KeyError:
@@ -39,7 +43,7 @@ def get_backbone(model_cfg: ModelConfig):
                    int8_backend=model_cfg.INT8_BACKEND,
                    int8_chain_from=model_cfg.INT8_CHAIN_FROM,
                    fuse_conv1=model_cfg.FUSE_CONV1, dtype=dtype)
-    if cls is ResNet50Trunk:
+    if issubclass(cls, ResNet50Trunk):
         return cls(int8_mode=int8_mode, int8_scales=tuple(model_cfg.INT8_SCALES), dtype=dtype)
     if int8_mode:
         raise ValueError(f"COMPUTE_DTYPE='int8' is only implemented for the vgg16 and "

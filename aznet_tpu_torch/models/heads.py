@@ -1,6 +1,8 @@
 """ROI heads: fc6/fc7 plus the AZ outputs or the Fast R-CNN outputs
 (``aznet_tpu/models/heads.py``: ``_FCStack``, its int8 stack,
-``_fused_heads``, ``AZHead`` and ``FRCNNHead``).
+``_fused_heads``, ``AZHead`` and ``FRCNNHead``), and, for the C4 detector
+(``resnet101_c4``, which the JAX package lacks), ResNet's conv5_x on each
+roi in fc6/fc7's place (:class:`Conv5Stack`).
 
 Layer names match the reference's parameter tree (``fc.fc6``, ``fc.fc7``,
 ``zoom_score``, ``adj_score``, ``adj_bbox``; ``cls_score``, ``bbox_pred``) so
@@ -33,10 +35,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from aznet_tpu_torch.models.resnet import add_stage
 from aznet_tpu_torch.ops import refuse_grad
 from aznet_tpu_torch.ops.conv_int8 import (int8_matmul, quantize_acts, quantize_columns,
                                            scalar_f32)
 from aznet_tpu_torch.parallel.mesh import all_gather, all_reduce
+from aznet_tpu_torch.utils import profiling
 from aznet_tpu_torch.utils.precision import float32_precision
 
 
@@ -158,6 +162,59 @@ class FCStack(nn.Module):
         return dense(h8, s_mid, "fc7").to(torch.bfloat16)
 
 
+class Conv5Stack(nn.Module):
+    """The C4 detector's stack in fc6/fc7's place (He et al.,
+    arXiv:1512.03385, Appendix A): ResNet's conv5_x on each pooled roi, then
+    the mean over its spatial output. ``[R, P, P, C]`` NHWC pools (P = 14,
+    C = 1024) -> ``[R, 2048]`` float32.
+
+    Three bottlenecks (``layer4_block0`` to ``layer4_block2``: 512 wide
+    inside, 2048 out), the first at stride 2 in its 3x3 conv with SAME
+    padding and projected by a stride-2 1x1 (the trunk's convention; the
+    MSRA Caffe models put the stride in the first 1x1), each conv followed
+    by its frozen BatchNorm epilogue (``FrozenBN(..., relu=True)``: one
+    launch on the card); then the mean over the 7x7 output, in float32.
+    Computes in ``dtype`` (None: the weights' dtype), each weight cast
+    inside ``forward``, as the trunk does; under autograd the epilogues take
+    PyTorch's plain operations (``ops/frozen_bn.py``), and ``train=True``
+    runs the same stack (no dropout).
+
+    The rule of the config (no field of its own): the stack reads neither
+    ``MODEL.FC_DIM`` nor ``MODEL.FC7_DIM``; its width is conv5_x's, and the
+    output layers take 2048 inputs. It has no int8 form and does not run
+    sharded over a mesh: ``models/aznet.py::check_supported`` refuses
+    ``COMPUTE_DTYPE='int8'`` and ``INT8_HEAD_SCALES`` for its backbones, and
+    a mesh (``parallel/mesh.py::shard_module`` sets :attr:`mesh`) with more
+    than one rank on ``model`` raises; on ``data`` alone it stays replicated
+    and runs as it is."""
+
+    out_dim = 2048
+    int8_scales = ()
+
+    def __init__(self, in_channels: int = 1024, dtype=None):
+        super().__init__()
+        self.dtype = dtype
+        self.block_names, _ = add_stage(self, 3, 3, in_channels, 2)
+
+    @property
+    def mesh(self):
+        return None
+
+    @mesh.setter
+    def mesh(self, value):
+        if value is not None and value.shape["model"] > 1:
+            raise NotImplementedError("backbone 'resnet101_c4': its conv5_x head does not run "
+                                      "sharded over a mesh's model axis")
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        with profiling.span("heads.conv5", rows=x.shape[0]), float32_precision():
+            x = x.to(self.dtype or self.layer4_block0.conv1.weight.dtype).permute(0, 3, 1, 2)
+            for name in self.block_names:
+                x = getattr(self, name)(x)
+            return x.mean((2, 3), dtype=torch.float32)
+
+
 @float32_precision()
 def fused_heads(x: torch.Tensor, layers) -> torch.Tensor:
     """ONE f32 dot of fc7's output against the concatenated output layers,
@@ -176,6 +233,17 @@ def separate_heads(x: torch.Tensor, layers) -> list:
     return [F.linear(x, m.weight.float(), m.bias.float()) for m in layers]
 
 
+def feature_stack(in_dim: int, fc_dim: int, fc7_dim: int, int8_scales: tuple, dropout: float,
+                  dtype, conv5: bool = False) -> tuple:
+    """``(stack, out_dim)``: the head's features before the output layers.
+    ``conv5``: :class:`Conv5Stack` (``in_dim`` the pools' channels);
+    otherwise fc6/fc7, ``FCStack`` as this module holds it when the head is
+    built (``in_dim`` the flattened pool)."""
+    if conv5:
+        return Conv5Stack(in_dim, dtype), Conv5Stack.out_dim
+    return FCStack(in_dim, fc_dim, fc7_dim, int8_scales, dropout, dtype), fc7_dim or fc_dim
+
+
 class AZHead(nn.Module):
     """``[R, P, P, C]`` pooled features -> ``zoom [R]``, ``adj_score [R, K]``
     (logits) and ``adj_delta [R, K, 4]``, all float32."""
@@ -183,11 +251,11 @@ class AZHead(nn.Module):
     SCORE_STD = {"zoom_score": 0.01, "adj_score": 0.01, "adj_bbox": 0.001}
 
     def __init__(self, in_dim: int, num_templates: int = 11, fc_dim: int = 4096,
-                 fc7_dim: int = 0, int8_scales: tuple = (), dropout: float = 0.0, dtype=None):
+                 fc7_dim: int = 0, int8_scales: tuple = (), dropout: float = 0.0, dtype=None,
+                 conv5: bool = False):
         super().__init__()
         self.num_templates = num_templates
-        self.fc = FCStack(in_dim, fc_dim, fc7_dim, int8_scales, dropout, dtype)
-        d = fc7_dim or fc_dim
+        self.fc, d = feature_stack(in_dim, fc_dim, fc7_dim, int8_scales, dropout, dtype, conv5)
         self.zoom_score = nn.Linear(d, 1)
         self.adj_score = nn.Linear(d, num_templates)
         self.adj_bbox = nn.Linear(d, 4 * num_templates)
@@ -212,11 +280,11 @@ class FRCNNHead(nn.Module):
     SCORE_STD = {"cls_score": 0.01, "bbox_pred": 0.001}
 
     def __init__(self, in_dim: int, num_classes: int = 21, fc_dim: int = 4096,
-                 fc7_dim: int = 0, int8_scales: tuple = (), dropout: float = 0.0, dtype=None):
+                 fc7_dim: int = 0, int8_scales: tuple = (), dropout: float = 0.0, dtype=None,
+                 conv5: bool = False):
         super().__init__()
         self.num_classes = num_classes
-        self.fc = FCStack(in_dim, fc_dim, fc7_dim, int8_scales, dropout, dtype)
-        d = fc7_dim or fc_dim
+        self.fc, d = feature_stack(in_dim, fc_dim, fc7_dim, int8_scales, dropout, dtype, conv5)
         self.cls_score = nn.Linear(d, num_classes)
         self.bbox_pred = nn.Linear(d, 4 * num_classes)
 

@@ -1,6 +1,8 @@
 """ResNet-50 trunk to its C4 stage (counterpart of
 ``aznet_tpu/models/resnet.py``): ``[B, H, W, 3]`` -> ``[B, H/16, W/16,
-1024]``, the float path and the int8 path.
+1024]``, the float path and the int8 path; ResNet-101 to the same stage
+(3, 4 and 23 bottlenecks), the C4 detector's trunk, whose conv5_x runs on
+each pooled roi (``models/heads.py::Conv5Stack``).
 
 Module names follow the reference's parameter tree (``conv1``, ``bn1``,
 ``layer{s}_block{b}.{conv1, bn1, conv2, bn2, conv3, bn3, downsample,
@@ -48,6 +50,7 @@ from aznet_tpu_torch.ops.frozen_bn import frozen_bn_relu
 from aznet_tpu_torch.utils.precision import float32_precision
 
 STAGE_SIZES = (3, 4, 6)  # C2, C3, C4 (C5 is not used at stride 16)
+RESNET101_STAGE_SIZES = (3, 4, 23)
 
 
 class FrozenBN(nn.Module):
@@ -151,17 +154,34 @@ class Bottleneck(nn.Module):
                         residual_bn=self.downsample_bn)
 
 
+def add_stage(module: nn.Module, stage: int, n: int, c_in: int, stride: int) -> tuple:
+    """Add ``n`` bottlenecks of stage ``stage`` (0 is conv2_x; ``64 *
+    2**stage`` wide inside, 4x that out) to ``module`` as
+    ``layer{stage + 1}_block{b}``, the first at ``stride`` in its 3x3 conv
+    and projected; ``(names, out_channels)``."""
+    channels, names = 64 * 2 ** stage, []
+    for b in range(n):
+        name = f"layer{stage + 1}_block{b}"
+        module.add_module(name, Bottleneck(c_in, channels, stride if b == 0 else 1))
+        names.append(name)
+        c_in = channels * 4
+    return names, c_in
+
+
 class ResNet50Trunk(nn.Module):
     """``[B, H, W, 3]`` -> C4 features ``[B, H/16, W/16, 1024]``.
 
     ``int8_mode`` with ``int8_scales`` (2 per block, block order; a trailing
     trunk-output scale may follow and is not used here) selects the int8 1x1
-    convs."""
+    convs. ``stage_sizes``: the bottlenecks of conv2_x to conv4_x
+    (ResNet-50's by default)."""
 
     feat_stride = 16
     out_channels = 1024
+    conv5_head = False
 
-    def __init__(self, int8_mode: bool = False, int8_scales: tuple = (), dtype=None):
+    def __init__(self, int8_mode: bool = False, int8_scales: tuple = (), dtype=None,
+                 stage_sizes: tuple = STAGE_SIZES):
         super().__init__()
         self.dtype = dtype
         self.int8_mode = int8_mode
@@ -170,14 +190,9 @@ class ResNet50Trunk(nn.Module):
         self.bn1 = FrozenBN(64)
         c_in = 64
         self.block_names = []
-        for stage, n in enumerate(STAGE_SIZES):
-            channels = 64 * 2 ** stage
-            for b in range(n):
-                name = f"layer{stage + 1}_block{b}"
-                stride = 2 if stage > 0 and b == 0 else 1
-                self.add_module(name, Bottleneck(c_in, channels, stride))
-                self.block_names.append(name)
-                c_in = channels * 4
+        for stage, n in enumerate(stage_sizes):
+            names, c_in = add_stage(self, stage, n, c_in, 2 if stage > 0 else 1)
+            self.block_names += names
 
     def blocks(self):
         return [getattr(self, n) for n in self.block_names]
@@ -205,3 +220,15 @@ class ResNet50Trunk(nn.Module):
         for i, block in enumerate(self.blocks()):
             x = block(x, tuple(scales[2 * i:2 * i + 2]))
         return x.permute(0, 2, 3, 1)
+
+
+class ResNet101Trunk(ResNet50Trunk):
+    """ResNet-101 to conv4_x (3, 4 and 23 bottlenecks; conv4_x is
+    ``layer3_block0`` to ``layer3_block22``): ``[B, H, W, 3]`` -> ``[B, H/16,
+    W/16, 1024]``, the trunk of the ``resnet101_c4`` detector, whose heads
+    run conv5_x on each pooled roi (``models/heads.py::Conv5Stack``)."""
+
+    conv5_head = True
+
+    def __init__(self, int8_mode: bool = False, int8_scales: tuple = (), dtype=None):
+        super().__init__(int8_mode, int8_scales, dtype, RESNET101_STAGE_SIZES)

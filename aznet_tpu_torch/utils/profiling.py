@@ -7,7 +7,8 @@ Spans. The entries of ``api`` and the search mark where their time goes
 with :func:`span`: one root a call (``propose``, ``detect``, ``fused_detect``,
 ``im_propose``, ``im_detect``) and under it ``upload``, ``preprocess``,
 ``trunk``, ``search`` (``search.level``, ``search.sync``, ``search.select``),
-``heads`` and ``download``. They are recorded exactly while a
+``heads`` (``heads.conv5``: the C4 detector's conv5_x head, one a head call)
+and ``download``. They are recorded exactly while a
 ``torch.profiler`` session runs (any activities), on the host's
 ``time.perf_counter_ns`` clock, into memory (:func:`spans`); otherwise a span
 costs one flag read. A span launches nothing on the card and reads nothing

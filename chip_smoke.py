@@ -95,7 +95,15 @@
    search times. Then the int8 net with the einsum ``'align'`` once (the
    int8 ROI align on the 68x120 map), the einsum ROI align on that map on
    the card against the CPU, and ResNet-50 on the card against the CPU at a
-   small image (f32, and the int8 trunk).
+   small image (f32, and the int8 trunk). Phase 8b: the ResNet-101 C4
+   detector (``resnet101_c4``, the ``resnet101_c4.detect_given_b8`` cell's
+   settings: bf16, ROI align to 14 through the kernel, 21 classes, seeded
+   weights): one ``make_detect_batch`` call of 8 raw 375x500 images with 300
+   boxes each on the 608x800 canvas, every launch count set to 0 just
+   before and read just after (163 frozen BatchNorm launches: the trunk's
+   91, 9 a head call; 8 ROI-align launches at pool 14 on the 38x50x1024
+   map, nothing else), every launch held against its plain version, the
+   detections checked; ms a call.
 10. Phase 9: CaffeNet and VGG_CNN_M_1024 from their config files, bf16,
    ``'align_pallas'`` (the ROI-align kernel at P=6), two raw 375x500 images
    on a 608x800 canvas, as phase 8; each on the card against the CPU at a
@@ -2249,6 +2257,83 @@ def phase8_resnet(dev):
     return out
 
 
+C4_BATCH, C4_BOXES = 8, 300  # resnet101_c4.detect_given_b8: 8 images a call, 300 boxes each
+
+
+def c4_config():
+    """The C4 detector at ``benchmark/configs/resnet101_c4.json``'s
+    settings: bf16 (``Config()``'s), ROI align to 14 through the kernel, 21
+    classes, the 600 px scale capped at 1000."""
+    from aznet_tpu_torch.config import Config, cfg_from_dict
+
+    return cfg_from_dict(Config(), {
+        "MODEL": {"BACKBONE": "resnet101_c4", "POOL_SIZE": 14, "POOLING_MODE": "align_pallas",
+                  "NUM_CLASSES": 21, "STEM_S2D": False},
+        "TEST": {"SCALES": (600,), "MAX_SIZE": 1000}})
+
+
+def phase8b_c4_detect(dev):
+    """One bf16 ``make_detect_batch`` call of the C4 detector at the
+    benchmark cell's size, every launch count set to 0 just before and read
+    just after, every launch held against its plain version. Returns the
+    launches, the kernels' errors and img/s."""
+    import torch
+
+    from aznet_tpu_torch import api, kernels
+    from aznet_tpu_torch.ops.cuda import launch_counts, set_launch_counts
+
+    cfg = c4_config()
+    t0 = time.perf_counter()
+    net = api.build_frcnn_net(cfg, device=dev)
+    torch.cuda.synchronize()
+    print(f"phase8b build_frcnn_net (resnet101_c4): {time.perf_counter() - t0:.2f} s, "
+          f"{sum(p.numel() for p in net.model.parameters())} params", flush=True)
+    h, w = RAW_HW
+    rng = np.random.RandomState(4)
+    images = torch.from_numpy(
+        rng.randint(0, 256, (C4_BATCH,) + RAW_HW + (3,)).astype(np.uint8)).to(dev)
+    xy = rng.uniform(0, (w - 17, h - 17), (C4_BATCH, C4_BOXES, 2))
+    far = np.minimum(xy + rng.uniform(16, 300, (C4_BATCH, C4_BOXES, 2)), (w - 1, h - 1))
+    boxes = torch.from_numpy(np.concatenate([xy, far], -1).astype(np.float32)).to(dev)
+    fn = api.make_detect_batch(net.model, cfg, CANVAS)
+    fn(images, boxes)  # builds the kernels
+    torch.cuda.synchronize()
+
+    before = launch_counts()
+    with kernels.recording() as recorded:
+        set_launch_counts()
+        scores, pred = fn(images, boxes)
+        torch.cuda.synchronize()
+        now = launch_counts()
+    set_launch_counts({k: before[k] + v for k, v in now.items()})  # main's running counts
+    launched = {k: v for k, v in now.items() if v}
+    print(f"phase8b main path: launches {launched}", flush=True)
+    want = {"frozen_bn": 91 + 9 * C4_BATCH, "roi_align": C4_BATCH}
+    check(launched == want, f"phase8b: launches {launched}, not {want}")
+    for i in range(C4_BATCH):
+        check_detections(f"phase8b image {i}", scores[i], pred[i], RAW_HW, cfg.MODEL.NUM_CLASSES)
+    feat_shape = (CANVAS[0] // 16, CANVAS[1] // 16, 1024)
+    rois = [r.args for r in recorded if r.name == "roi_align"]
+    check(all(tuple(a[0].shape) == feat_shape and a[0].dtype == torch.bfloat16 and a[3] == 14
+              and a[1].shape[0] == C4_BOXES for a in rois),
+          f"phase8b: ROI align not at pool 14 on the {feat_shape} bf16 map with "
+          f"{C4_BOXES} boxes")
+    errs = hold("phase8b", recorded)
+    check(errs.keys() == want.keys(), f"phase8b: kernels held {sorted(errs)}")
+    recorded.clear()
+
+    ms = cuda_ms(lambda: fn(images, boxes), 5, 2)
+    torch.cuda.reset_peak_memory_stats()
+    fn(images, boxes)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ips = C4_BATCH / (ms / 1e3)
+    print(f"phase8b make_detect_batch b={C4_BATCH} R={C4_BOXES}: {ms:.3f} ms/call, "
+          f"{ips:.2f} img/s; peak {peak:.2f} GiB", flush=True)
+    del net
+    torch.cuda.empty_cache()
+    return {"launches": launched, "err": errs, "ips": ips}
+
+
 def phase9_small(dev):
     """CaffeNet and VGG_CNN_M_1024 from their config files, bf16,
     ``POOLING_MODE='align_pallas'`` (the ROI-align kernel at P=6), on two raw
@@ -4083,6 +4168,7 @@ def main(argv) -> int:
     iou = phase7_iou(dev)
     set_launch_counts({"iou": 0})
     res = phase8_resnet(dev)
+    c4 = phase8b_c4_detect(dev)
     small = phase9_small(dev)
     iou_path_launches += launch_counts()["iou"]
     ev = phase10_eval(dev, card)  # sets the IoU count to 0 and reads it with the others
@@ -4105,8 +4191,8 @@ def main(argv) -> int:
               ("resnet50 bf16", "resnet50 int8", "caffenet", "vgg_cnn_m_1024"), paths)),
           flush=True)
     # Each kernel's largest error on the paths' own inputs, phases 2, 4, 6 and 8-15.
-    path_errs = [p2["err"], int8["err"], det["err"], ev["err"], tr["err"], tl["err"], mp["err"],
-                 p15["path_errs"], *(p["err"] for p in paths),
+    path_errs = [p2["err"], int8["err"], det["err"], c4["err"], ev["err"], tr["err"], tl["err"],
+                 mp["err"], p15["path_errs"], *(p["err"] for p in paths),
                  *(last[k]["err"] for k in ("c12", "xla", "conv1_f32"))]
 
     def path_err(*names):
@@ -4148,6 +4234,7 @@ def main(argv) -> int:
             "launches": det["launches"][key], "eval_launches": ev["launches"][key],
             "train_launches": train[key], "tools_launches": tools[key],
             "mesh_launches": mesh[key], "max_abs_err": max(rec["err"], path_err(key)),
+            **({"c4_detect_launches": c4["launches"][key]} if key == "roi_align" else {}),
             "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound"][0],
             "bound_by": rec["bound"][1], "library_ms": rec["library_ms"]})
@@ -4204,6 +4291,7 @@ def main(argv) -> int:
         "name": "frozen_bn", "route": "cuda", "source": FROZEN_BN_SOURCE, "replaces": None,
         "plain": FROZEN_BN_PLAIN, "launches": res["bf16"]["launches"]["frozen_bn"],
         "int8_launches": res["int8"]["launches"]["frozen_bn"],
+        "c4_detect_launches": c4["launches"]["frozen_bn"],
         "bench_launches": p15["bench"]["resnet50_1080p"]["launches"]["frozen_bn"],
         "eval_launches": ev["launches"]["frozen_bn"], "train_launches": train["frozen_bn"],
         "tools_launches": tools["frozen_bn"], "mesh_launches": mesh["frozen_bn"],

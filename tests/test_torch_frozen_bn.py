@@ -11,7 +11,8 @@ against the plain version bit for bit at every epilogue shape of the
 ``resnet50_1080p`` cell (batch 4 on 1088x1920) in bf16 and float32, at row
 counts that are no multiple of the grid's stride, the wrapper's refusals, a
 whole trunk call against the plain chain with its 40 launches, and the
-train step's path. Imports no JAX, so it runs where JAX is absent:
+train step's path; the same forms at the C4 detector's conv5_x head's
+shapes (300 pools of 14x14, C 512 and 2048). Imports no JAX, so it runs where JAX is absent:
 
     python -m pytest -p no:cacheprovider --noconftest -m cuda tests/test_torch_frozen_bn.py
 
@@ -43,6 +44,12 @@ CELL_SHAPES = (
     (256, 136, 240, 0), (256, 68, 120, 0), (1024, 68, 120, 2), (1024, 68, 120, 1),
 )
 CELL_BATCH = 4
+# (C, H, W, form) of every epilogue of the C4 detector's conv5_x head
+# (``resnet101_c4``) on one image's 300 pools of 14x14: conv5_1's conv1 at
+# 14x14, then 7x7 (conv3 with the downsample's affine in conv5_1 and with
+# the block input after it).
+HEAD_SHAPES = ((512, 14, 14, 0), (512, 7, 7, 0), (2048, 7, 7, 2), (2048, 7, 7, 1))
+HEAD_ROWS = 300
 
 
 @pytest.fixture
@@ -262,6 +269,17 @@ def _card_and_plain(args):
 def test_forms_bit_for_bit_at_the_cells_shapes(dev, dtype, c, h, w, form):
     with torch.inference_mode():
         args = case(c, h, w, form, dtype, dev, n=CELL_BATCH, seed=c + h + form)
+        got, want = _card_and_plain(args)
+    _assert_bits(got, want, f"{FORMS[form]} {dtype}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("c,h,w,form", HEAD_SHAPES,
+                         ids=[f"{c}x{h}x{w}-{FORMS[f]}" for c, h, w, f in HEAD_SHAPES])
+def test_forms_bit_for_bit_at_the_c4_heads_shapes(dev, dtype, c, h, w, form):
+    with torch.inference_mode():
+        args = case(c, h, w, form, dtype, dev, n=HEAD_ROWS, seed=c + h + form)
         got, want = _card_and_plain(args)
     _assert_bits(got, want, f"{FORMS[form]} {dtype}")
 
