@@ -27,7 +27,9 @@ Each entry call records its spans (``utils/profiling.py``) while a
 ``torch.profiler`` session runs: a root (``propose``, ``detect``,
 ``fused_detect``, ``im_propose``, ``im_detect``) with ``upload``,
 ``preprocess``, ``trunk``, ``search``, ``heads`` and ``download`` under it
-(and ``heads.conv5`` around each call of a conv5_x head).
+(and ``heads.conv5`` around each call of a conv5_x head). ``search`` is one
+an image; ``heads`` one a call in the detect entries (``rows`` the call's
+boxes) and one an image in ``fused_detect``.
 
 Int8 (``COMPUTE_DTYPE='int8'``, scales from ``ops/quant.py``): the trunk
 keeps float32 parameters and quantizes its int8 layers once at build time;
@@ -295,29 +297,35 @@ def trunks_shared(az_net: Net, frcnn_net: Net) -> bool:
 
 
 def select_class_boxes(scores: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
-    """Each roi's decoded box of its best FOREGROUND class: ``scores [R, K]``,
-    ``pred [R, 4K]`` -> ``[R, 4]``. Class 0 (background) is excluded; ties go
-    to the lower class index."""
-    cls = scores[:, 1:].argmax(dim=1) + 1
-    return pred.reshape(pred.shape[0], -1, 4)[torch.arange(pred.shape[0], device=pred.device), cls]
+    """Each roi's decoded box of its best FOREGROUND class: ``scores [..., K]``,
+    ``pred [..., 4K]`` -> ``[..., 4]``. Class 0 (background) is excluded; ties
+    go to the lower class index."""
+    cls = scores[..., 1:].argmax(dim=-1) + 1
+    boxes = pred.reshape(pred.shape[:-1] + (-1, 4))
+    return boxes.gather(-2, cls[..., None, None].expand(cls.shape + (1, 4))).squeeze(-2)
 
 
-def _detect_rois(model: FRCNN, cfg: Config, feat, boxes, rois, im_scale, raw_hw):
-    """The detection head over one image's features. ``boxes [R, 4]`` in
-    original coordinates, ``rois`` the same boxes on the scaled image.
-    ``TEST.BBOX_ITER`` passes: each decodes against the original-coordinate
-    boxes and clips to the raw image ``raw_hw``; a further pass re-pools
+def _detect_heads(model: FRCNN, cfg: Config, feats, boxes, rois, scales, raw_hw):
+    """The detection head over a call's features ``feats [B, ...]``. ``boxes
+    [B, R, 4]`` in original coordinates, ``rois`` the same boxes on the
+    scaled images, ``scales [B]`` the images' scales. ``model.roi_forward``
+    runs per image; the softmax, the decode against ``boxes`` and the clip to
+    ``raw_hw`` run once over all B x R rows, with no copy between the host and
+    the card, so the host queues every image's head while the card is still
+    busy. ``raw_hw``: ``(H, W)`` as Python numbers, or as ``[B, 1]`` tensors
+    (one extent an image). ``TEST.BBOX_ITER`` passes: a further pass re-pools
     every roi at its best foreground class's box. Returns ``(softmax scores
-    [R, K], pred_boxes [R, 4K])``."""
+    [B, R, K], pred_boxes [B, R, 4K])``."""
     off = cfg.BOX_OFFSET
     n_iter = max(int(cfg.TEST.BBOX_ITER), 1)
     for it in range(n_iter):
-        out = model.roi_forward(feat, rois)
-        scores = torch.softmax(out["cls_score"], dim=-1)
-        pred = clip_boxes(bbox_transform_inv(boxes, out["bbox_pred"], off), raw_hw, off)
+        outs = [model.roi_forward(feat, r) for feat, r in zip(feats, rois)]
+        scores = torch.softmax(torch.stack([o["cls_score"] for o in outs]), dim=-1)
+        deltas = torch.stack([o["bbox_pred"] for o in outs])
+        pred = clip_boxes(bbox_transform_inv(boxes, deltas, off), raw_hw, off)
         if it + 1 < n_iter:
             boxes = select_class_boxes(scores, pred)
-            rois = boxes * im_scale
+            rois = boxes * scales[:, None, None]
     return scores, pred
 
 
@@ -325,19 +333,17 @@ def _detect_images(model: FRCNN, cfg: Config, images, boxes, canvas_hw, src_hw=N
                    scales=None):
     """Raw ``images [B, H, W, 3]`` and ``boxes [B, R, 4]`` (original
     coordinates) -> ``(scores [B, R, K], pred_boxes [B, R, 4K])``: ONE trunk
-    call on the batch, then the head per image."""
+    call on the batch, then :func:`_detect_heads` on the whole call."""
     with profiling.span("detect"):
         preps, blob = _preprocess(cfg, images, canvas_hw, src_hw, scales)
         with profiling.span("trunk"):
             feats = _maybe_quantize_feat(cfg, model.features(blob))
-        outs = []
-        for i, (feat, (_, im_scale, _)) in enumerate(zip(feats, preps)):
-            raw_hw = ((float(images.shape[1]), float(images.shape[2])) if src_hw is None
-                      else src_hw[i])
-            with profiling.span("heads", image=i):
-                outs.append(_detect_rois(model, cfg, feat, boxes[i], boxes[i] * im_scale,
-                                         im_scale, raw_hw))
-        return tuple(torch.stack(t) for t in zip(*outs))
+        raw_hw = ((float(images.shape[1]), float(images.shape[2])) if src_hw is None
+                  else (src_hw[:, :1], src_hw[:, 1:]))
+        with profiling.span("heads", rows=boxes.shape[0] * boxes.shape[1]):
+            im_scales = torch.stack([p[1] for p in preps])
+            return _detect_heads(model, cfg, feats, boxes, boxes * im_scales[:, None, None],
+                                 im_scales, raw_hw)
 
 
 def _detect_core_pyramid(model: FRCNN, cfg: Config, image, boxes, canvases):
@@ -438,8 +444,9 @@ def make_fused_detect_batch_padded(az_model: AZNet, frcnn_model: FRCNN, cfg_az: 
                         num_templates=cfg_az.MODEL.NUM_TEMPLATES, offset=cfg_az.BOX_OFFSET)
                     orig = boxes / im_scale
                 with profiling.span("heads", image=i):
-                    det_scores, det_boxes = _detect_rois(frcnn_model, cfg_fr, feats_fr[i], orig,
-                                                         boxes, im_scale, src_hw[i])
+                    det_scores, det_boxes = (t[0] for t in _detect_heads(
+                        frcnn_model, cfg_fr, feats_fr[i:i + 1], orig[None], boxes[None],
+                        im_scale.reshape(1), (src_hw[i:i + 1, :1], src_hw[i:i + 1, 1:])))
                 outs.append((orig, p_scores, valid, det_scores, det_boxes))
             return tuple(torch.stack(t) for t in zip(*outs))
 

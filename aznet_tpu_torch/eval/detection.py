@@ -129,9 +129,7 @@ def refine_proposals_batched(frcnn_net: api.Net, imdb, proposals: List[np.ndarra
             for j, i in enumerate(chunk):
                 boxes_in[j, : proposals[i].shape[0]] = proposals[i][:, :4]
             scores, pred = fn(ims, src_hw, scales, torch.from_numpy(boxes_in).to(frcnn_net.device))
-            b, r = scores.shape[:2]
-            refined, = _host(api.select_class_boxes(scores.reshape(b * r, -1),
-                                                    pred.reshape(b * r, -1)).reshape(b, r, 4))
+            refined, = _host(api.select_class_boxes(scores, pred))
             for j, i in enumerate(chunk):
                 k = proposals[i].shape[0]
                 out[i] = np.concatenate([refined[j][:k], proposals[i][:, 4:5]],

@@ -61,14 +61,22 @@ def bbox_transform_inv(boxes, deltas, offset: float = 1.0, clip: float | None = 
 
 
 def _clip(x, hi):
-    """``jnp.clip(x, 0, hi)`` for a Python or tensor upper bound."""
-    return torch.minimum(x.clamp(min=0.0), torch.as_tensor(hi, dtype=x.dtype, device=x.device))
+    """``jnp.clip(x, 0, hi)``, ``min(max(x, 0), hi)`` in ``x``'s dtype with NaN
+    kept, for a Python or tensor upper bound. A Python bound stays a scalar
+    of the launch: a CUDA tensor made from it would be a copy from the host
+    that waits for the card."""
+    if isinstance(hi, torch.Tensor):
+        return torch.minimum(x.clamp(min=0.0), torch.as_tensor(hi, dtype=x.dtype,
+                                                               device=x.device))
+    return x.clamp(0.0, hi)
 
 
 def clip_boxes(boxes, im_shape, offset: float = 1.0):
     """Clip ``[..., 4K]`` boxes to x in ``[0, W - offset]``, y in
-    ``[0, H - offset]``; H and W may be 0-d tensors."""
-    h, w = im_shape[0], im_shape[1]
+    ``[0, H - offset]``. H and W are Python numbers, or tensors that
+    broadcast over the leading dims (0-d, or ``[B, 1]`` for ``[B, R, 4K]``
+    boxes: one extent an image)."""
+    h, w = (t[..., None] if isinstance(t, torch.Tensor) else t for t in im_shape[:2])
     shape = boxes.shape
     b = boxes.reshape(shape[:-1] + (shape[-1] // 4, 4))
     x1, y1, x2, y2 = b.unbind(-1)

@@ -30,7 +30,9 @@ on a 38x50x1024 bf16 map with 300 boxes against its plain version, and one
 bf16 detect call of 8 images with 300 boxes each at the cell's size
 (``resnet101_c4.detect_given_b8``): 163 frozen BatchNorm launches (91 for
 the trunk, 9 for each image's head) and 8 ROI-align launches, its outputs
-held against the reference at the bf16 tolerance. Imports no JAX:
+held against the reference at the bf16 tolerance and, with no synchronising
+call after the trunk, against the head's tail run one image at a time, bit
+for bit. Imports no JAX:
 
     python -m pytest -p no:cacheprovider --noconftest -m cuda tests/test_torch_resnet101_c4.py
 """
@@ -44,6 +46,7 @@ import pytest
 import torch
 
 import reference_resnet101_c4 as ref
+from _detect_tail import no_syncs_after_the_trunk, per_image_detect
 from aznet_tpu_torch import api
 from aznet_tpu_torch.config import Config, cfg_from_dict
 from aznet_tpu_torch.kernels import KERNELS
@@ -250,8 +253,8 @@ def test_benchmarks_network_is_this_reference(params, monkeypatch):
 
 def test_the_head_records_its_span_inside_heads(nets):
     """Under a profiler each conv5_x head call is one ``heads.conv5`` span,
-    ``rows`` its boxes, inside the image's ``heads`` span; with no profiler
-    nothing is recorded."""
+    ``rows`` its boxes, inside the call's one ``heads`` span (``rows`` the
+    call's boxes); with no profiler nothing is recorded."""
     from torch.profiler import ProfilerActivity, profile
 
     from aznet_tpu_torch.utils import profiling
@@ -269,7 +272,8 @@ def test_the_head_records_its_span_inside_heads(nets):
     conv5 = [s for s in new if s.name == "heads.conv5"]
     assert [s.attrs for s in conv5] == [{"rows": 6}] * 2
     assert [by_id[s.parent].name for s in conv5] == ["heads"] * 2
-    assert [by_id[s.parent].attrs["image"] for s in conv5] == [0, 1]
+    assert [by_id[s.parent].attrs for s in conv5] == [{"rows": 12}] * 2
+    assert conv5[0].parent == conv5[1].parent
 
 
 # -- the propose entries on the C4 AZ head -------------------------------------
@@ -421,13 +425,10 @@ def test_roi_align_kernel_at_pool_14(dev, w_first):
     assert ok, f"{differ:.3%} of the elements differ"
 
 
-@pytest.mark.cuda
-def test_detect_call_of_8_on_the_card(dev):
-    """One bf16 detect call at the cell's size: 8 raw 375x500 images with
-    300 boxes each on the 608x800 canvas. 163 frozen BatchNorm launches (the
-    trunk's 91: the stem and 3 a block over 30 blocks; each image's head 9)
-    and 8 ROI-align launches; the scores and boxes held against the float32
-    reference on the card at the bf16 tolerance."""
+def card_call_of_8(dev):
+    """The cell's call on the card: a bf16 net of drawn weights, 8 raw
+    375x500 images with 300 boxes each, the entry on the 608x800 canvas,
+    called once to build the kernels. ``(cfg, p, net, ims, boxes, fn)``."""
     p = draw_params("frcnn", 11)
     cfg = cfg_from_dict(Config(), {"MODEL": dict(MODEL, COMPUTE_DTYPE="bfloat16"),
                                    "TEST": {"SCALES": [600], "MAX_SIZE": 1000}})
@@ -440,6 +441,17 @@ def test_detect_call_of_8_on_the_card(dev):
     fn = api.make_detect_batch(net.model, cfg, (608, 800))
     fn(ims, boxes)  # builds the kernels
     torch.cuda.synchronize()
+    return cfg, p, net, ims, boxes, fn
+
+
+@pytest.mark.cuda
+def test_detect_call_of_8_on_the_card(dev):
+    """One bf16 detect call at the cell's size: 8 raw 375x500 images with
+    300 boxes each on the 608x800 canvas. 163 frozen BatchNorm launches (the
+    trunk's 91: the stem and 3 a block over 30 blocks; each image's head 9)
+    and 8 ROI-align launches; the scores and boxes held against the float32
+    reference on the card at the bf16 tolerance."""
+    cfg, p, _, ims, boxes, fn = card_call_of_8(dev)
     launches = frozen_bn_kernel.LAUNCHES, roi_align_kernel.LAUNCHES
     scores, pred = fn(ims, boxes)
     torch.cuda.synchronize()
@@ -449,6 +461,25 @@ def test_detect_call_of_8_on_the_card(dev):
                                 600, 1000, cfg.PIXEL_MEANS)
     assert float((scores - want_s).abs().max()) <= BF16.scores
     assert shift(pred, want_b, boxes) <= BF16.shift
+
+
+@pytest.mark.cuda
+def test_the_detect_tail_is_one_pass_on_the_card(dev, monkeypatch):
+    """The same call with ``torch.cuda.set_sync_debug_mode("error")`` on from
+    the trunk's return to the entry's return raises nothing, launches 163
+    frozen BatchNorm and 8 ROI-align kernels, and gives the bits of the
+    per-image form (``tests/_detect_tail.py``; cuDNN held to deterministic
+    algorithms, since the two forms run the trunk apart)."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    cfg, _, net, ims, boxes, fn = card_call_of_8(dev)
+    launches = frozen_bn_kernel.LAUNCHES, roi_align_kernel.LAUNCHES
+    with no_syncs_after_the_trunk(net.model):
+        got = fn(ims, boxes)
+    assert (frozen_bn_kernel.LAUNCHES - launches[0], roi_align_kernel.LAUNCHES - launches[1]) \
+        == (163, 8)
+    want = per_image_detect(net.model, cfg, ims, boxes, (608, 800))
+    for g_, w_ in zip(got, want):
+        assert torch.equal(g_, w_)
 
 
 @pytest.mark.cuda

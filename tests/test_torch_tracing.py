@@ -31,15 +31,16 @@ CANVAS = (64, 128)
 B = 2
 ROOTS = {  # an entry: its root span and how many of each child the root has
     "propose_batch": ("propose", {"preprocess": 1, "trunk": 1, "search": B}),
-    "detect_batch": ("detect", {"preprocess": 1, "trunk": 1, "heads": B}),
+    "detect_batch": ("detect", {"preprocess": 1, "trunk": 1, "heads": 1}),
     "im_propose": ("im_propose", {"upload": 1, "propose": 1, "download": 1}),
     "im_detect": ("im_detect", {"upload": 1, "detect": 1, "download": 1}),
     "fused_detect": ("fused_detect", {"preprocess": 1, "trunk": 1, "search": B, "heads": B}),
 }
 IMAGES = {  # an entry: its calls' ``search`` and ``heads`` spans, one an image
-    "propose_batch": {"search": B}, "detect_batch": {"heads": B}, "im_propose": {"search": 1},
-    "im_detect": {"heads": 1}, "fused_detect": {"search": B, "heads": B},
+    "propose_batch": {"search": B}, "detect_batch": {}, "im_propose": {"search": 1},
+    "im_detect": {}, "fused_detect": {"search": B, "heads": B},
 }
+ROWS = {"detect_batch": B * 3, "im_detect": 3}  # one ``heads`` span a call: the rows it decodes
 
 
 @pytest.fixture(scope="module")
@@ -115,8 +116,11 @@ def test_spans_form_one_tree_a_call(entries, recorder, entry):
             assert s.call == p.call
     for name in ("search", "heads"):
         for root in roots:
-            images = sorted(s.attrs["image"] for s in spans
-                            if s.name == name and s.call == root.id)
+            under = [s for s in spans if s.name == name and s.call == root.id]
+            if name == "heads" and entry in ROWS:
+                assert [s.attrs for s in under] == [{"rows": ROWS[entry]}]
+                continue
+            images = sorted(s.attrs["image"] for s in under)
             assert images == list(range(IMAGES[entry].get(name, 0))), (name, images)
 
 
