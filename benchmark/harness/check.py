@@ -51,14 +51,15 @@ class Reference:
         self.model, self.sear, self.off = conf["MODEL"], conf["SEAR"], conf["BOX_OFFSET"]
 
     def features(self, image, canvas):
-        """``(feat [h, w, C], im_scale 0-d, valid_h, valid_w)`` of a raw uint8
-        ``image [H, W, 3]`` on ``canvas``."""
+        """``(feat, im_scale 0-d, valid_h, valid_w)`` of a raw uint8 ``image
+        [H, W, 3]`` on ``canvas``; ``feat`` the image's map ``[h, w, C]`` or
+        its pyramid's levels."""
         test = self.conf["TEST"]
         s = nets.compute_scale(image.shape[0], image.shape[1], test["SCALES"][0],
                                test["MAX_SIZE"])
         blob, vh, vw = nets.preprocess(image.to(self.device), self.conf["PIXEL_MEANS"], s,
                                        canvas[0], canvas[1])
-        feat = nets.trunk(self.model, self.p, blob[None])[0]
+        feat = nets.image_features(nets.trunk(self.model, self.p, blob[None]), 0)
         return feat, torch.tensor(s, dtype=torch.float32, device=self.device), vh, vw
 
     def roi_forward(self, feat, rois):

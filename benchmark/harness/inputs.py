@@ -42,18 +42,19 @@ def make_weights(model: dict, kind: str, seed: int, device) -> dict:
     so that the ReLUs' common mode does not set the logits); the weights
     that take the pooled features (``nets.head_input_weights``: fc6 where
     the head has it) are scaled by the inverse of the trunk's output rms on
-    a noise image, so that the heads see unit-scale input whatever the
-    trunk's gain; and the search head's output layers are scaled so that
-    their outputs, before the biases, spread by ``AZ_SPREADS`` over the
-    noise image's regions (the spread of all of a layer's outputs
-    together), and biased so that each output's mean there is 0, the zoom
-    logits' ``ZOOM_BIAS``, once the zoom row is turned to fall with a
-    region's depth (``_zoom_by_depth``). So every region divides, the search
-    runs every level on every image and seed, and its width follows from the
-    image's size alone, while the frontier's top-k by zoom has a real order
-    to keep and the scores and boxes vary as a trained head's do. The scales
-    are rounded to three digits and the biases to two decimals, so that
-    rounding in the probe does not move them."""
+    a noise image (over every element of every level, for a pyramid), so
+    that the heads see unit-scale input whatever the trunk's gain; and the
+    search head's output layers are scaled so that their outputs, before
+    the biases, spread by ``AZ_SPREADS`` over the noise image's regions
+    (the spread of all of a layer's outputs together), and biased so that
+    each output's mean there is 0, the zoom logits' ``ZOOM_BIAS``, once the
+    zoom row is turned to fall with a region's depth (``_zoom_by_depth``).
+    So every region divides, the search runs every level on every image and
+    seed, and its width follows from the image's size alone, while the
+    frontier's top-k by zoom has a real order to keep and the scores and
+    boxes vary as a trained head's do. The scales are rounded to three
+    digits and the biases to two decimals, so that rounding in the probe
+    does not move them."""
     specs = nets.param_specs(model, kind)
     sizes = [math.prod(shape) for _, shape, _ in specs]
     flat = torch.randn(sum(sizes), generator=generator(seed, f"weights.{kind}", device),
@@ -69,7 +70,7 @@ def make_weights(model: dict, kind: str, seed: int, device) -> dict:
     probe = torch.rand((1, *PROBE_HW, 3), generator=generator(seed, "probe", device),
                        device=device) * 255.0 - 128.0
     feat = nets.trunk(model, out, probe)
-    rms = float(feat.pow(2).mean().sqrt())
+    rms = float(nets.elements(feat).pow(2).mean().sqrt())
     for name in nets.head_input_weights(model, kind):
         out[name].mul_(float(f"{1.0 / rms:.3g}"))
     if kind == "az":
@@ -80,7 +81,7 @@ def make_weights(model: dict, kind: str, seed: int, device) -> dict:
                                    1.0, rs.seed_count(PROBE_DEPTH))[0]
         depth = torch.cat([torch.full((5 ** d,), d, device=device)
                            for d in range(PROBE_DEPTH + 1)])
-        got = nets.roi_forward(model, kind, out, feat[0], regions)
+        got = nets.roi_forward(model, kind, out, nets.image_features(feat, 0), regions)
         zoom = _zoom_by_depth(out, got, depth)
         for (name, spread), y in zip(AZ_SPREADS.items(), (zoom, got["adj_score"],
                                                          got["adj_delta"])):

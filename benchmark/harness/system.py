@@ -42,11 +42,12 @@ class PortSystem:
 
     @staticmethod
     def launches() -> dict:
-        """The port's own counts of its CUDA kernels' launches."""
-        from aznet_tpu_torch.ops.cuda import conv1_kernel, nms_kernel, roi_align_kernel
+        """The port's own counts of its CUDA kernels' launches: every counter
+        of its table (``aznet_tpu_torch.ops.cuda.COUNTERS``), so a kernel a
+        later change adds is counted with it."""
+        from aznet_tpu_torch.ops.cuda import launch_counts
 
-        return {"roi_align": roi_align_kernel.LAUNCHES, "nms": nms_kernel.LAUNCHES,
-                "conv1": conv1_kernel.LAUNCHES}
+        return launch_counts()
 
 
 def reverse_frontier_top_k(cand_buf: int):
@@ -100,9 +101,9 @@ class ReferenceSystem:
     def _propose(self, images, canvas):
         feats, scales, extents = self._features(images, canvas)
         outs = []
-        for feat, s, (vh, vw) in zip(feats, scales, extents):
-            found = rsearch.search(self.roi_forward, feat, vh, vw, self.conf["SEAR"],
-                                   self.conf["BOX_OFFSET"])
+        for i, (s, (vh, vw)) in enumerate(zip(scales, extents)):
+            found = rsearch.search(self.roi_forward, nets.image_features(feats, i), vh, vw,
+                                   self.conf["SEAR"], self.conf["BOX_OFFSET"])
             outs.append((found.boxes / s, found.scores, found.valid))
         return tuple(torch.stack(t) for t in zip(*outs))
 
@@ -116,8 +117,8 @@ class ReferenceSystem:
             feats, scales, _ = self._features(images, canvas)
             h, w = (torch.tensor(float(v), device=self.device) for v in images.shape[1:3])
             outs = []
-            for feat, s, b in zip(feats, scales, boxes):
-                out = self.roi_forward(feat, b * s)
+            for i, (s, b) in enumerate(zip(scales, boxes)):
+                out = self.roi_forward(nets.image_features(feats, i), b * s)
                 pred = rsearch.decode(b[:, None, :], out["bbox_pred"].reshape(-1, k, 4), off)
                 pred = rsearch.clip_to(pred, h, w, off)
                 outs.append((torch.softmax(out["cls_score"], -1), pred.reshape(-1, 4 * k)))

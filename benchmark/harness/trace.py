@@ -8,7 +8,8 @@
   program's trunk and head modules, from forward pre-hooks and hooks that
   the benchmark registers (the program itself has no spans);
 - ``RoiLog``: the shapes of each call of the model's ``roi_forward`` (the
-  feature map and the rois), for the ROI-align kernel's roofline.
+  feature map, or a pyramid's levels, and the rois), for the ROI-align
+  kernel's roofline.
 
 Only the intervals are kept; no trace file is written."""
 
@@ -60,16 +61,33 @@ class Spans:
         return [(a, b) for a, b, _, _ in self.calls[name]]
 
 
+def pyramid_shape(level_shapes) -> dict:
+    """What ``RoiLog`` records of a pyramid in place of a map's shape:
+    ``{"levels": ((h, w, C), ...)}``, a form that no reader of a single
+    map's ``(h, w, C)`` takes for one (its ``len`` is 1)."""
+    return {"levels": tuple(level_shapes)}
+
+
+def is_pyramid_shape(shape) -> bool:
+    return isinstance(shape, dict)
+
+
 class RoiLog:
     """``(feature map shape, element size, rois)`` of each call of
-    ``owner.roi_forward(feat, rois, ...)`` until :meth:`remove`."""
+    ``owner.roi_forward(feat, rois, ...)`` until :meth:`remove`; where
+    ``feat`` is a sequence of level maps, the shape is ``pyramid_shape`` of
+    theirs and the element size the first level's."""
 
     def __init__(self, owner):
         self.owner, self.calls = owner, []
         fn, calls = owner.roi_forward, self.calls
 
         def roi_forward(feat, rois, *args, **kwargs):
-            calls.append((tuple(feat.shape), feat.element_size(), rois))
+            if isinstance(feat, torch.Tensor):
+                calls.append((tuple(feat.shape), feat.element_size(), rois))
+            else:
+                calls.append((pyramid_shape(tuple(level.shape) for level in feat),
+                              feat[0].element_size(), rois))
             return fn(feat, rois, *args, **kwargs)
 
         owner.roi_forward = roi_forward

@@ -7,14 +7,16 @@ kernels and the copies. What is left is the head's kernels and the few
 small kernels of the scores and decoded boxes; the card's idle time, which
 the host's per-image loop sets, is not in it. For the C4 detector it is
 conv5_x's share of its roofline, conv5_x being nearly all of the head's
-FLOPs. Detection cells only."""
+FLOPs. Detection cells on one feature map only: on a pyramid the pooling is
+more than ROI align's kernels, and it reads nothing."""
 
 from harness import readers, roofline, trace as tr
 
 
 def read(run):
     trunk = run.trace["spans"].get("trunk", ([], []))[0]
-    if run.driver.kind != "frcnn" or len(trunk) != len(run.calls):
+    if (run.driver.kind != "frcnn" or len(trunk) != len(run.calls)
+            or any(tr.is_pyramid_shape(shape) for shape, _, _ in run.trace["rois"])):
         return None
     roi = roofline.KERNELS["roi_align"]
     busy_ns = 0

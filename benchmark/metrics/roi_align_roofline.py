@@ -1,6 +1,8 @@
 """The ROI-align kernel's share of its roofline, in %: the least time of
 every call in the traced window at its shapes (``roofline.roi_align_bound_s``)
-over the kernel's device time."""
+over the kernel's device time. Calls on one ``[h, w, C]`` map only: a
+feature pyramid's record (``trace.pyramid_shape``) has no 3-D shape, and it
+reads nothing."""
 
 from harness import readers, roofline
 

@@ -6,9 +6,14 @@ by its configuration's ``MODEL["BACKBONE"]`` (``network``). It defines, in
 plain PyTorch:
 
 - ``param_specs(model, kind)``: every parameter ``[(name, shape, init)]``;
-- ``trunk(model, p, x, q)``: ``[B, H, W, 3]`` -> ``[B, H/s, W/s, C]``;
+- ``trunk(model, p, x, q)``: ``[B, H, W, 3]`` -> ``[B, H/s, W/s, C]``, or a
+  feature pyramid: a tuple of level maps ``[B, h_l, w_l, C]``, finest first;
 - ``head(model, kind, p, pooled, q)``: the pooled rois ``[R, P, P, C]`` ->
   the output dict (``output_dot``'s);
+- optionally ``pool(model, feat, rois, q)``: one image's features (a map or
+  its levels) and ``rois [R, 4]`` -> ``[R, P, P, C]``, rounding the features
+  by ``q`` itself; without it, ``roi_align`` on the one map at
+  ``FEAT_STRIDE``;
 - ``head_outputs(kind, model)``: the output layers, whose rows the weights'
   draw centres and scales;
 - ``head_input_weights(model, kind)``: the weights that take the pooled
@@ -33,7 +38,10 @@ Shared here:
   centres) by the scale that takes the short side to the target, capped by
   the maximum size, onto a zero-padded canvas.
 
-Tensors are NHWC at the boundaries, as the system's. Parameters are a flat
+Tensors are NHWC at the boundaries, as the system's. Whatever handles
+features goes through ``image_features``, ``each_level``, ``levels``,
+``elements`` and ``channels``, which take a single map and a pyramid alike
+and, on a single map, are the plain tensor operation. Parameters are a flat
 dict under the system's names (``param_specs``), so the benchmark hands the
 same float32 weights to both. Every conv and matmul runs in true float32
 (TF32 off, ``ieee_fp32``). ``q``, where given, rounds each operand of a conv
@@ -110,8 +118,9 @@ def head_input_weights(model: dict, kind: str):
     return network(model).head_input_weights(model, kind)
 
 
-def trunk(model: dict, p: dict, x: torch.Tensor, q=_ident) -> torch.Tensor:
-    """The network's trunk, in true float32."""
+def trunk(model: dict, p: dict, x: torch.Tensor, q=_ident):
+    """The network's trunk, in true float32: one map, or a pyramid's
+    levels."""
     with ieee_fp32():
         return network(model).trunk(model, p, x.float(), q)
 
@@ -123,8 +132,49 @@ def head(model: dict, kind: str, p: dict, pooled: torch.Tensor, q=_ident) -> dic
 
 
 def roi_forward(model: dict, kind: str, p: dict, feat, rois, q=_ident) -> dict:
-    pooled = roi_align(q(feat), rois, model["FEAT_STRIDE"], model["POOL_SIZE"])
+    """The head on ``rois`` pooled from one image's features: by the
+    network's own ``pool`` where it defines one, else by ``roi_align`` on
+    the one map."""
+    net = network(model)
+    if hasattr(net, "pool"):
+        pooled = net.pool(model, feat, rois, q)
+    else:
+        pooled = roi_align(q(feat), rois, model["FEAT_STRIDE"], model["POOL_SIZE"])
     return head(model, kind, p, pooled, q)
+
+
+# -- features: one map, or a pyramid of levels ---------------------------------
+
+def is_pyramid(feat) -> bool:
+    """Features given as a sequence of level maps, not one tensor."""
+    return not isinstance(feat, torch.Tensor)
+
+
+def levels(feat) -> tuple:
+    """The level maps, finest first: ``(feat,)`` for a single map."""
+    return tuple(feat) if is_pyramid(feat) else (feat,)
+
+
+def image_features(feats, i: int):
+    """Image ``i``'s features of a batch's: ``feats[i]``, or its map at every
+    level."""
+    return tuple(level[i] for level in feats) if is_pyramid(feats) else feats[i]
+
+
+def each_level(fn, feat):
+    """``fn`` (such as the control's rounding ``q``) on every level map."""
+    return tuple(fn(level) for level in feat) if is_pyramid(feat) else fn(feat)
+
+
+def elements(feat) -> torch.Tensor:
+    """Every element of the features in one tensor: the map itself, or each
+    level's flattened and joined."""
+    return torch.cat([level.reshape(-1) for level in feat]) if is_pyramid(feat) else feat
+
+
+def channels(feat) -> int:
+    """The features' channel count (a pyramid's levels share it)."""
+    return levels(feat)[0].shape[-1]
 
 
 # -- parameters ---------------------------------------------------------------

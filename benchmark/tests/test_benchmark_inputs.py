@@ -44,7 +44,7 @@ def test_weights_repeat_and_set_the_heads(kind):
         assert a[f"head.{name}.weight"].sum(1).abs().max() < 1e-4  # rows centred
     if kind == "az":  # the search head's outputs over the probe's regions
         probe = torch.rand((1, *inputs.PROBE_HW, 3), generator=inputs.generator(BIG, "probe", "cpu"))
-        feat = nets.trunk(model, a, probe * 255.0 - 128.0)[0]
+        feat = nets.image_features(nets.trunk(model, a, probe * 255.0 - 128.0), 0)
         side = torch.tensor(float(inputs.PROBE_HW[0]))
         levels = {"SEED_LEVELS": inputs.PROBE_DEPTH, "DIV_OVERLAP": 0.0}
         regions = rs.init_frontier(side, side, levels, 1.0, rs.seed_count(inputs.PROBE_DEPTH))[0]

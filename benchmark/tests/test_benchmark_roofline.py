@@ -40,7 +40,7 @@ def test_trunk_and_head_flops_match_the_flop_counter():
         p = inputs.make_weights(model, "az", 1, "cpu")
         x = torch.zeros(1, 64, 96, 3)
         assert counted(lambda: nets.trunk(model, p, x)) == roofline.trunk_flops(model, (64, 96))
-        channels = nets.trunk(model, p, x).shape[-1]
+        channels = nets.channels(nets.trunk(model, p, x))
         pooled = torch.zeros(5, model["POOL_SIZE"], model["POOL_SIZE"], channels)
         assert counted(lambda: nets.head(model, "az", p, pooled)) == roofline.head_flops(model, "az", 5)
 

@@ -2,8 +2,10 @@
 """What the yardstick reads of a cell, made from the seed alone, as one JSON
 line a cell: the seeded weights' checksum, the checksums of the float32
 reference's and the fp8 control's outputs on the cell's first image (its
-features, the heads on given boxes and, for a propose cell, the reference's
-whole search), the FLOPs behind ``step.mfu`` and the kernels' least times.
+features, every level of a pyramid, the heads on given boxes and, for a
+propose cell, the reference's whole search), the FLOPs behind ``step.mfu``
+and the kernels' least times (ROI align's on a single map, ``null`` on a
+pyramid).
 Two versions of the benchmark read the same on every seed exactly when a
 change to the harness moved nothing of what it measures against.
 
@@ -72,7 +74,7 @@ def fingerprint(cell, seed: int, device, gaps: bool = False) -> dict:
 
     from harness import check, inputs, roofline, runner, spec
     from harness.system import ReferenceSystem
-    from reference import search as rs
+    from reference import nets, search as rs
 
     conf, traffic = cell.conf, cell.traffic
     model, kind = conf["MODEL"], spec.driver_class(cell).kind
@@ -86,7 +88,7 @@ def fingerprint(cell, seed: int, device, gaps: bool = False) -> dict:
     ref = check.Reference(conf, kind, weights, device)
     feat, im_scale, vh, vw = ref.features(image, canvas)
     got = ref.roi_forward(feat, rois * im_scale)
-    out["reference"] = digest([feat, *(got[k] for k in sorted(got))])
+    out["reference"] = digest([*nets.levels(feat), *(got[k] for k in sorted(got))])
     control = ReferenceSystem(conf, kind, weights, device)
     got = control.roi_forward(feat, rois * im_scale)
     out["control"] = digest(got[k] for k in sorted(got))
@@ -97,7 +99,7 @@ def fingerprint(cell, seed: int, device, gaps: bool = False) -> dict:
                                 found.cand_scores])
     out["trunk_flops"] = roofline.trunk_flops(model, canvas)
     out["head_flops"] = roofline.head_flops(model, kind, rows_of(cell, kind))
-    out["roi_align_bound_s"] = roofline.roi_align_bound_s(
+    out["roi_align_bound_s"] = None if nets.is_pyramid(feat) else roofline.roi_align_bound_s(
         tuple(feat.shape), 2, rois * im_scale, model["FEAT_STRIDE"], model["POOL_SIZE"])
     out["nms_bound_s"] = roofline.nms_bound_s(
         roofline.candidates(conf["SEAR"], model["NUM_TEMPLATES"]))
