@@ -9,7 +9,8 @@ Propose side:
   batched path: the trunk runs once on the whole batch, then the search
   runs per image.
 
-Detect side:
+Detect side (on one feature map, or a feature pyramid's levels, each
+image's boxes pooled from its own levels):
 
 - :func:`build_frcnn_net`; :func:`im_detect` (one raw image and its boxes ->
   ``(scores (R, K), pred_boxes (R, 4K))``, the image pyramid when
@@ -27,7 +28,9 @@ Each entry call records its spans (``utils/profiling.py``) while a
 ``torch.profiler`` session runs: a root (``propose``, ``detect``,
 ``fused_detect``, ``im_propose``, ``im_detect``) with ``upload``,
 ``preprocess``, ``trunk``, ``search``, ``heads`` and ``download`` under it
-(and ``heads.conv5`` around each call of a conv5_x head). ``search`` is one
+(and ``heads.conv5`` around each call of a conv5_x head, ``heads.pool``
+around each image's pooling from a feature pyramid, and ``trunk.fpn``
+around a pyramid's top-down pathway). ``search`` is one
 an image; ``heads`` one a call in the detect entries (``rows`` the call's
 boxes) and one an image in ``fused_detect``.
 
@@ -305,10 +308,18 @@ def select_class_boxes(scores: torch.Tensor, pred: torch.Tensor) -> torch.Tensor
     return boxes.gather(-2, cls[..., None, None].expand(cls.shape + (1, 4))).squeeze(-2)
 
 
+def _image_features(feats, i: int):
+    """Image ``i``'s features of a call's: of a feature pyramid (a tuple of
+    level maps ``[B, h_l, w_l, C]``), its map at every level; else
+    ``feats[i]``."""
+    return tuple(level[i] for level in feats) if isinstance(feats, tuple) else feats[i]
+
+
 def _detect_heads(model: FRCNN, cfg: Config, feats, boxes, rois, scales, raw_hw):
-    """The detection head over a call's features ``feats [B, ...]``. ``boxes
-    [B, R, 4]`` in original coordinates, ``rois`` the same boxes on the
-    scaled images, ``scales [B]`` the images' scales. ``model.roi_forward``
+    """The detection head over a call's features ``feats [B, ...]``, or a
+    pyramid's levels (each image handed its own: :func:`_image_features`).
+    ``boxes [B, R, 4]`` in original coordinates, ``rois`` the same boxes on
+    the scaled images, ``scales [B]`` the images' scales. ``model.roi_forward``
     runs per image; the softmax, the decode against ``boxes`` and the clip to
     ``raw_hw`` run once over all B x R rows, with no copy between the host and
     the card, so the host queues every image's head while the card is still
@@ -319,7 +330,7 @@ def _detect_heads(model: FRCNN, cfg: Config, feats, boxes, rois, scales, raw_hw)
     off = cfg.BOX_OFFSET
     n_iter = max(int(cfg.TEST.BBOX_ITER), 1)
     for it in range(n_iter):
-        outs = [model.roi_forward(feat, r) for feat, r in zip(feats, rois)]
+        outs = [model.roi_forward(_image_features(feats, i), r) for i, r in enumerate(rois)]
         scores = torch.softmax(torch.stack([o["cls_score"] for o in outs]), dim=-1)
         deltas = torch.stack([o["bbox_pred"] for o in outs])
         pred = clip_boxes(bbox_transform_inv(boxes, deltas, off), raw_hw, off)
@@ -359,7 +370,7 @@ def _detect_core_pyramid(model: FRCNN, cfg: Config, image, boxes, canvases):
         blob, im_scale, _ = preprocess_image(
             image, cfg.PIXEL_MEANS, target, cfg.TEST.MAX_SIZE, canvas[0], canvas[1],
             dtype=_blob_dtype(cfg))
-        feat = _maybe_quantize_feat(cfg, model.features(blob[None]))[0]
+        feat = _image_features(_maybe_quantize_feat(cfg, model.features(blob[None])), 0)
         pooled_s.append(model.roi_pool_only(feat, boxes * im_scale))
         errs.append((areas * im_scale ** 2 - 224.0 ** 2).abs())
     assign = torch.stack(errs).argmin(dim=0)

@@ -103,7 +103,7 @@ class TestConfig:
 class ModelConfig:
     """Network architecture (``cfg.MODEL``)."""
 
-    # vgg16 | resnet50 | resnet101_c4 | caffenet | vgg_cnn_m_1024 | smallnet
+    # vgg16 | resnet50 | resnet101_c4 | resnet101_fpn | caffenet | vgg_cnn_m_1024 | smallnet
     BACKBONE: str = "vgg16"
     # Channel-width multiplier (1.0 = the published architecture).
     WIDTH: float = 1.0

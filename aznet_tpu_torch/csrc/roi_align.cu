@@ -45,6 +45,16 @@
 // two blocks at small R. C that is not a multiple of 8 (or a buffer that is
 // not 16-byte aligned) takes the same kernel with element-wise, masked loads
 // and stores.
+//
+// A feature pyramid (FPN, Lin et al. arXiv:1612.03144) pools each roi from
+// its own level: roi_align_levels_kernel takes up to four maps, finest
+// first, and each block first finds its roi's level from the roi alone, by
+// comparisons of its +1 area with the least area of each coarser level
+// (FPN's eq. 1, k = floor(4 + log2(sqrt(wh) / 224)), as thresholds), then
+// pools it from that map with that map's scale and contraction order, the
+// same device code as roi_align_kernel's (pool_roi). So a whole image's rois
+// are one launch whatever their split over the levels, which depends on the
+// data and is uneven, and nothing waits for a count on the host.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -56,6 +66,7 @@ constexpr int kMaxPool = 16;         // bins per axis the tap tables hold
 constexpr int kSlots = 4;            // tap slots per bin
 constexpr int kVec = 8;              // channels per thread
 constexpr int kMaxSlabThreads = 32;  // threads per bin of the first axis
+constexpr int kMaxLevels = 4;        // maps of a pyramid the levels kernel takes
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -150,24 +161,23 @@ __device__ __forceinline__ void store8(T* p, int n, const float* v) {
   }
 }
 
-// Grid: (R, slabs * groups); block: pool * slab_threads threads. Block (r,
-// slab * groups + grp) covers roi r, channels [slab * slab_threads * 8, +
-// slab_threads * 8) and second-axis bins [grp * per, grp * per + per);
-// thread t takes first-axis bin t / slab_threads and the 8 channels of lane
-// t % slab_threads. Axis 0 is y (H), axis 1 is x (W).
+// One roi of a block of the grid (R, slabs * groups), block pool *
+// slab_threads threads: block (r, slab * groups + grp) covers roi r (`roi`,
+// its four corners), channels [slab * slab_threads * 8, + slab_threads * 8)
+// and second-axis bins [grp * per, grp * per + per) of the map `feat`
+// [H, W, C]; thread t takes first-axis bin t / slab_threads and the 8
+// channels of lane t % slab_threads. Axis 0 is y (H), axis 1 is x (W).
 template <typename T, bool kVecIO>
-__global__ void __launch_bounds__(kMaxPool * kMaxSlabThreads)
-roi_align_kernel(const T* __restrict__ feat, const float* __restrict__ rois, int H, int W, int C,
-                 float scale, int pool, int w_first, int slab_threads, int per, int groups,
-                 T* __restrict__ out) {
+__device__ __forceinline__ void pool_roi(const T* __restrict__ feat, const float* __restrict__ roi,
+                                         int r, int H, int W, int C, float scale, int pool,
+                                         int w_first, int slab_threads, int per, int groups,
+                                         T* __restrict__ out) {
   __shared__ int s_cell[2][kMaxPool][kSlots];
   __shared__ float s_w[2][kMaxPool][kSlots];
 
-  const int r = blockIdx.x;
   for (int e = threadIdx.x; e < 2 * pool; e += blockDim.x) {
     const int axis = e / pool;
     const int bin = e - axis * pool;
-    const float* roi = rois + (size_t)r * 4;
     const float lo = __fmul_rn(roi[1 - axis], scale);  // y1 or x1
     const float hi = __fmul_rn(roi[3 - axis], scale);  // y2 or x2
     bin_taps<T>(lo, fmaxf(__fsub_rn(hi, lo), 1.0f), axis ? W : H, pool, bin, s_cell[axis][bin],
@@ -243,6 +253,63 @@ roi_align_kernel(const T* __restrict__ feat, const float* __restrict__ rois, int
   }
 }
 
+// Grid: (R, slabs * groups); block: pool * slab_threads threads; roi r on
+// the one map (pool_roi).
+template <typename T, bool kVecIO>
+__global__ void __launch_bounds__(kMaxPool * kMaxSlabThreads)
+roi_align_kernel(const T* __restrict__ feat, const float* __restrict__ rois, int H, int W, int C,
+                 float scale, int pool, int w_first, int slab_threads, int per, int groups,
+                 T* __restrict__ out) {
+  const int r = blockIdx.x;
+  pool_roi<T, kVecIO>(feat, rois + (size_t)r * 4, r, H, W, C, scale, pool, w_first,
+                      slab_threads, per, groups, out);
+}
+
+// The levels of a feature pyramid, finest first, and where a box goes: level
+// l > 0 takes the boxes whose +1 area (x2 - x1 + 1)(y2 - y1 + 1) is at least
+// min_area[l], so a box's level is the count of those it reaches (FPN's eq. 1
+// as comparisons of the area against the squared thresholds, each step an
+// f32 operation rounded to nearest, as the plain version's).
+struct LevelMaps {
+  const void* feat[kMaxLevels];
+  int h[kMaxLevels], w[kMaxLevels], w_first[kMaxLevels];
+  float scale[kMaxLevels], min_area[kMaxLevels];
+  int n;
+};
+
+// Grid and block as roi_align_kernel's; each block finds its roi's level and
+// pools it from that level's map, into row r of out.
+template <typename T, bool kVecIO>
+__global__ void __launch_bounds__(kMaxPool * kMaxSlabThreads)
+roi_align_levels_kernel(LevelMaps maps, const float* __restrict__ rois, int C, int pool,
+                        int slab_threads, int per, int groups, T* __restrict__ out) {
+  const int r = blockIdx.x;
+  const float* roi = rois + (size_t)r * 4;
+  const float area = __fmul_rn(__fadd_rn(__fsub_rn(roi[2], roi[0]), 1.0f),
+                               __fadd_rn(__fsub_rn(roi[3], roi[1]), 1.0f));
+  // Every index below is a constant, so the maps stay in the parameter
+  // space (an index known only at run time copies them to the stack).
+  int l = 0;
+#pragma unroll
+  for (int k = 1; k < kMaxLevels; ++k)
+    if (k < maps.n) l += area >= maps.min_area[k];
+  const void* feat = maps.feat[0];
+  int h = maps.h[0], w = maps.w[0], w_first = maps.w_first[0];
+  float scale = maps.scale[0];
+#pragma unroll
+  for (int k = 1; k < kMaxLevels; ++k) {
+    if (k == l) {
+      feat = maps.feat[k];
+      h = maps.h[k];
+      w = maps.w[k];
+      w_first = maps.w_first[k];
+      scale = maps.scale[k];
+    }
+  }
+  pool_roi<T, kVecIO>(static_cast<const T*>(feat), roi, r, h, w, C, scale, pool, w_first,
+                      slab_threads, per, groups, out);
+}
+
 template <typename T>
 int launch(const void* feat, const void* rois, int R, int H, int W, int C, float scale, int pool,
            int w_first, int slab_threads, int per, void* out, void* stream) {
@@ -258,6 +325,27 @@ int launch(const void* feat, const void* rois, int R, int H, int W, int C, float
   kernel<<<grid, pool * slab_threads, 0, (cudaStream_t)stream>>>(
       (const T*)feat, (const float*)rois, H, W, C, scale, pool, w_first, slab_threads, per,
       groups, (T*)out);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_levels(const LevelMaps& maps, const void* rois, int R, int C, int pool,
+                  int slab_threads, int per, void* out, void* stream) {
+  if (R <= 0 || C <= 0 || maps.n < 1 || maps.n > kMaxLevels || pool < 1 || pool > kMaxPool ||
+      slab_threads < 1 || slab_threads > kMaxSlabThreads || per < 1 || per > pool)
+    return (int)cudaErrorInvalidValue;
+  bool vec = C % kVec == 0 && (uintptr_t)out % 16 == 0;
+  for (int l = 0; l < maps.n; ++l) {
+    if (maps.h[l] <= 0 || maps.w[l] <= 0) return (int)cudaErrorInvalidValue;
+    vec = vec && (uintptr_t)maps.feat[l] % 16 == 0;
+  }
+  const int groups = (pool + per - 1) / per;
+  const long long slabs = ((long long)C + slab_threads * kVec - 1) / (slab_threads * kVec);
+  if (slabs * groups > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid(R, (unsigned)(slabs * groups));
+  auto kernel = vec ? roi_align_levels_kernel<T, true> : roi_align_levels_kernel<T, false>;
+  kernel<<<grid, pool * slab_threads, 0, (cudaStream_t)stream>>>(
+      maps, (const float*)rois, C, pool, slab_threads, per, groups, (T*)out);
   return (int)cudaGetLastError();
 }
 
@@ -277,6 +365,32 @@ int aznet_roi_align(const void* feat, const void* rois, int R, int H, int W, int
                                  out, stream);
   return launch<float>(feat, rois, R, H, W, C, scale, pool, w_first, slab_threads, per, out,
                        stream);
+}
+
+// The pyramid's n levels (1..4), finest first: feats[l] [h[l], w[l], C] (bf16
+// when is_bf16, else f32, all of one dtype), each with its scale (1 /
+// stride), its contraction order and, for l > 0, the least +1 area of its
+// boxes; rois [R, 4] f32 -> out [R, pool, pool, C], each roi pooled from its
+// own level, in one launch. The launch plan as aznet_roi_align's. Returns
+// the cudaError_t of the launch.
+int aznet_roi_align_levels(const void* const* feats, const int* h, const int* w,
+                           const float* scales, const int* w_first, const float* min_area,
+                           int n_levels, const void* rois, int R, int C, int pool, int is_bf16,
+                           int slab_threads, int per, void* out, void* stream) {
+  if (n_levels < 1 || n_levels > kMaxLevels) return (int)cudaErrorInvalidValue;
+  LevelMaps maps = {};
+  maps.n = n_levels;
+  for (int l = 0; l < n_levels; ++l) {
+    maps.feat[l] = feats[l];
+    maps.h[l] = h[l];
+    maps.w[l] = w[l];
+    maps.w_first[l] = w_first[l];
+    maps.scale[l] = scales[l];
+    maps.min_area[l] = min_area[l];
+  }
+  if (is_bf16)
+    return launch_levels<__nv_bfloat16>(maps, rois, R, C, pool, slab_threads, per, out, stream);
+  return launch_levels<float>(maps, rois, R, C, pool, slab_threads, per, out, stream);
 }
 
 }  // extern "C"

@@ -16,6 +16,7 @@ import torch
 from torch.utils._pytree import tree_leaves, tree_map
 
 from aznet_tpu_torch.ops import conv1_fused, conv_int8, frozen_bn, iou, nms, roi_pool
+from aznet_tpu_torch.ops import cuda as cuda_ops
 from aznet_tpu_torch.ops.cuda import (conv1_kernel, conv_int8_kernel, frozen_bn_kernel,
                                       iou_kernel, launch_counts, nms_kernel, roi_align_kernel,
                                       set_launch_counts)
@@ -73,6 +74,8 @@ KERNELS = {
     "search_select": Kernel(propose, "select_cuda", propose.select_plain, "search_select"),
     "frozen_bn": Kernel(frozen_bn_kernel, "frozen_bn_relu_cuda",
                         frozen_bn.frozen_bn_relu_reference, "frozen_bn"),
+    "roi_align_levels": Kernel(roi_align_kernel, "roi_align_levels_cuda",
+                               roi_pool.roi_align_levels_reference, "roi_align_levels"),
 }
 
 
@@ -97,7 +100,8 @@ def recording(names=None, first_only: bool = False, records: list | None = None)
     """While active, each call of the card entry of a row in ``names``
     (default: every row) appends a :class:`Record` to ``records`` (a new
     list if None), which this yields; with ``first_only``, only each entry's
-    first call (and the calls :attr:`Kernel.within` keeps)."""
+    first call (and the calls :attr:`Kernel.within` keeps). Meanwhile no
+    CUDA graph is captured or replayed (``utils/cuda_graph.py``)."""
     records = [] if records is None else records
     real = {n: KERNELS[n].card for n in (KERNELS if names is None else names)}
     calls = dict.fromkeys(KERNELS, 0)
@@ -116,9 +120,11 @@ def recording(names=None, first_only: bool = False, records: list | None = None)
 
     for name, entry in real.items():
         setattr(KERNELS[name].owner, KERNELS[name].attr, wrap(name, KERNELS[name], entry))
+    cuda_ops.RECORDING += 1
     try:
         yield records
     finally:
+        cuda_ops.RECORDING -= 1
         for name, entry in real.items():
             setattr(KERNELS[name].owner, KERNELS[name].attr, entry)
 

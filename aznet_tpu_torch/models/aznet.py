@@ -19,19 +19,29 @@ from aznet_tpu_torch.models.backbones import BACKBONES, compute_dtype, get_backb
 from aznet_tpu_torch.models.heads import AZHead
 from aznet_tpu_torch.models.resnet import FrozenBN, ResNet50Trunk
 from aznet_tpu_torch.models.vgg import VGG16Trunk
-from aznet_tpu_torch.ops.roi_pool import POOLING_MODES, roi_pool
+from aznet_tpu_torch.ops.roi_pool import (POOLING_MODES, PYRAMID_MODES, roi_pool,
+                                          roi_pool_levels)
+from aznet_tpu_torch.utils import profiling
 
 
-def check_supported(mc: ModelConfig) -> None:
+def check_supported(mc: ModelConfig, search_head: bool = False) -> None:
     """Raise on MODEL settings this port does not implement; warn once for
     ``CONV1_S2D`` (VGG-16) and ``STEM_S2D`` (the ResNets), whose
     space-to-depth rewrites are term-identical to the plain convs.
+    ``search_head``: the net is AZ-Net's.
 
     The backbone factory raises on int8 for a trunk other than vgg16 and
     resnet50, as the reference's; the VGG trunk checks its own int8
     settings (``models/vgg.py``). A conv5_x head (a trunk class's
     ``conv5_head``) has no int8 form: ``COMPUTE_DTYPE='int8'`` and
-    ``INT8_HEAD_SCALES`` raise here, naming the backbone."""
+    ``INT8_HEAD_SCALES`` raise here, naming the backbone. A feature pyramid
+    (a trunk class's ``level_strides``) runs only the Fast R-CNN head, in
+    float, pooled by ``'align_pallas'`` or ``'align'``: AZ-Net's search head
+    (so the fused detect too), ``COMPUTE_DTYPE='int8'``,
+    ``INT8_HEAD_SCALES``, ``INT8_ROI`` and any other pooling raise here,
+    naming the backbone; its trunk refuses a mesh split over ``model``
+    (``models/fpn.py``) and the train step the pyramid
+    (``train/train_az.py::head_outputs``)."""
     if mc.COMPUTE_DTYPE not in ("float32", "bfloat16", "int8"):
         raise NotImplementedError(f"COMPUTE_DTYPE={mc.COMPUTE_DTYPE!r} is not ported")
     if mc.POOLING_MODE not in POOLING_MODES:
@@ -41,6 +51,16 @@ def check_supported(mc: ModelConfig) -> None:
                                                  or mc.INT8_HEAD_SCALES):
         raise NotImplementedError(f"backbone {mc.BACKBONE!r}: its conv5_x head has no int8 form "
                                   "(COMPUTE_DTYPE='int8', INT8_HEAD_SCALES)")
+    if getattr(trunk, "level_strides", None):
+        for what, refused in (("AZ-Net's search head", search_head),
+                              ("int8 form (COMPUTE_DTYPE='int8')", mc.COMPUTE_DTYPE == "int8"),
+                              ("int8 form (INT8_HEAD_SCALES)", bool(mc.INT8_HEAD_SCALES)),
+                              ("int8 form (INT8_ROI)", mc.INT8_ROI),
+                              (f"POOLING_MODE {mc.POOLING_MODE!r}",
+                               mc.POOLING_MODE not in PYRAMID_MODES)):
+            if refused:
+                raise NotImplementedError(f"backbone {mc.BACKBONE!r}: its feature pyramid has "
+                                          f"no {what}")
     if mc.CONV1_S2D and mc.BACKBONE == "vgg16":
         warnings.warn("MODEL.CONV1_S2D is ignored: the plain conv1_1 computes "
                       "the same function", stacklevel=3)
@@ -52,15 +72,20 @@ def check_supported(mc: ModelConfig) -> None:
 class RoiNet(nn.Module):
     """Trunk + ROI pooling + a head (what ``AZNet`` and ``FRCNN`` share).
 
-    - ``features(images [B, H, W, 3])`` -> ``[B, H/16, W/16, C]``
-    - ``roi_forward(feat [h, w, C], rois [R, 4])`` -> the head's outputs dict
+    - ``features(images [B, H, W, 3])`` -> ``[B, H/16, W/16, C]``, or a
+      feature pyramid's levels ``[B, h_l, w_l, C]``, finest first (a trunk
+      with ``level_strides``)
+    - ``roi_forward(feat, rois [R, 4])`` -> the head's outputs dict, ``feat``
+      one image's map ``[h, w, C]`` or its levels
 
     ``train=True`` (with a ``torch.Generator`` for the dropout masks) selects
     the heads' training branch."""
 
+    search_head = False  # AZ-Net's
+
     def __init__(self, model_cfg: ModelConfig):
         super().__init__()
-        check_supported(model_cfg)
+        check_supported(model_cfg, self.search_head)
         self.model_cfg = model_cfg
         self.trunk = get_backbone(model_cfg)
         # The heads quantize independently of the trunk (the reference's rule):
@@ -91,9 +116,17 @@ class RoiNet(nn.Module):
         if self.head.fc.int8_scales:
             self.head.fc.prepare_int8()
 
-    def roi_pool_only(self, feat: torch.Tensor, rois: torch.Tensor) -> torch.Tensor:
+    def roi_pool_only(self, feat, rois: torch.Tensor) -> torch.Tensor:
+        """``[R, P, P, C]`` pools of ``rois`` on one image's features: its map
+        at ``1 / FEAT_STRIDE``, or, for a sequence of levels, each roi from
+        its own level at the trunk's ``level_strides`` (a ``heads.pool``
+        span, ``rows`` the rois)."""
         mc = self.model_cfg
-        return roi_pool(feat, rois, 1.0 / mc.FEAT_STRIDE, mc.POOL_SIZE, mode=mc.POOLING_MODE)
+        if isinstance(feat, torch.Tensor):
+            return roi_pool(feat, rois, 1.0 / mc.FEAT_STRIDE, mc.POOL_SIZE, mode=mc.POOLING_MODE)
+        with profiling.span("heads.pool", rows=rois.shape[0]):
+            return roi_pool_levels(feat, rois, self.trunk.level_strides, mc.POOL_SIZE,
+                                   mode=mc.POOLING_MODE)
 
     def head_forward(self, pooled: torch.Tensor, train: bool = False,
                      generator: torch.Generator | None = None) -> dict:
@@ -114,6 +147,8 @@ class RoiNet(nn.Module):
 class AZNet(RoiNet):
     """Zoom/adjacency proposal network: ``roi_forward`` returns ``zoom [R]``,
     ``adj_score [R, K]`` and ``adj_delta [R, K, 4]``."""
+
+    search_head = True
 
     def __init__(self, model_cfg: ModelConfig = ModelConfig()):
         super().__init__(model_cfg)

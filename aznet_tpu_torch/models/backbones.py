@@ -6,6 +6,7 @@ from __future__ import annotations
 import torch
 
 from aznet_tpu_torch.config import ModelConfig
+from aznet_tpu_torch.models.fpn import ResNet101FPNTrunk
 from aznet_tpu_torch.models.resnet import ResNet50Trunk, ResNet101Trunk
 from aznet_tpu_torch.models.small import CaffeNetTrunk, SmallTrunk, VGGCNNM1024Trunk
 from aznet_tpu_torch.models.vgg import VGG16Trunk
@@ -16,6 +17,9 @@ BACKBONES = {
     # ResNet-101 to conv4_x; its heads run conv5_x on each pooled roi (the
     # C4 detector; MODEL.POOL_SIZE 14).
     "resnet101_c4": ResNet101Trunk,
+    # ResNet-101 and an FPN: a tuple of four levels, P2 to P5, each box pooled
+    # from its own (Faster R-CNN R-101-FPN; MODEL.POOL_SIZE 7, FC_DIM 1024).
+    "resnet101_fpn": ResNet101FPNTrunk,
     "smallnet": SmallTrunk,
     # The reference fork's smaller nets: pair them with MODEL.POOL_SIZE 6,
     # vgg_cnn_m_1024 also with MODEL.FC7_DIM 1024.
@@ -28,7 +32,7 @@ def get_backbone(model_cfg: ModelConfig):
     """The trunk module for a MODEL config, computing in
     :func:`compute_dtype`. Int8 (``COMPUTE_DTYPE='int8'``) exists for vgg16
     and resnet50 only, as in the reference (``models/aznet.py::check_supported``
-    refuses it for resnet101_c4 first); ``FUSE_CONV1`` reaches the VGG-16
+    refuses it for resnet101_c4 and resnet101_fpn first); ``FUSE_CONV1`` reaches the VGG-16
     trunk's float path."""
     try:
         cls = BACKBONES[model_cfg.BACKBONE]

@@ -24,7 +24,14 @@ COUNTERS = {"nms": (nms_kernel, "LAUNCHES"), "roi_align": (roi_align_kernel, "LA
             "strip": (conv_int8_kernel, "LAUNCHES_STRIP"), "iou": (iou_kernel, "LAUNCHES"),
             "search_level": (search_level_kernel, "LAUNCHES"),
             "search_select": (search_select_kernel, "LAUNCHES"),
-            "frozen_bn": (frozen_bn_kernel, "LAUNCHES")}
+            "frozen_bn": (frozen_bn_kernel, "LAUNCHES"),
+            "roi_align_levels": (roi_align_kernel, "LAUNCHES_LEVELS")}
+
+
+# Active ``kernels.recording`` contexts: while any is, a forward that a CUDA
+# graph would replay runs as it is (``utils/cuda_graph.py``), so that each
+# launch passes through its wrapper.
+RECORDING = 0
 
 
 def launch_counts() -> dict[str, int]:

@@ -6,6 +6,12 @@
   kernel on the card and its plain version on the CPU;
 - ``'caffe_max'``: Caffe's ROI max pooling (``roi_pool_caffe``).
 
+A feature pyramid (``roi_pool_levels``; no counterpart in the JAX package)
+pools each roi from its own level, chosen by FPN's eq. 1
+(:func:`box_levels`): in ``'align_pallas'`` mode by the fused numerics on
+that level's map (``roi_align_levels``: one CUDA launch an image on the
+card), in ``'align'`` mode by the einsums on each level's rois.
+
 Pooled features are NHWC ``[R, P, P, C]``, as in the reference, so fc6
 consumes them in the reference's flatten order with no permutation.
 """
@@ -243,6 +249,95 @@ def roi_align_fused(feat, rois, spatial_scale: float, pool_size: int = 7):
     return roi_align_fused_reference(feat, rois, spatial_scale, pool_size, wf)
 
 
+# FPN's eq. 1 (Lin et al., arXiv:1612.03144): a box of side 224 on the
+# scaled image pools from the stride-16 level (P4), each doubling of the side
+# one level coarser.
+CANONICAL_SIDE, CANONICAL_STRIDE = 224.0, 16
+
+
+def level_min_areas(strides) -> tuple:
+    """The least +1 area ``(w + 1)(h + 1)`` of a box on each level after the
+    first, for a pyramid of consecutive power-of-two ``strides``, finest
+    first: ``(224 * s / 16)**2``, exact in float32 (112**2, 224**2, 448**2
+    for strides 8, 16, 32)."""
+    return tuple((CANONICAL_SIDE * s / CANONICAL_STRIDE) ** 2 for s in strides[1:])
+
+
+def box_levels(rois, strides) -> torch.Tensor:
+    """Each roi's level index (0 for the finest) by FPN's eq. 1, ``k =
+    floor(4 + log2(sqrt(wh) / 224))`` clamped to the pyramid, with ``w`` and
+    ``h`` the +1 sides on the scaled image (Detectron's). In float32 it is a
+    count of the :func:`level_min_areas` that the +1 area ``(x2 - x1 + 1) *
+    (y2 - y1 + 1)`` reaches, each step rounded once, so the card's kernel
+    chooses the same levels bit for bit. It differs from eq. 1 computed with
+    Detectron's ``log2(... + 1e-6)`` only for a side within 2.3e-4 px of a
+    boundary."""
+    return _level_index(rois.float(), level_min_areas(strides))
+
+
+def _level_index(rois, min_areas) -> torch.Tensor:
+    """The count of ``min_areas`` each roi's +1 area reaches."""
+    area = (rois[:, 2] - rois[:, 0] + 1.0) * (rois[:, 3] - rois[:, 1] + 1.0)
+    level = torch.zeros(rois.shape[0], dtype=torch.long, device=rois.device)
+    for least in min_areas:
+        level += area >= least
+    return level
+
+
+def roi_align_levels_reference(levels, rois, strides, pool_size: int, w_first, min_areas):
+    """Plain PyTorch version of the levels kernel
+    (``ops/cuda/roi_align_kernel.py::roi_align_levels_cuda``, same arguments): each roi's
+    level counted from ``min_areas`` as :func:`box_levels` counts it, then
+    :func:`roi_align_fused_reference` of the rois of each level on its map,
+    at ``1 / stride`` and in its order ``w_first``; ``[R, P, P, C]`` in the
+    rois' order. Each roi's pool depends on that roi alone, so the split
+    changes no bit."""
+    return _pool_each_level(
+        levels, rois, _level_index(rois, min_areas), pool_size,
+        lambda k, r: roi_align_fused_reference(levels[k], r, 1.0 / strides[k], pool_size,
+                                               w_first[k]))
+
+
+def _pool_each_level(levels, rois, level, pool_size: int, pool):
+    """``[R, P, P, C]``: ``pool(k, rois of level k)`` for each level ``k``
+    that has rois, each row put back at its roi's place (by ``index_copy``,
+    which autograd follows)."""
+    out = levels[0].new_zeros((rois.shape[0], pool_size, pool_size, levels[0].shape[2]))
+    for k in range(len(levels)):
+        idx = (level == k).nonzero()[:, 0]
+        if idx.numel():
+            out = out.index_copy(0, idx, pool(k, rois[idx]))
+    return out
+
+
+def roi_align_levels(levels, rois, strides, pool_size: int = 7):
+    """A pyramid's fused ROI align: ``levels`` the maps ``[h_l, w_l, C]``
+    (bf16 or f32), finest first, at ``strides`` (consecutive powers of two),
+    ``rois [R, 4]`` on the scaled image -> ``[R, P, P, C]``, each roi pooled
+    from its level (:func:`box_levels`) as :func:`roi_align_fused` pools it
+    from one map: scale ``1 / stride``, the order :func:`fused_w_first` of
+    that level's map. A CUDA tensor launches the levels kernel once, with no
+    wait for the host; a CPU tensor takes
+    :func:`roi_align_levels_reference`."""
+    levels = tuple(levels)
+    if len(levels) != len(strides):
+        raise ValueError(f"{len(levels)} levels and {len(strides)} strides")
+    for feat in levels:
+        if feat.dtype not in (torch.bfloat16, torch.float32):
+            raise TypeError(f"the fused ROI align takes bf16 or f32 features, got {feat.dtype}")
+    w_first = tuple(fused_w_first(*feat.shape, feat.element_size(), pool_size)
+                    for feat in levels)
+    min_areas = level_min_areas(strides)
+    if rois.dtype != torch.float32:
+        rois = rois.float()
+    if levels[0].is_cuda:
+        return roi_align_kernel.roi_align_levels_cuda(levels, rois, strides, pool_size,
+                                                      w_first, min_areas)
+    if levels[0].device.type != "cpu":
+        raise ValueError(f"no fused ROI align for device {levels[0].device}")
+    return roi_align_levels_reference(levels, rois, strides, pool_size, w_first, min_areas)
+
+
 def roi_pool_caffe(feat, rois, spatial_scale: float, pool_size: int = 7):
     """``'caffe_max'`` mode, Caffe ROIPooling: ``feat [H, W, C]``, ``rois
     [R, 4]`` image coordinates -> ``[R, P, P, C]``. Roi corners round to the
@@ -304,3 +399,22 @@ def roi_pool(feat, rois, spatial_scale: float, pool_size: int = 7,
     if mode == "caffe_max":
         return roi_pool_caffe(feat, rois, spatial_scale, pool_size)
     return roi_align(feat, rois, spatial_scale, pool_size)
+
+
+PYRAMID_MODES = ("align", "align_pallas")
+
+
+def roi_pool_levels(levels, rois, strides, pool_size: int = 7, mode: str = "align_pallas"):
+    """One image's feature pyramid (``levels`` ``[h_l, w_l, C]``, finest first,
+    at ``strides``) and ``rois [R, 4]`` -> ``[R, P, P, C]``, each roi pooled
+    from its own level (:func:`box_levels`). ``'align_pallas'``:
+    :func:`roi_align_levels`; ``'align'`` (differentiable): each level's
+    rois by :func:`roi_align` on that level. Other modes raise."""
+    if mode not in PYRAMID_MODES:
+        raise ValueError(f"POOLING_MODE {mode!r} has no form over a feature pyramid; "
+                         f"options: {PYRAMID_MODES}")
+    if mode == "align_pallas":
+        refuse_grad("POOLING_MODE='align_pallas' (the fused ROI-align kernel)", *levels)
+        return roi_align_levels(levels, rois, strides, pool_size)
+    return _pool_each_level(levels, rois, box_levels(rois, strides), pool_size,
+                            lambda k, r: roi_align(levels[k], r, 1.0 / strides[k], pool_size))

@@ -213,10 +213,14 @@ def barrier(mesh: Mesh) -> None:
 
 
 def shard_module(model: torch.nn.Module, mesh: Mesh) -> dict:
-    """Splits ``model``'s fc6/fc7 parameters over ``model`` in place (each
-    rank keeps its rows, ``narrow(0, ...)``), hands ``mesh`` to every
-    submodule that has a ``mesh`` attribute (the fc stacks, which then run
-    the collectives), and returns the placements."""
+    """Hands ``mesh`` to every submodule that has a ``mesh`` attribute (the
+    fc stacks, which then run the collectives; a module that cannot run on
+    it raises there, before any parameter is split), splits ``model``'s
+    fc6/fc7 parameters over ``model`` in place (each rank keeps its rows,
+    ``narrow(0, ...)``), and returns the placements."""
+    for mod in model.modules():
+        if hasattr(mod, "mesh"):
+            mod.mesh = mesh
     placements = param_sharding(mesh, dict(model.named_parameters()))
     with torch.no_grad():
         for name, pl in placements.items():
@@ -224,9 +228,6 @@ def shard_module(model: torch.nn.Module, mesh: Mesh) -> dict:
                 mod_name, attr = name.rsplit(".", 1)
                 mod = model.get_submodule(mod_name)
                 setattr(mod, attr, torch.nn.Parameter(local_rows(getattr(mod, attr), mesh)))
-    for mod in model.modules():
-        if hasattr(mod, "mesh"):
-            mod.mesh = mesh
     return placements
 
 

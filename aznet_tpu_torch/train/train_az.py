@@ -121,6 +121,9 @@ def head_outputs(model: RoiNet, batch: dict, generator=None, remat_trunk: bool =
     """The trunk on ``images``, then the head on every image's rois as one
     batch (training branch iff ``generator`` is given); outputs ``[B, R,
     ...]``. ``remat_trunk``: ``RoiNet.features``' ``remat``."""
+    if getattr(model.trunk, "level_strides", None):
+        raise NotImplementedError(f"backbone {model.model_cfg.BACKBONE!r}: its feature pyramid "
+                                  "has no train step")
     images, rois = batch["images"], batch["rois"]
     feats = model.features(images, remat=remat_trunk)
     b, r = rois.shape[:2]

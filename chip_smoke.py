@@ -103,7 +103,17 @@
    before and read just after (163 frozen BatchNorm launches: the trunk's
    91, 9 a head call; 8 ROI-align launches at pool 14 on the 38x50x1024
    map, nothing else), every launch held against its plain version, the
-   detections checked; ms a call.
+   detections checked; ms a call. Phase 8c: the R-101-FPN detector
+   (``resnet101_fpn``, the ``resnet101_fpn.detect_coco_b4`` cell's
+   settings: bf16, ROI align to 7 over P2-P5, fc6 and fc7 of 1024, 81
+   classes, seeded weights): one ``make_detect_batch`` call of 4 raw
+   480x640 images with 1000 boxes each on every level on the 800x1088
+   canvas, the counts set to 0 just before and read just after (100 frozen
+   BatchNorm launches, 4 levels launches, nothing else), every launch held
+   against its plain version, the detections checked; ms a call; then the
+   levels kernel alone on the call's first image beside its plain version,
+   the einsum ``'align'`` a level and its bound summed over the levels (the
+   ``kernels`` line's ``roi_align_levels`` record).
 10. Phase 9: CaffeNet and VGG_CNN_M_1024 from their config files, bf16,
    ``'align_pallas'`` (the ROI-align kernel at P=6), two raw 375x500 images
    on a 608x800 canvas, as phase 8; each on the card against the CPU at a
@@ -356,6 +366,7 @@ SEARCH_SELECT_PLAIN = ("aznet_tpu_torch/search/propose.py::seed_plain",
                        "aznet_tpu_torch/search/propose.py::select_plain")
 FROZEN_BN_SOURCE = "aznet_tpu_torch/csrc/frozen_bn.cu"
 FROZEN_BN_PLAIN = "aznet_tpu_torch/ops/frozen_bn.py::frozen_bn_relu_reference"
+ROI_LEVELS_PLAIN = "aznet_tpu_torch/ops/roi_pool.py::roi_align_levels_reference"
 # (R, next_cap) of the benchmark configurations' search levels.
 SEARCH_LEVEL_STEPS = ((8, 32), (32, 64), (32, 128), (64, 64), (128, 128))
 BATCH = 2
@@ -1174,16 +1185,17 @@ def int8_conv_bound(entry):
     return ms, "operations"
 
 
-def roi_bound(feat, rois, w_first):
+def roi_bound(feat, rois, w_first, scale=1 / 16.0):
     """The feature cells the rois' taps touch, the rois and the output, each
     moved once; two f32 operations per channel for every tap of the two
-    contractions that this run's rois have (zero-weight slots excluded)."""
+    contractions that this run's rois have (zero-weight slots excluded); a
+    pool of 7 at ``scale``."""
     import torch
 
     from aznet_tpu_torch.ops import roi_pool as troi
 
     h, w, c = feat.shape
-    scaled = rois.float() * (1.0 / 16)
+    scaled = rois.float() * scale
     cells, live = [], []
     for lo, hi, extent in ((1, 3, h), (0, 2, w)):
         cl, wt = troi.fused_taps(scaled[:, lo], (scaled[:, hi] - scaled[:, lo]).clamp(min=1.0),
@@ -2258,6 +2270,10 @@ def phase8_resnet(dev):
 
 
 C4_BATCH, C4_BOXES = 8, 300  # resnet101_c4.detect_given_b8: 8 images a call, 300 boxes each
+# resnet101_fpn.detect_coco_b4: 4 raw 480x640 images a call on the 800x1088
+# canvas, 1000 boxes each, pooled from P2-P5.
+FPN_BATCH, FPN_BOXES, FPN_RAW_HW, FPN_CANVAS = 4, 1000, (480, 640), (800, 1088)
+FPN_LEVELS = tuple((FPN_CANVAS[0] // s, FPN_CANVAS[1] // s, 256) for s in (4, 8, 16, 32))
 
 
 def c4_config():
@@ -2332,6 +2348,135 @@ def phase8b_c4_detect(dev):
     del net
     torch.cuda.empty_cache()
     return {"launches": launched, "err": errs, "ips": ips}
+
+
+def fpn_config():
+    """The R-101-FPN detector at ``benchmark/configs/resnet101_fpn.json``'s
+    settings: bf16 (``Config()``'s), ROI align to 7 over P2-P5 through the
+    levels kernel, fc6 and fc7 of 1024, 81 classes, the 800 px scale capped
+    at 1333."""
+    from aznet_tpu_torch.config import Config, cfg_from_dict
+
+    return cfg_from_dict(Config(), {
+        "MODEL": {"BACKBONE": "resnet101_fpn", "POOL_SIZE": 7, "POOLING_MODE": "align_pallas",
+                  "NUM_CLASSES": 81, "FC_DIM": 1024, "FC7_DIM": 0, "STEM_S2D": False},
+        "TEST": {"SCALES": (800,), "MAX_SIZE": 1333}})
+
+
+def levels_bound(args):
+    """(bound_ms, bound_by) of one levels launch on its recorded ``args``:
+    :func:`roi_bound` on each level's map with the rois the level rule gives
+    it, at ``1 / stride``, summed over the levels (as the benchmark's
+    ``roi_align_levels_roofline`` sums them); ``bound_by`` each level's."""
+    from aznet_tpu_torch.ops import roi_pool as troi
+
+    levels, rois, strides, _, w_first, _ = args
+    level = troi.box_levels(rois, strides)
+    parts = [roi_bound(feat, rois[level == k], wf, 1.0 / s)
+             for k, (feat, s, wf) in enumerate(zip(levels, strides, w_first))
+             if bool((level == k).any())]
+    return sum(ms for ms, _ in parts), "/".join(by for _, by in parts)
+
+
+def phase8c_fpn_detect(dev):
+    """One bf16 ``make_detect_batch`` call of the R-101-FPN detector at the
+    benchmark cell's size (4 images, 1000 boxes each over all four levels),
+    every launch count set to 0 just before and read just after, every
+    launch held against its plain version; the next two calls, which capture
+    and replay the trunk's CUDA graph, against its bits and counts; the
+    call's time (replays); then the levels kernel alone on
+    the call's first image (events, device and host time, its plain
+    version, the einsum ``'align'`` over the levels, the bound summed over
+    the levels). Returns the launches, the kernels' errors, img/s and the
+    kernel's times."""
+    import torch
+
+    from aznet_tpu_torch import api, kernels
+    from aznet_tpu_torch.ops import roi_pool as troi
+    from aznet_tpu_torch.ops.cuda import launch_counts, set_launch_counts
+
+    cfg = fpn_config()
+    t0 = time.perf_counter()
+    net = api.build_frcnn_net(cfg, device=dev)
+    torch.cuda.synchronize()
+    print(f"phase8c build_frcnn_net (resnet101_fpn): {time.perf_counter() - t0:.2f} s, "
+          f"{sum(p.numel() for p in net.model.parameters())} params", flush=True)
+    h, w = FPN_RAW_HW
+    rng = np.random.RandomState(8)
+    images = torch.from_numpy(
+        rng.randint(0, 256, (FPN_BATCH,) + FPN_RAW_HW + (3,)).astype(np.uint8)).to(dev)
+    side = np.exp(rng.uniform(np.log(16), np.log(h), (FPN_BATCH, FPN_BOXES, 1)))
+    aspect = np.exp(rng.uniform(np.log(0.5), np.log(2.0), (FPN_BATCH, FPN_BOXES, 1)))
+    wh = np.minimum(side * np.concatenate([np.sqrt(aspect), 1 / np.sqrt(aspect)], -1),
+                    (w - 1, h - 1))
+    xy = rng.uniform(0, 1, (FPN_BATCH, FPN_BOXES, 2)) * ((w - 1, h - 1) - wh)
+    boxes = torch.from_numpy(np.concatenate([xy, xy + wh], -1).astype(np.float32)).to(dev)
+    fn = api.make_detect_batch(net.model, cfg, FPN_CANVAS)
+    fn(images, boxes)  # builds the kernels
+    torch.cuda.synchronize()
+
+    before = launch_counts()
+    with kernels.recording() as recorded:
+        set_launch_counts()
+        scores, pred = fn(images, boxes)
+        torch.cuda.synchronize()
+        now = launch_counts()
+    set_launch_counts({k: before[k] + v for k, v in now.items()})  # main's running counts
+    launched = {k: v for k, v in now.items() if v}
+    print(f"phase8c main path: launches {launched}", flush=True)
+    want = {"frozen_bn": 100, "roi_align_levels": FPN_BATCH}
+    check(launched == want, f"phase8c: launches {launched}, not {want}")
+    for i in range(FPN_BATCH):
+        check_detections(f"phase8c image {i}", scores[i], pred[i], FPN_RAW_HW,
+                         cfg.MODEL.NUM_CLASSES)
+    calls = [r.args for r in recorded if r.name == "roi_align_levels"]
+    split = [troi.box_levels(a[1], a[2]).bincount(minlength=4).tolist() for a in calls]
+    check(all([tuple(f.shape) for f in a[0]] == list(FPN_LEVELS) and a[0][0].dtype ==
+              torch.bfloat16 and a[3] == 7 and a[1].shape[0] == FPN_BOXES for a in calls)
+          and all(min(n) > 0 for n in split),
+          f"phase8c: the levels kernel not at pool 7 on the {FPN_LEVELS} bf16 maps with "
+          f"{FPN_BOXES} boxes on every level (boxes a level {split})")
+    errs = hold("phase8c", recorded)
+    check(errs.keys() == want.keys(), f"phase8c: kernels held {sorted(errs)}")
+    args = calls[0]
+    recorded.clear()
+    # Outside a recording the trunk's next call captures its CUDA graph and the
+    # one after replays it: each gives the held call's bits and counts its launches.
+    running = launch_counts()
+    for tag in ("capture", "replay"):
+        set_launch_counts()
+        got = fn(images, boxes)
+        torch.cuda.synchronize()
+        n = {k: v for k, v in launch_counts().items() if v}
+        same = [torch.equal(a, b) for a, b in zip(got, (scores, pred))]
+        print(f"phase8c trunk graph {tag}: launches {n}, bits of the held call {same}", flush=True)
+        check(n == want and all(same), f"phase8c trunk graph {tag}: launches {n}, same {same}")
+        running = {k: running[k] + n.get(k, 0) for k in running}
+    set_launch_counts(running)
+
+    ms = cuda_ms(lambda: fn(images, boxes), 5, 2)
+    torch.cuda.reset_peak_memory_stats()
+    fn(images, boxes)
+    peak = torch.cuda.max_memory_allocated()
+    ips = FPN_BATCH / (ms / 1e3)
+    print(f"phase8c make_detect_batch b={FPN_BATCH} R={FPN_BOXES}: {ms:.3f} ms/call, "
+          f"{ips:.2f} img/s; peak {peak} bytes", flush=True)
+    del net
+    torch.cuda.empty_cache()
+
+    levels, rois, strides = args[:3]
+    run = lambda: troi.roi_align_levels(levels, rois, strides, 7)
+    k = {"ms": cuda_ms(run, 50, 3), "device_us": device_us(run, "roi_align_levels_kernel"),
+         "host_us": host_us(run),
+         "plain_ms": cuda_ms(lambda: troi.roi_align_levels_reference(*args), 5, 1),
+         "library_ms": cuda_ms(lambda: troi.roi_pool_levels(levels, rois, strides, 7,
+                                                             mode="align"), 5, 1),
+         "bound": levels_bound(args), "boxes_a_level": split[0]}
+    print(f"phase8c roi_align_levels alone ({' / '.join(map(str, split[0]))} boxes on P2-P5): "
+          f"{roi_times_line(k)}; plain {k['plain_ms']:.4f} ms, library (einsum 'align' a "
+          f"level) {k['library_ms']:.4f} ms, bound {k['bound'][0] * 1e3:.3f} us "
+          f"({k['bound'][1]})", flush=True)
+    return {"launches": launched, "err": errs, "ips": ips, "kernel": k}
 
 
 def phase9_small(dev):
@@ -2587,7 +2732,8 @@ def phase10_eval(dev, card):
             net8, imdb, max_images=EVAL_IMAGES, batched=True, batch_size=EVAL_BATCH))
     launches = launch_counts()
     print(f"phase10 main path: launches {launches}", flush=True)
-    check(all(v > 0 for k, v in launches.items() if k not in ("iou", "conv1_f32", "frozen_bn")),
+    check(all(v > 0 for k, v in launches.items()
+              if k not in ("iou", "conv1_f32", "frozen_bn", "roi_align_levels")),
           f"a kernel never ran on the eval path: {launches}")
     # Recall takes its IoU from the host (eval/recall.py): no driver calls the IoU kernel.
     # The nets are VGG-16, which has no frozen BatchNorm.
@@ -4169,6 +4315,7 @@ def main(argv) -> int:
     set_launch_counts({"iou": 0})
     res = phase8_resnet(dev)
     c4 = phase8b_c4_detect(dev)
+    fpn = phase8c_fpn_detect(dev)
     small = phase9_small(dev)
     iou_path_launches += launch_counts()["iou"]
     ev = phase10_eval(dev, card)  # sets the IoU count to 0 and reads it with the others
@@ -4191,7 +4338,7 @@ def main(argv) -> int:
               ("resnet50 bf16", "resnet50 int8", "caffenet", "vgg_cnn_m_1024"), paths)),
           flush=True)
     # Each kernel's largest error on the paths' own inputs, phases 2, 4, 6 and 8-15.
-    path_errs = [p2["err"], int8["err"], det["err"], c4["err"], ev["err"], tr["err"], tl["err"],
+    path_errs = [p2["err"], int8["err"], det["err"], c4["err"], fpn["err"], ev["err"], tr["err"], tl["err"],
                  mp["err"], p15["path_errs"], *(p["err"] for p in paths),
                  *(last[k]["err"] for k in ("c12", "xla", "conv1_f32"))]
 
@@ -4302,6 +4449,17 @@ def main(argv) -> int:
         "bound_ms": fsum["bound_us"] / 1e3, "bound_by": "bytes", "library_ms": None,
         "trunk_ms": fbn["trunk_ms"], "peak_bytes": fbn["peak_bytes"],
         "batch": FROZEN_BN_BATCH, "canvas": RESNET_CANVAS})
+    lv = fpn["kernel"]
+    records.append({
+        "name": "roi_align_levels", "route": "cuda", "source": ROI_SOURCE, "replaces": None,
+        "plain": ROI_LEVELS_PLAIN, "launches": fpn["launches"]["roi_align_levels"],
+        "eval_launches": ev["launches"]["roi_align_levels"],
+        "train_launches": train["roi_align_levels"], "tools_launches": tools["roi_align_levels"],
+        "mesh_launches": mesh["roi_align_levels"], "max_abs_err": path_err("roi_align_levels"),
+        "ms": lv["ms"], "device_us": lv["device_us"], "host_us": lv["host_us"],
+        "plain_ms": lv["plain_ms"], "bound_ms": lv["bound"][0], "bound_by": lv["bound"][1],
+        "library_ms": lv["library_ms"], "boxes_a_level": lv["boxes_a_level"],
+        "canvas": FPN_CANVAS})
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

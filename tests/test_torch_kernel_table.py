@@ -39,6 +39,13 @@ def kernel_args(name: str, seed: int = 0) -> tuple:
     if name == "roi_align":
         feat = torch.randn(10, 12, 16, generator=g).to(torch.bfloat16)
         return feat, _boxes(rng, 5, 150.0), 1 / 16.0, 3, False
+    if name == "roi_align_levels":  # 5 boxes over three levels, their orders by seed
+        levels = tuple(torch.randn(h, w, 16, generator=g).to(torch.bfloat16)
+                       for h, w in ((20, 24), (10, 12), (5, 6)))
+        rois = torch.tensor([[2, 3, 30, 40], [0, 0, 150, 110], [0, 0, 250, 230], [1, 2, 12, 9],
+                             [10, 0, 79, 63]], dtype=torch.float32)
+        return levels, rois, (4, 8, 16), 3, (bool(seed % 2), False, True), (112.0 ** 2,
+                                                                            224.0 ** 2)
     if name in ("conv1", "conv1_f32"):
         dtype = torch.float32 if name == "conv1_f32" else torch.bfloat16
         layout = tconv1.kernel_layout_f32 if name == "conv1_f32" else tconv1.kernel_layout
